@@ -1,0 +1,183 @@
+"""Build, bind and count the port's hand-written CUDA kernels.
+
+All ``csrc/*.cu`` sources compile with nvcc into ONE shared library with a
+plain C interface (every launcher is ``extern "C"`` and returns its
+``cudaError_t``), loaded with ctypes.  The build happens on first use,
+into ``build/torch_kernels/<hash>/`` at the root of the checkout, keyed by
+a hash of the sources and the flags, so a fresh checkout builds
+everything it runs.  Importing this module builds nothing: the CPU tests
+import every module on machines with no nvcc.
+
+Each kernel is a :class:`Kernel`: its wrapper calls it only for CUDA
+tensors, and ``launches`` counts the launches that the launcher accepted.
+``plain_calls`` counts the wrapper's calls that took the plain PyTorch
+version, which it does only for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+
+import torch
+
+_PKG = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+LIB_NAME = "libffv2_torch_kernels.so"
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+LL = ctypes.c_longlong
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _sources() -> list[str]:
+    return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                  if f.endswith((".cu", ".cuh")))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where "
+                       "the CUDA toolkit is installed")
+
+
+def library_path() -> str:
+    """Where the library for the current sources lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(os.path.basename(src).encode())
+        with open(src, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_ROOT, h.hexdigest()[:16], LIB_NAME)
+
+
+def build() -> str:
+    """Compile the library unless this hash is built; returns its path.
+    nvcc's output (``-Xptxas -v``: registers, shared memory, spills per
+    kernel) is kept beside it as build.log."""
+    path = library_path()
+    if os.path.exists(path):
+        return path
+    out_dir = os.path.dirname(path)
+    os.makedirs(out_dir, exist_ok=True)
+    cu = [s for s in _sources() if s.endswith(".cu")]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    try:
+        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
+                             capture_output=True, text=True)
+        with open(os.path.join(out_dir, "build.log"), "w") as f:
+            f.write(res.stdout + res.stderr)
+        if res.returncode != 0:
+            raise RuntimeError("nvcc failed:\n" + res.stdout + res.stderr)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return path
+
+
+def load() -> ctypes.CDLL:
+    """Build if needed, then load the library once per process."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            lib.ffv2_error_string.argtypes = [I]
+            lib.ffv2_error_string.restype = ctypes.c_char_p
+            for k in KERNELS.values():
+                fn = getattr(lib, k.symbol)
+                fn.argtypes = k.argtypes
+                fn.restype = I
+            _lib = lib
+        return _lib
+
+
+class Kernel:
+    """One launcher of the library, with its launch count."""
+
+    def __init__(self, name: str, symbol: str, argtypes: list,
+                 source: str, replaces: str):
+        self.name = name
+        self.symbol = symbol
+        self.argtypes = argtypes
+        self.source = source
+        self.replaces = replaces
+        self.launches = 0
+        self.plain_calls = 0
+
+    def plain_for(self, device) -> bool:
+        """Whether the wrapper takes the plain version: True (and counted)
+        for CPU tensors, False for CUDA tensors; other devices raise."""
+        if device.type == "cpu":
+            self.plain_calls += 1
+            return True
+        if device.type != "cuda":
+            raise ValueError(f"{self.name}: unsupported device {device}")
+        return False
+
+    def check(self, name: str, t, shape, device, dtype=torch.int32):
+        """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape``
+        on ``device``."""
+        if (t.dtype != dtype or tuple(t.shape) != tuple(shape)
+                or not t.is_contiguous() or t.device != device):
+            raise ValueError(
+                f"{self.name}: {name} must be a contiguous {dtype} "
+                f"{tuple(shape)} tensor on {device}, got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device} (contiguous: "
+                f"{t.is_contiguous()})")
+
+    def launch(self, *args) -> None:
+        """Call the launcher (pointers and the stream as ints); raise if
+        CUDA refused the launch."""
+        lib = load()
+        err = getattr(lib, self.symbol)(*args)
+        if err != 0:
+            msg = lib.ffv2_error_string(err).decode()
+            raise RuntimeError(f"{self.name} kernel: CUDA error {err}: {msg}")
+        self.launches += 1
+
+
+KERNELS = {k.name: k for k in (
+    Kernel("place", "ffv2_place_cells", [P, P, P, LL, LL, P, P, P],
+           "ffmpeg_ffv2_tpu_torch/csrc/place.cu",
+           "ffmpeg_ffv2_tpu/ops/place_pallas.py:63"),
+    Kernel("adapt", "ffv2_adapt", [P, P, P, P, P, P, P, I, I, P, P, P],
+           "ffmpeg_ffv2_tpu_torch/csrc/adapt.cu",
+           "ffmpeg_ffv2_tpu/ffv1/adapt_pallas.py:189"),
+    Kernel("expand", "ffv2_expand",
+           [P, I, P, P, P, P, P, P, I, I, I, I, P, P],
+           "ffmpeg_ffv2_tpu_torch/csrc/expand.cu",
+           "ffmpeg_ffv2_tpu/ffv1/expand_pallas.py:130"),
+    Kernel("rac_render", "ffv2_rac_render", [P, I, I, I, P, I, P, P],
+           "ffmpeg_ffv2_tpu_torch/csrc/rac_render.cu",
+           "ffmpeg_ffv2_tpu/ffv1/pallas_coder.py:109 + "
+           "ffmpeg_ffv2_tpu/ffv1/render_pallas.py:62,163"),
+)}
+
+
+def reset_counts() -> None:
+    for k in KERNELS.values():
+        k.launches = 0
+        k.plain_calls = 0
+
+
+def stream_handle(t) -> int:
+    """The current CUDA stream of tensor ``t``'s device, as an int."""
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,559 @@
+"""FFV1 encoder with phase A and the range coder on an NVIDIA GPU.
+
+Counterpart of ``ffmpeg_ffv2_tpu/ffv1/device_coder.py`` for the range
+coder on uniform slice geometries at coding depths <= 10: the plain torch
+stages ``repack_emission_order``, ``layout_plan``, ``build_s0_blocks``,
+``writeback_canonical`` and the unsort (``_s_unsort_impl``), and the
+session class ``DeviceFFV1Encoder`` (``__init__``, ``ops_from_streams``,
+``_s_front``, ``_code_render``, ``_render_retry``, ``encode``,
+``_finish_packet``, ``_encode_frame_data``).
+
+One frame runs phase A (plain torch), the chain-grouping layout (plain
+torch), then the four CUDA kernels: K1 ``ops/place.py`` places the cells,
+K2 ``adapt.py`` walks the context states, K3 ``expand.py`` lays out each
+slice's rac ops and K4 ``rac.py`` codes and renders each slice's bytes.
+The host reads the layout sizes once per frame to check the adaptive caps
+(and retries larger on a miss), and adds the slice trailers.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ffmpeg_ffv2_tpu.core.crc import crc32_trailer
+from ffmpeg_ffv2_tpu.ffv1.codec_py import SliceState
+from ffmpeg_ffv2_tpu.ffv1.params import (FFV1Config, params_from_config,
+                                         CODER_GOLOMB)
+from ffmpeg_ffv2_tpu.ffv1 import headers as H
+
+from ..ops.place import place
+from . import host
+from .adapt import adapt
+from .expand import expand
+from .phase_a import lut_for, phase_a
+from .rac import rac_render
+from .symbols import event_count, exponent
+
+INT32_MAX = 2 ** 31 - 1
+I32 = torch.int32
+
+
+def _set_drop(dst, idx, val):
+    """jax's ``dst.at[idx].set(val, mode="drop")`` for a 1-D ``dst`` and
+    unique in-range indices: indices outside ``dst`` are dropped."""
+    n = dst.shape[0]
+    ok = (idx >= 0) & (idx < n)
+    ext = torch.cat([dst, dst.new_zeros(1)])
+    # every dropped element lands on the spare slot past the end
+    ext.scatter_(0, torch.where(ok, idx, n).long().reshape(-1),
+                 val.reshape(-1).to(dst.dtype))
+    return ext[:n]
+
+
+def repack_emission_order(sv_words, diff, code_bits: int,
+                          n_words: int | None = None):
+    """Slot-packed sv words (..., 8, 128) -> emission-order byte words
+    (..., Wk, 128): byte k of a cell's output (word k >> 2, byte k & 3) is
+    the sv byte its k-th rac op consumes.  ``n_words`` caps Wk (the
+    adaptive unsort width).  Coding depths <= 10."""
+    if code_bits > 10:
+        raise NotImplementedError("repack_emission_order: coding depth "
+                                  "above 10 is not ported yet")
+    k_max = host.k_max_for_bits(code_bits)
+    Wk = (k_max + 3) // 4
+    if n_words is not None:
+        Wk = min(Wk, n_words)
+    e = exponent(diff.abs())
+    outs = []
+    for m in range(Wk):
+        acc = torch.zeros_like(diff)
+        for k in range(4 * m, min(4 * m + 4, k_max)):
+            if k == 0:
+                slot = torch.zeros_like(e)
+            else:
+                mant_i = 2 * e + 1 - k
+                slot = torch.where(
+                    k <= e, min(k, 10),
+                    torch.where(k == e + 1, torch.clamp(e + 1, max=10),
+                                torch.where(k <= 2 * e + 1,
+                                            22 + torch.clamp(mant_i, max=9),
+                                            11 + torch.clamp(e, max=10))))
+            b = sv_words.gather(-2, (slot >> 2).long().unsqueeze(-2))
+            b = (b.squeeze(-2) >> ((slot & 3) * 8)) & 0xFF
+            acc = acc | (b << ((k & 3) * 8))
+        outs.append(acc)
+    return torch.stack(outs, dim=-2)
+
+
+def layout_plan(row_local, diff, rows_per_slice: int, slots_cap: int,
+                tiles_cap: int):
+    """Group-sort + lane/tile layout (device_coder.py:426 layout_plan,
+    8-bit payload field).  Every key of the returned dict equals JAX's.
+
+    row_local/diff: int32 (n_slices, npix) per-slice coding-order streams;
+    row_local is the slice-local chain row (plane-class offset + context).
+    Pixels merge with one sentinel record per chain row and sort by
+    (row, stream index); the sentinel carries its group's lane word,
+    which a forward fill spreads over the group.  Lanes: buckets of GCAP
+    sub-lanes of split groups first (bucket k = every group's k-th
+    sub-block), then whole groups by (length desc, group asc), 128 lanes
+    per tile."""
+    dev = row_local.device
+    gcap = host.GCAP
+    S, npix = row_local.shape
+    G = S * rows_per_slice
+    M = npix + rows_per_slice                 # merged pixels + sentinels
+    B = max(int(npix).bit_length(), 1)
+    nsb_cap = npix // gcap + 2
+
+    def ar(n):
+        return torch.arange(n, dtype=I32, device=dev)
+
+    pidx = ar(npix)[None, :]
+    gq = ar(rows_per_slice)[None, :]
+    diff_m = torch.cat([diff, diff.new_zeros((S, rows_per_slice))], dim=1)
+    key = torch.cat([(row_local.long() << B) | (pidx + 1),
+                     (gq.long() << B).expand(S, rows_per_slice)], dim=1)
+    key, order = torch.sort(key, dim=1)                  # keys unique
+    diff_s = diff_m.gather(1, order)
+    sidx = (key & ((1 << B) - 1)).to(I32)
+    is_sent = sidx == 0
+    idx_s = sidx - 1                                     # pixel stream index
+    pidx2 = ar(M)[None, :]
+    st = torch.cummax(torch.where(is_sent, pidx2, -1), dim=1).values
+    r = pidx2 - st - 1                                   # rank within group
+    # sentinels sort in chain-row order: slice s's k-th sentinel position
+    # starts group (s, k); sizes are adjacent differences
+    spos = torch.sort(torch.where(is_sent, pidx2, INT32_MAX),
+                      dim=1).values[:, :rows_per_slice]
+    nxt_spos = torch.cat([spos[:, 1:], spos.new_full((S, 1), M)], dim=1)
+    size_f = (nxt_spos - spos - 1).reshape(-1)
+
+    # ---- group-domain class ordering: buckets (split groups and
+    # exact-GCAP groups) by (n_sb desc, group asc), then whole groups by
+    # (size desc, group asc); empty groups last
+    nsb = (size_f + gcap - 1) // gcap
+    is_bucket = (nsb > 1) | (size_f == gcap)
+    ckey = torch.where(is_bucket, -nsb, (1 << 30) + (gcap - size_f))
+    ckey_s, order = torch.sort(ckey, stable=True)
+    g_sorted = order.to(I32)
+    nsb_sorted = nsb[order]
+    size_sorted = size_f[order]
+    isb_sorted = ckey_s < 0
+    Mb = isb_sorted.sum(dtype=I32)                       # bucket groups
+    rank_sorted = ar(G) - torch.where(isb_sorted, 0, Mb)
+
+    kk = ar(nsb_cap)
+    Mk = torch.searchsorted(ckey_s, -kk, out_int32=True)
+    ntiles_k = (Mk + 127) // 128                         # buckets pad tiles
+    base_k = torch.cumsum(ntiles_k, 0, dtype=I32) - ntiles_k
+    n_bucket_tiles = ntiles_k.sum(dtype=I32)
+    n_nonempty_norm = torch.searchsorted(
+        ckey_s, ckey_s.new_full((1,), (1 << 30) + gcap),
+        out_int32=True)[0] - Mb
+
+    # ---- tile tables (tile domain)
+    T = ar(tiles_cap)
+    isbt = T < n_bucket_tiles
+    k_of_T = torch.clamp(torch.searchsorted(base_k, T, right=True,
+                                            out_int32=True) - 1,
+                         0, nsb_cap - 1)
+    nidx = Mb + 128 * (T - n_bucket_tiles)
+    ncap = torch.where((nidx >= Mb) & (nidx < G),
+                       size_sorted[torch.clamp(nidx, 0, G - 1).long()], 0)
+    tile_caps = torch.where(isbt, gcap, ncap).to(I32)
+    tile_bases = torch.cumsum(tile_caps, 0, dtype=I32) - tile_caps
+    prev_base = base_k[torch.clamp(k_of_T - 1, min=0).long()]
+    tile_pred = torch.where(isbt & (k_of_T > 0),
+                            T - (base_k[k_of_T.long()] - prev_base),
+                            -1).to(I32)
+
+    # ---- slot-indexed lane tables: the sb = 0 lane of every group, then
+    # the sub-lanes k >= 1 of the split groups (a prefix of the class
+    # ordering)
+    slot0 = torch.where(isb_sorted, rank_sorted,
+                        n_bucket_tiles * 128 + rank_sorted)
+    last0 = ((nsb_sorted == 1) & (size_sorted > 0)).to(I32)
+    lane_tab = _set_drop(torch.zeros(slots_cap, dtype=I32, device=dev),
+                         slot0, (g_sorted << 2) | last0)
+    split_cap = min(S * npix // gcap + 2, G)
+    sg = g_sorted[:split_cap]
+    snsb = nsb_sorted[:split_cap]
+    ks = ar(nsb_cap)[None, 1:]
+    validk = ks < snsb[:, None]
+    slotk = base_k[None, 1:] * 128 + ar(split_cap)[:, None]
+    lastk = (ks == snsb[:, None] - 1).to(I32)
+    packedk = (sg[:, None] << 2) | 2 | lastk
+    lane_tab = _set_drop(lane_tab,
+                         torch.where(validk, slotk, INT32_MAX), packedk)
+
+    # ---- per-pixel destinations: each group's lane word rides its
+    # sentinel and a forward fill; bucket -> (rank << 1) | 1, whole group
+    # -> its lane's first cell << 1
+    norm_tile = torch.clamp(n_bucket_tiles + (rank_sorted >> 7), 0,
+                            tiles_cap - 1)
+    cell0 = tile_bases[norm_tile.long()] * 128 + (rank_sorted & 127)
+    wprime = torch.where(isb_sorted, (rank_sorted << 1) | 1, cell0 << 1)
+    w_tab = torch.zeros(G, dtype=I32, device=dev).scatter_(
+        0, g_sorted.long(), wprime.to(I32))
+    sent_at = (ar(S)[:, None] * M + spos).reshape(-1)
+    wfill = _set_drop(torch.full((S * M,), -1, dtype=I32, device=dev),
+                      sent_at, w_tab).reshape(S, M)
+    last_set = torch.cummax(torch.where(wfill >= 0, pidx2, -1),
+                            dim=1).values
+    wfill = wfill.gather(1, torch.clamp(last_set, min=0).long())
+
+    sb = torch.div(r, gcap, rounding_mode="floor")
+    t2 = r - sb * gcap
+    bk = base_k[torch.clamp(sb, 0, nsb_cap - 1).long()]
+    v = wfill >> 1
+    dest_b = (gcap * (bk + (v >> 7)) + t2) * 128 + (v & 127)
+    dest = torch.where(is_sent, INT32_MAX,
+                       torch.where((wfill & 1) == 1, dest_b, v + r * 128))
+    # cell channel: diff + 2048 in bits 0..11, pixel-valid flag in bit 13
+    ch1 = (diff_s + 2048) | ((~is_sent).to(I32) << 13)
+    orig = torch.where(is_sent, INT32_MAX, ar(S)[:, None] * npix + idx_s)
+    return dict(ch1=ch1.reshape(-1).to(I32), orig=orig.reshape(-1).to(I32),
+                dest=dest.reshape(-1).to(I32),
+                tile_caps=tile_caps, tile_bases=tile_bases,
+                tile_pred=tile_pred, lane_rows=lane_tab >> 2,
+                lane_cont=(lane_tab >> 1) & 1, lane_last=lane_tab & 1,
+                n_rows=tile_caps.sum(dtype=I32),
+                n_tiles=(n_bucket_tiles
+                         + (torch.clamp(n_nonempty_norm, min=0) + 127)
+                         // 128),
+                n_slots=n_bucket_tiles * 128 + n_nonempty_norm)
+
+
+def build_s0_blocks(plan, canonical, tiles_cap: int):
+    """(TILES_CAP, 33, 128) int32 start-state blocks from the canonical
+    per-chain state table ((rows, 32) uint8): slot rows in SLOT_AT_ROW
+    order, row 32 = continuation flag."""
+    rows = plan["lane_rows"].reshape(tiles_cap, 128).long()
+    cont = plan["lane_cont"].reshape(tiles_cap, 128)
+    perm = torch.as_tensor(host.SLOT_AT_ROW, device=canonical.device).long()
+    s0 = canonical.to(I32)[:, perm][rows]                     # (T,128,32)
+    return torch.cat([s0.permute(0, 2, 1), cont[:, None, :]],
+                     dim=1).contiguous()
+
+
+def writeback_canonical(plan, canonical, end_states, tiles_cap: int):
+    """Store group-end states back into the canonical table for the next
+    (inter) frame; only lanes holding their group's last sub-block
+    write.  end_states rows are in SLOT_AT_ROW order."""
+    rows = plan["lane_rows"].reshape(-1).long()
+    last = plan["lane_last"].reshape(-1) > 0
+    perm = torch.as_tensor(host.ROW_OF_SLOT, device=canonical.device).long()
+    ends = end_states[:, perm, :].permute(0, 2, 1).reshape(-1, 32)
+    n = canonical.shape[0]
+    ext = torch.cat([canonical, canonical.new_zeros((1, 32))])
+    # lanes that do not write land on the spare row past the table
+    ext[torch.where(last, rows, n)] = ends.to(torch.uint8)
+    return ext[:n]
+
+
+def unsort_cells(ev_cells, ch1c, ch2c, S: int, npix: int):
+    """Cells -> stream order.  ch2c holds each real cell's stream index
+    (unique; empty cells INT32_MAX), so one scatter replaces the payload
+    sort.  Returns (words (W, S, npix) int32, maxc): maxc is the frame's
+    largest op count over the valid cells, checked against the unsort
+    width by the caller."""
+    n = S * npix
+    W = ev_cells.shape[1]
+    keys = ch2c.reshape(-1)
+    idx = torch.where(keys < n, keys, n).long()
+    words = ev_cells.permute(1, 0, 2).reshape(W, -1)
+    out = torch.zeros((W, n + 1), dtype=I32, device=ev_cells.device)
+    out.scatter_(1, idx.expand(W, -1), words)
+    diff_c = (ch1c & 0x1FFF) - 2048
+    maxc = torch.where(((ch1c >> 13) & 1) == 1, event_count(diff_c),
+                       0).max()
+    return out[:, :n].reshape(W, S, npix).contiguous(), maxc
+
+
+class DeviceFFV1Encoder:
+    """FFV1 encode with phase A and the range coder on a CUDA device.
+
+    Covers the range coder (custom table, coder=1, and the default table,
+    coder=-2) on uniform slice geometries of YUV/gray formats up to 10
+    bits; one keyframe followed by inter frames carries the context
+    states from frame to frame.  device="cpu" runs every kernel's plain
+    PyTorch version (tests).  Raises NotImplementedError for the rest of
+    the JAX encoder's format matrix."""
+
+    def __init__(self, width: int, height: int, pix_fmt: str,
+                 config: FFV1Config | None = None, device="cuda"):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("DeviceFFV1Encoder: device='cuda' but torch "
+                               "sees no CUDA device")
+        if self.device.type not in ("cuda", "cpu"):
+            raise ValueError(f"unsupported device {self.device}")
+        self.cfg = config or FFV1Config()
+        p = self.p = params_from_config(self.cfg, pix_fmt, width, height)
+        if p.version == 2:
+            raise NotImplementedError(
+                "device coder: versions 0/1/3/4 (v2's in-band slice table "
+                "is a deprecated transitional layout)")
+        if p.ac == CODER_GOLOMB:
+            raise NotImplementedError(
+                "torch device coder: the Golomb-Rice coder is not ported "
+                "yet; use the range coder (coder=1 or -2)")
+        if p.colorspace == 1:
+            raise NotImplementedError(
+                "torch device coder: RGB and its RCT (incl. v4 RGB) are "
+                "not ported yet")
+        if p.bits > 10:
+            raise NotImplementedError(
+                "torch device coder: coding depth above 10 needs the "
+                "repeat sub-steps, which are not ported yet")
+        if p.initial_states is not None:
+            raise NotImplementedError(
+                "torch device coder: 2-pass initial states are not ported "
+                "yet")
+        self.code_bits = p.bits
+        self.crop_plan = host.build_crop_plan(p)
+        for prects in self.crop_plan:
+            if len({(w, h) for (_, _, w, h) in prects}) > 1:
+                raise NotImplementedError(
+                    "torch device coder: non-uniform slice geometry needs "
+                    "shape banks, which are not ported yet")
+        self.S = p.slice_count
+        self.qt = lut_for(p, p.context_model)
+        self.five = bool(p.quant_tables[p.context_model][3][127]
+                         or p.quant_tables[p.context_model][4][127])
+
+        # stream: whole planes concatenated per slice; chain rows are
+        # (plane class, context) with plane class (plane + 1) // 2
+        plane_sizes = [prects[0][2] * prects[0][3]
+                       for prects in self.crop_plan]
+        self.npix = int(np.sum(plane_sizes))
+        pclass = np.concatenate([np.full(sz, (li + 1) // 2, np.int32)
+                                 for li, sz in enumerate(plane_sizes)])
+        class_counts = SliceState(p).plane_ctx_count
+        class_off = np.zeros(p.plane_count, np.int32)
+        class_off[1:] = np.cumsum(class_counts[:-1])
+        self.rows_per_slice = int(np.sum(class_counts))
+        self.class_off_stream = torch.as_tensor(class_off[pclass],
+                                                device=self.device)
+
+        n = self.S * self.npix
+        self.n_chain_rows = self.S * self.rows_per_slice
+        # worst-case bounds and content-typical starting sizes of the
+        # adaptive working domains (grown on overflow, on quantize_cap
+        # rungs)
+        gcap = host.GCAP
+        n_buckets = self.npix // gcap + 2
+        self.tiles_max = (n // gcap + 2 * n_buckets
+                          + self.n_chain_rows // 128 + 8)
+        self.cellrows_max = (n // 128 + (n_buckets + 2) * gcap
+                             + self.tiles_max + 128)
+        self.tiles_cap = host.quantize_cap(
+            n // gcap + self.n_chain_rows // 128 + 72, self.tiles_max)
+        self.cellrows_cap = host.quantize_cap(
+            n // 128 * 5 // 4 + 2 * gcap + 256, self.cellrows_max)
+
+        self.table = torch.as_tensor(host.packed_transition_table(p),
+                                     device=self.device)
+        self.canonical_key = torch.full((self.n_chain_rows + 1, 32), 128,
+                                        dtype=torch.uint8,
+                                        device=self.device)
+        self.canonical = self.canonical_key
+        self.extradata = H.write_extradata(p) if p.version > 1 else b""
+
+        # host-planned per-slice prefix ops (constant per keyframe flag)
+        rects = p.rects()
+        self.prefix = {}
+        for key in (True, False):
+            ops = [host.plan_slice_prefix(p, SliceState(p), si, rects[si],
+                                          key) for si in range(self.S)]
+            hmax = max(len(sv) for sv, _ in ops)
+            svp = np.zeros((self.S, hmax), np.int32)
+            btp = np.zeros((self.S, hmax), np.int32)
+            for si, (sv, bit) in enumerate(ops):
+                svp[si, :len(sv)] = sv
+                btp[si, :len(bit)] = bit
+            hlen = np.array([len(sv) for sv, _ in ops], np.int32)
+            self.prefix[key] = tuple(torch.as_tensor(a, device=self.device)
+                                     for a in (svp, btp, hlen))
+
+        hmax = max(int(self.prefix[k][0].shape[1]) for k in (True, False))
+        k_max = host.k_max_for_bits(self.code_bits)
+        self.op_cap_max = -(-(self.npix * k_max + hmax + 8)
+                            // host.OP_GRAN) * host.OP_GRAN
+        self.op_cap = host.quantize_cap(self.npix * 4 + hmax + 1024,
+                                        self.op_cap_max, host.OP_GRAN)
+        self.render_cap_max = self.op_cap_max + 16
+        self.render_cap = host.quantize_cap(self.npix + 4096,
+                                            self.render_cap_max, 4096)
+        # emission-order words carried through the unsort: 2 words = 8
+        # ops covers |diff| <= 7; grows to the content's ceil(maxops/4)
+        self.unsort_words = min(2, host.n_ev_words(self.code_bits))
+        self._shrinks = 2            # op_cap tightening budget
+        self.picture_number = 0
+
+    # -- codec state ---------------------------------------------------------
+
+    def state(self) -> np.ndarray:
+        """The per-chain context-state table (n_chain_rows + 1, 32) uint8
+        that the next inter frame starts from."""
+        return self.canonical.cpu().numpy()
+
+    def load_state(self, canonical: np.ndarray, picture_number: int):
+        """Continue a stream from another session's state (this package's
+        or the JAX DeviceFFV1Encoder's ``canonical``)."""
+        canonical = np.asarray(canonical)
+        shape = (self.n_chain_rows + 1, 32)
+        if canonical.shape != shape or canonical.dtype != np.uint8:
+            raise ValueError(f"load_state: expected uint8 {shape}, got "
+                             f"{canonical.dtype} {canonical.shape}")
+        self.canonical = torch.as_tensor(canonical.copy(),
+                                         device=self.device)
+        self.picture_number = int(picture_number)
+
+    # -- pipeline stages -----------------------------------------------------
+
+    def phase_a(self, planes):
+        """Planes (tensors on the device) -> per-slice (ctx, diff) streams
+        (n_slices, npix) int32."""
+        return phase_a(planes, self.crop_plan, self.qt, self.p.bits,
+                       self.five)
+
+    def layout(self, ctx, diff, tiles_cap: int, cellrows_cap: int):
+        plan = layout_plan(self.class_off_stream[None, :] + ctx, diff,
+                           self.rows_per_slice, tiles_cap * 128, tiles_cap)
+        # under a cap overflow the frame is redone larger; keep every tile
+        # inside the cells regardless
+        lim = cellrows_cap - 1024
+        plan["tile_bases"] = torch.clamp(plan["tile_bases"], max=lim)
+        plan["tile_caps"] = torch.minimum(plan["tile_caps"],
+                                          lim - plan["tile_bases"])
+        return plan
+
+    def front(self, ctx, diff, canonical, keyframe: bool, tiles_cap: int,
+              cellrows_cap: int, ev_words: int):
+        """Layout, K1 place, start states, K2 adapt, the repack to
+        emission order and the state writeback (device_coder._s_front)."""
+        plan = self.layout(ctx, diff, tiles_cap, cellrows_cap)
+        ch1c, ch2c = place(plan["dest"], plan["ch1"], plan["orig"],
+                           cellrows_cap)
+        if keyframe:
+            canonical = self.canonical_key
+        s0 = build_s0_blocks(plan, canonical, tiles_cap)
+        sv, ends = adapt(ch1c, plan["tile_caps"], plan["tile_bases"],
+                         plan["tile_pred"], s0, self.table, self.code_bits)
+        ev = repack_emission_order(sv, (ch1c & 0xFFF) - 2048, self.code_bits,
+                                   ev_words)
+        canonical = writeback_canonical(plan, canonical, ends, tiles_cap)
+        psizes = torch.stack([plan["n_rows"], plan["n_tiles"],
+                              plan["n_slots"]])
+        return ev, ch1c, ch2c, canonical, psizes
+
+    def ops_from_streams(self, ctx, diff, canonical, svp, btp, hlen,
+                         keyframe: bool, caps, ev_words: int):
+        """Streams -> (opw (S, op_cap) int32 op words, n_ops (S,),
+        canonical after the frame, sizes = [rows, tiles, slots, opmax,
+        maxcount])."""
+        tiles_cap, cellrows_cap, op_cap = caps
+        ev, ch1c, ch2c, canonical, psizes = self.front(
+            ctx, diff, canonical, keyframe, tiles_cap, cellrows_cap,
+            ev_words)
+        words, maxc = unsort_cells(ev, ch1c, ch2c, ctx.shape[0], self.npix)
+        opw, n_ops = expand(words, diff, svp, btp, hlen, op_cap)
+        sizes = torch.cat([psizes, n_ops.max()[None], maxc[None]])
+        return opw, n_ops, canonical, sizes
+
+    def _render_retry(self, opw, steps: int):
+        """K4 with render-buffer growth; returns (bytes on the device,
+        host lengths)."""
+        for _ in range(6):
+            by, ln = rac_render(opw, steps, self.render_cap)
+            ln_h = ln.cpu().numpy()
+            if int(ln_h.max()) <= self.render_cap:
+                return by, ln_h
+            self.render_cap = host.quantize_cap(
+                max(int(ln_h.max()) + 4096, self.render_cap + 1),
+                self.render_cap_max, 4096)
+        raise RuntimeError("render buffer exceeded worst-case cap")
+
+    # -- public API ------------------------------------------------------------
+
+    def encode(self, planes, force_keyframe=None) -> bytes:
+        gop = self.cfg.gop_size
+        keyframe = gop == 0 or self.picture_number % gop == 0
+        if force_keyframe is not None:
+            keyframe = bool(force_keyframe)
+        datas = self._encode_frame_data(planes, keyframe)
+        self.picture_number += 1
+        return self._finish_packet(datas)
+
+    def encode_batch(self, frames_list) -> list:
+        raise NotImplementedError(
+            "torch device coder: encode_batch is not ported yet; call "
+            "encode() per frame")
+
+    def _finish_packet(self, chunks) -> bytes:
+        """Per-slice raw data -> packet: 3-byte BE size trailer + optional
+        CRC per slice (ffv1enc.c:1236-1262 layout)."""
+        out = []
+        for si, data in enumerate(chunks):
+            if si > 0 or self.p.version > 2:
+                if len(data) >= 1 << 24:
+                    raise RuntimeError("slice exceeds the 24-bit size field")
+                data += len(data).to_bytes(3, "big")
+                if self.p.ec:
+                    data += b"\x00"
+                    data += crc32_trailer(data)
+            out.append(data)
+        return b"".join(out)
+
+    def _encode_frame_data(self, planes, keyframe: bool) -> list:
+        """One frame -> list of raw slice payloads (no trailers)."""
+        dev = [torch.as_tensor(np.asarray(pl), dtype=I32, device=self.device)
+               for pl in planes]
+        ctx, diff = self.phase_a(dev)
+        svp, btp, hlen = self.prefix[keyframe]
+        for _ in range(8):
+            opw, n_ops, canon, sizes = self.ops_from_streams(
+                ctx, diff, self.canonical, svp, btp, hlen, keyframe,
+                (self.tiles_cap, self.cellrows_cap, self.op_cap),
+                self.unsort_words)
+            rows, tiles, slots, opmax, maxc = sizes.tolist()
+            if (rows + 1024 <= self.cellrows_cap
+                    and tiles <= self.tiles_cap
+                    and slots <= self.tiles_cap * 128
+                    and opmax <= self.op_cap
+                    and maxc <= 4 * self.unsort_words):
+                # tighten a fat op domain to the content's measured scale
+                # (+25%), at most twice per session so the caps settle
+                tight_op = host.quantize_cap(opmax * 5 // 4 + 512,
+                                             self.op_cap_max, host.OP_GRAN)
+                if self._shrinks > 0 and tight_op < self.op_cap:
+                    self._shrinks -= 1
+                    self.op_cap = tight_op
+                # code at the power-of-two step bucket
+                steps = max(512, min(1 << opmax.bit_length(),
+                                     int(opw.shape[1])))
+                by, ln_h = self._render_retry(opw, steps)
+                break
+            # grow the adaptive working sizes to the measured need (+slack)
+            if (rows + 1024 > self.cellrows_cap or tiles > self.tiles_cap
+                    or slots > self.tiles_cap * 128):
+                self.tiles_cap = host.quantize_cap(
+                    max(tiles + 64, self.tiles_cap + 1), self.tiles_max)
+                self.cellrows_cap = host.quantize_cap(
+                    max(rows + 2048, self.cellrows_cap + 1),
+                    self.cellrows_max)
+            if opmax > self.op_cap:
+                self.op_cap = host.quantize_cap(opmax + 512,
+                                                self.op_cap_max,
+                                                host.OP_GRAN)
+            if maxc > 4 * self.unsort_words:
+                self.unsort_words = min(host.n_ev_words(self.code_bits),
+                                        (maxc + 3) // 4)
+        else:
+            raise RuntimeError("device layout exceeded worst-case caps")
+        self.canonical = canon
+        by_h = by.cpu().numpy()
+        return [by_h[li, :int(ln_h[li])].tobytes() for li in range(self.S)]

@@ -1,0 +1,150 @@
+"""The PyTorch port's CUDA kernels on the card: each kernel equals its plain
+PyTorch version, and the encoder's packets equal NativeFFV1Codec's.
+
+Needs an NVIDIA GPU and nvcc; skips itself elsewhere.  The machine with
+the card has no jax, so run this file without the repository's
+conftest.py (which imports jax):
+
+    python -m pytest --noconftest -q tests/test_torch_gpu.py
+"""
+
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+from ffmpeg_ffv2_tpu.ffv1.native import NativeFFV1Codec  # noqa: E402
+from ffmpeg_ffv2_tpu.ffv1.params import (FFV1Config,  # noqa: E402
+                                         params_from_config)
+from ffmpeg_ffv2_tpu_torch import _build  # noqa: E402
+from ffmpeg_ffv2_tpu_torch.ffv1 import adapt as ad  # noqa: E402
+from ffmpeg_ffv2_tpu_torch.ffv1 import device_coder as dc  # noqa: E402
+from ffmpeg_ffv2_tpu_torch.ffv1 import expand as ex  # noqa: E402
+from ffmpeg_ffv2_tpu_torch.ffv1 import host  # noqa: E402
+from ffmpeg_ffv2_tpu_torch.ffv1 import rac  # noqa: E402
+from ffmpeg_ffv2_tpu_torch.ops import place as pl  # noqa: E402
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture(autouse=True)
+def _needs_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
+                    "false)")
+
+
+def _frame(p, w, h, t, rng, sparse):
+    planes = []
+    shapes = [(h, w)] + ([(h >> p.chroma_v_shift, w >> p.chroma_h_shift)]
+                         * 2 if p.chroma_planes else [])
+    for (hh, ww) in shapes:
+        if sparse:
+            yy, xx = np.mgrid[0:hh, 0:ww]
+            pl_ = ((xx // 8 * 8 + t * 5) % 256).astype(np.int32)
+            mask = rng.rand(hh, ww) < 0.05
+            planes.append(np.where(mask, rng.randint(0, 256, (hh, ww)),
+                                   pl_).astype(np.int32))
+        else:
+            planes.append(rng.randint(0, (1 << p.bits), (hh, ww))
+                          .astype(np.int32))
+    return planes
+
+
+@pytest.mark.parametrize("pix,coder,gcap,sparse", [
+    ("yuv420p", 1, 4096, False), ("yuv420p", -2, 4096, False),
+    ("gray", 1, 4096, False), ("yuv420p", 1, 64, True),
+    ("yuv420p", 1, 4096, True)])
+def test_torch_gpu_encoder_matches_native(monkeypatch, pix, coder, gcap,
+                                          sparse):
+    monkeypatch.setattr(host, "GCAP", gcap)
+    w, h = 128, 96
+    cfg = FFV1Config(level=3, coder=coder, slices=4)
+    p = params_from_config(cfg, pix, w, h)
+    enc = dc.DeviceFFV1Encoder(w, h, pix, cfg, device="cuda")
+    nat = NativeFFV1Codec(p)
+    rng = np.random.RandomState(7)
+    _build.reset_counts()
+    for t in range(4):
+        planes = _frame(p, w, h, t, rng, sparse)
+        key = t % 3 == 0
+        assert enc.encode(planes, force_keyframe=key) == nat.encode(planes,
+                                                                    key)
+    for k in _build.KERNELS.values():
+        assert k.launches > 0 and k.plain_calls == 0, k.name
+
+
+def test_torch_gpu_kernels_match_plain(monkeypatch):
+    """K1-K4 against their plain versions, on the card, on every input of
+    a small split-group frame."""
+    monkeypatch.setattr(host, "GCAP", 64)
+    w, h = 128, 96
+    cfg = FFV1Config(level=3, coder=1, slices=4)
+    p = params_from_config(cfg, "yuv420p", w, h)
+    enc = dc.DeviceFFV1Encoder(w, h, "yuv420p", cfg, device="cuda")
+    planes = _frame(p, w, h, 0, np.random.RandomState(5), True)
+    enc.encode(planes, force_keyframe=True)             # settles the caps
+    dev = [torch.as_tensor(x, device="cuda") for x in planes]
+    ctx, diff = enc.phase_a(dev)
+    plan = enc.layout(ctx, diff, enc.tiles_cap, enc.cellrows_cap)
+    assert (plan["tile_pred"] >= 0).any()
+
+    k1 = (plan["dest"], plan["ch1"], plan["orig"], enc.cellrows_cap)
+    ch1c, ch2c = pl.place(*k1)
+    for a, b in zip((ch1c, ch2c), pl.scatter_cells(*k1)):
+        assert torch.equal(a, b)
+
+    rng = np.random.RandomState(2)
+    canon = torch.as_tensor(rng.randint(1, 256, enc.canonical.shape)
+                            .astype(np.uint8), device="cuda")
+    s0 = dc.build_s0_blocks(plan, canon, enc.tiles_cap)
+    k2 = (ch1c, plan["tile_caps"], plan["tile_bases"], plan["tile_pred"],
+          s0, enc.table)
+    for a, b in zip(ad.adapt(*k2, 8), ad.adapt_plain(*k2)):
+        assert torch.equal(a, b)
+
+    sv, _ = ad.adapt(*k2, 8)
+    ev = dc.repack_emission_order(sv, (ch1c & 0xFFF) - 2048, 8, 5)
+    words, _ = dc.unsort_cells(ev, ch1c, ch2c, enc.S, enc.npix)
+    svp, btp, hlen = enc.prefix[True]
+    for op_cap in (enc.op_cap_max, 4096):
+        k3 = (words, diff, svp, btp, hlen, op_cap)
+        for a, b in zip(ex.expand(*k3), ex.expand_plain(*k3)):
+            assert torch.equal(a, b)
+
+    opw, n_ops = ex.expand(words, diff, svp, btp, hlen, enc.op_cap_max)
+    steps = int(n_ops.max())
+    for buf_cap in (1 << 16, 512):                       # 512 cuts rows
+        a_by, a_ln = rac.rac_render(opw, steps, buf_cap)
+        b_by, b_ln = rac.rac_render_plain(opw, steps, buf_cap)
+        assert torch.equal(a_ln, b_ln)
+        for s in range(enc.S):
+            n = min(int(a_ln[s]), buf_cap)
+            assert torch.equal(a_by[s, :n], b_by[s, :n])
+            assert not a_by[s, n:].any()
+
+
+def test_torch_gpu_rac_render_long_fill_run():
+    """A carry chain longer than the TPU render's 1023-byte fill field:
+    the op pair (bit 1, sv 255), (bit 0, sv 255) renormalises with low in
+    (0xFF00, 0x10000) every time, so the pending 0xFF run only grows."""
+    steps = 4096
+    ops = torch.zeros((2, steps), dtype=torch.int32)
+    ops[:, 0:steps - 3:2] = (1 << 9) | (1 << 8) | 255
+    ops[:, 1:steps - 3:2] = (1 << 9) | 255
+    ops[1, :101] = (1 << 9) | (1 << 8) | 200
+    ops[:, steps - 3:] = torch.tensor([(1 << 9) | 129, 2 << 9, 3 << 9])
+    opT = ops.T
+    _, fcount, _ = rac.rac_scan_lanes(opT & 0xFF, (opT >> 8) & 1,
+                                      (opT >> 9) & 3)
+    assert int(fcount.max()) > 2000
+    for buf_cap in (1 << 14, 1000):
+        a = rac.rac_render(ops.cuda(), steps, buf_cap)
+        b = rac.rac_render_plain(ops, steps, buf_cap)
+        assert torch.equal(a[1].cpu(), b[1])
+        assert torch.equal(a[0].cpu(), b[0])
