@@ -1,7 +1,8 @@
 """Build, bind and count the port's hand-written CUDA kernels.
 
-All ``csrc/*.cu`` sources compile with nvcc into ONE shared library with a
-plain C interface (every launcher is ``extern "C"`` and returns its
+Each ``csrc/*.cu`` source compiles with its own nvcc process, all started
+together, and the objects link into ONE shared library with a plain C
+interface (every launcher is ``extern "C"`` and returns its
 ``cudaError_t``), loaded with ctypes.  The build happens on first use,
 into ``build/torch_kernels/<hash>/`` at the root of the checkout, keyed by
 a hash of the sources and the flags, so a fresh checkout builds
@@ -30,7 +31,7 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 LIB_NAME = "libffv2_torch_kernels.so"
 
 P = ctypes.c_void_p
@@ -76,20 +77,26 @@ def build() -> str:
         return path
     out_dir = os.path.dirname(path)
     os.makedirs(out_dir, exist_ok=True)
+    nvcc = _nvcc()
     cu = [s for s in _sources() if s.endswith(".cu")]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    try:
-        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-                             capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(s) + ".o") for s in cu]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, s],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(cu, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        so = os.path.join(tmp, LIB_NAME)
+        if all(p.returncode == 0 for p in procs):
+            res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", so,
+                                  *objs], capture_output=True, text=True)
+            logs.append(res.stdout + res.stderr)
+        log = "".join(logs)
         with open(os.path.join(out_dir, "build.log"), "w") as f:
-            f.write(res.stdout + res.stderr)
-        if res.returncode != 0:
-            raise RuntimeError("nvcc failed:\n" + res.stdout + res.stderr)
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+            f.write(log)
+        if not os.path.exists(so):
+            raise RuntimeError("nvcc failed:\n" + log)
+        os.replace(so, path)
     return path
 
 
@@ -169,6 +176,13 @@ KERNELS = {k.name: k for k in (
            "ffmpeg_ffv2_tpu_torch/csrc/rac_render.cu",
            "ffmpeg_ffv2_tpu/ffv1/pallas_coder.py:109 + "
            "ffmpeg_ffv2_tpu/ffv1/render_pallas.py:62,163"),
+    Kernel("vlc", "ffv2_vlc", [P, P, P, P, P, P, I, I, I, P, P, P],
+           "ffmpeg_ffv2_tpu_torch/csrc/vlc.cu",
+           "ffmpeg_ffv2_tpu/ffv1/device_rice.py:448"),
+    Kernel("ladder", "ffv2_ladder", [P, P, P, I, I, P, P],
+           "ffmpeg_ffv2_tpu_torch/csrc/ladder.cu",
+           "ffmpeg_ffv2_tpu/ffv1/device_rice.py:124 (a lax.scan; no Pallas "
+           "counterpart)"),
 )}
 
 

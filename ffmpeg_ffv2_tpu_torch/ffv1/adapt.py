@@ -71,6 +71,19 @@ def adapt_plain(ch1_cells, tile_caps, tile_bases, tile_pred, s0_blocks,
     return sv, ends
 
 
+def successors(tile_pred):
+    """The successor of each tile (tile_pred inverted, -1 for none), built
+    on the device; the spare slot past the tiles absorbs the root tiles'
+    writes.  K2 and K5 walk a split group's tiles through it."""
+    tiles = tile_pred.shape[0]
+    tidx = torch.arange(tiles, dtype=torch.int32, device=tile_pred.device)
+    succ = torch.full((tiles + 1,), -1, dtype=torch.int32,
+                      device=tile_pred.device)
+    succ.scatter_(0, torch.where(tile_pred >= 0, tile_pred, tiles).long(),
+                  tidx)
+    return succ[:tiles].contiguous()
+
+
 def adapt(ch1_cells, tile_caps, tile_bases, tile_pred, s0_blocks,
           packed_table, code_bits: int):
     """K2 wrapper: (sv (CELLROWS, 8, 128), ends (TILES, 32, 128)) int32."""
@@ -90,13 +103,7 @@ def adapt(ch1_cells, tile_caps, tile_bases, tile_pred, s0_blocks,
     if _K.plain_for(dev):
         return adapt_plain(ch1_cells, tile_caps, tile_bases, tile_pred,
                            s0_blocks, packed_table)
-    # successor of each tile (tile_pred inverted); the spare slot past
-    # the tiles absorbs the root tiles' writes
-    tidx = torch.arange(tiles, dtype=torch.int32, device=dev)
-    succ = torch.full((tiles + 1,), -1, dtype=torch.int32, device=dev)
-    succ.scatter_(0, torch.where(tile_pred >= 0, tile_pred, tiles).long(),
-                  tidx)
-    succ = succ[:tiles].contiguous()
+    succ = successors(tile_pred)
     sv = torch.zeros((cellrows, 8, 128), dtype=torch.int32, device=dev)
     ends = torch.zeros((tiles, 32, 128), dtype=torch.int32, device=dev)
     _K.launch(ch1_cells.data_ptr(), tile_caps.data_ptr(),

@@ -1,19 +1,25 @@
-"""FFV1 encoder with phase A and the range coder on an NVIDIA GPU.
+"""FFV1 encoder with phase A and the entropy coder on an NVIDIA GPU.
 
-Counterpart of ``ffmpeg_ffv2_tpu/ffv1/device_coder.py`` for the range
-coder on uniform slice geometries at coding depths <= 10: the plain torch
+Counterpart of ``ffmpeg_ffv2_tpu/ffv1/device_coder.py`` for YUV and gray
+formats on uniform slice geometries: the range coder at coding depths
+<= 10 and the Golomb-Rice coder (8-bit by the format).  The plain torch
 stages ``repack_emission_order``, ``layout_plan``, ``build_s0_blocks``,
-``writeback_canonical`` and the unsort (``_s_unsort_impl``), and the
-session class ``DeviceFFV1Encoder`` (``__init__``, ``ops_from_streams``,
-``_s_front``, ``_code_render``, ``_render_retry``, ``encode``,
-``_finish_packet``, ``_encode_frame_data``).
+``writeback_canonical`` and the unsorts (``_s_unsort_impl``,
+``_s_rice_unsort_impl``), and the session class ``DeviceFFV1Encoder``
+(``__init__``, ``ops_from_streams``, ``_s_front``, ``_code_render``,
+``_render_retry``, ``_encode_rice``, ``encode``, ``_finish_packet``,
+``_encode_frame_data``).
 
-One frame runs phase A (plain torch), the chain-grouping layout (plain
-torch), then the four CUDA kernels: K1 ``ops/place.py`` places the cells,
-K2 ``adapt.py`` walks the context states, K3 ``expand.py`` lays out each
-slice's rac ops and K4 ``rac.py`` codes and renders each slice's bytes.
-The host reads the layout sizes once per frame to check the adaptive caps
-(and retries larger on a miss), and adds the slice trailers.
+A range-coded frame runs phase A (plain torch), the chain-grouping layout
+(plain torch), then four CUDA kernels: K1 ``ops/place.py`` places the
+cells, K2 ``adapt.py`` walks the context states, K3 ``expand.py`` lays out
+each slice's rac ops and K4 ``rac.py`` codes and renders each slice's
+bytes.  A Golomb-Rice frame plans its runs in phase A (``rice.py``), takes
+the same layout and K1, then K5 ``vlc.py`` walks the VlcStates, the ladder
+kernel (``rice.run_index_scan``) carries each slice's run index, and plain
+torch assembles the bits.  The host reads the sizes once per frame to
+check the adaptive caps (and retries larger on a miss), and adds the
+slice headers (rice) and trailers.
 """
 
 from __future__ import annotations
@@ -21,19 +27,22 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ffmpeg_ffv2_tpu.core.crc import crc32_trailer
-from ffmpeg_ffv2_tpu.ffv1.codec_py import SliceState
-from ffmpeg_ffv2_tpu.ffv1.params import (FFV1Config, params_from_config,
-                                         CODER_GOLOMB)
-from ffmpeg_ffv2_tpu.ffv1 import headers as H
-
+from ..coder.rac import RangeEncoder
+from ..core.crc import crc32_trailer
 from ..ops.place import place
+from . import headers as H
 from . import host
 from .adapt import adapt
 from .expand import expand
-from .phase_a import lut_for, phase_a
+from .params import FFV1Config, params_from_config, CODER_GOLOMB
+from .phase_a import lut_for, phase_a, phase_a_planes
 from .rac import rac_render
+from .rice import (PAYLOAD_BITS, VLC_INIT, assemble_bits, build_rice_streams,
+                   build_vlc_s0, ladder_fields, no_mark, rice_elements,
+                   writeback_vlc)
+from .slice_state import SliceState
 from .symbols import event_count, exponent
+from .vlc import vlc_adapt
 
 INT32_MAX = 2 ** 31 - 1
 I32 = torch.int32
@@ -87,12 +96,16 @@ def repack_emission_order(sv_words, diff, code_bits: int,
 
 
 def layout_plan(row_local, diff, rows_per_slice: int, slots_cap: int,
-                tiles_cap: int):
-    """Group-sort + lane/tile layout (device_coder.py:426 layout_plan,
-    8-bit payload field).  Every key of the returned dict equals JAX's.
+                tiles_cap: int, payload_bits: int = 0):
+    """Group-sort + lane/tile layout (device_coder.py:426 layout_plan, the
+    range coder's 12-bit diff field or a rice payload).  Every key of the
+    returned dict equals JAX's.
 
     row_local/diff: int32 (n_slices, npix) per-slice coding-order streams;
     row_local is the slice-local chain row (plane-class offset + context).
+    payload_bits > 0: ``diff`` already carries an encoded payload (the
+    rice walk's diff + 2048 | silent << 12) and only the valid flag at
+    bit ``payload_bits`` is added.
     Pixels merge with one sentinel record per chain row and sort by
     (row, stream index); the sentinel carries its group's lane word,
     which a forward fill spreads over the group.  Lanes: buckets of GCAP
@@ -211,8 +224,12 @@ def layout_plan(row_local, diff, rows_per_slice: int, slots_cap: int,
     dest_b = (gcap * (bk + (v >> 7)) + t2) * 128 + (v & 127)
     dest = torch.where(is_sent, INT32_MAX,
                        torch.where((wfill & 1) == 1, dest_b, v + r * 128))
-    # cell channel: diff + 2048 in bits 0..11, pixel-valid flag in bit 13
-    ch1 = (diff_s + 2048) | ((~is_sent).to(I32) << 13)
+    # cell channel: diff + 2048 in bits 0..11 (or the payload), then the
+    # pixel-valid flag
+    if payload_bits:
+        ch1 = diff_s | ((~is_sent).to(I32) << payload_bits)
+    else:
+        ch1 = (diff_s + 2048) | ((~is_sent).to(I32) << 13)
     orig = torch.where(is_sent, INT32_MAX, ar(S)[:, None] * npix + idx_s)
     return dict(ch1=ch1.reshape(-1).to(I32), orig=orig.reshape(-1).to(I32),
                 dest=dest.reshape(-1).to(I32),
@@ -272,15 +289,34 @@ def unsort_cells(ev_cells, ch1c, ch2c, S: int, npix: int):
     return out[:, :n].reshape(W, S, npix).contiguous(), maxc
 
 
+def unsort_codes(code_cells, ch2c, S: int, npix: int):
+    """Rice code cells -> stream order (S, npix): one scatter keyed by each
+    real cell's stream index, as ``unsort_cells`` (``_s_rice_unsort_impl``
+    sorts by the same unique keys)."""
+    n = S * npix
+    keys = ch2c.reshape(-1)
+    out = torch.zeros(n + 1, dtype=I32, device=code_cells.device)
+    out.scatter_(0, torch.where(keys < n, keys, n).long(),
+                 code_cells.reshape(-1))
+    return out[:n].reshape(S, npix)
+
+
+# the kernels each coder's frame launches (chip_smoke.py and the card tests
+# check that a path went through all of its kernels)
+RANGE_KERNELS = ("place", "adapt", "expand", "rac_render")
+RICE_KERNELS = ("place", "vlc", "ladder")
+
+
 class DeviceFFV1Encoder:
-    """FFV1 encode with phase A and the range coder on a CUDA device.
+    """FFV1 encode with phase A and the entropy coder on a CUDA device.
 
     Covers the range coder (custom table, coder=1, and the default table,
-    coder=-2) on uniform slice geometries of YUV/gray formats up to 10
-    bits; one keyframe followed by inter frames carries the context
-    states from frame to frame.  device="cpu" runs every kernel's plain
-    PyTorch version (tests).  Raises NotImplementedError for the rest of
-    the JAX encoder's format matrix."""
+    coder=-2) on YUV/gray formats up to 10 bits and the Golomb-Rice coder
+    (coder=0, 8-bit YUV/gray), on uniform slice geometries; one keyframe
+    followed by inter frames carries the context states from frame to
+    frame.  device="cpu" runs every kernel's plain PyTorch version
+    (tests).  Raises NotImplementedError for the rest of the JAX encoder's
+    format matrix."""
 
     def __init__(self, width: int, height: int, pix_fmt: str,
                  config: FFV1Config | None = None, device="cuda"):
@@ -296,10 +332,6 @@ class DeviceFFV1Encoder:
             raise NotImplementedError(
                 "device coder: versions 0/1/3/4 (v2's in-band slice table "
                 "is a deprecated transitional layout)")
-        if p.ac == CODER_GOLOMB:
-            raise NotImplementedError(
-                "torch device coder: the Golomb-Rice coder is not ported "
-                "yet; use the range coder (coder=1 or -2)")
         if p.colorspace == 1:
             raise NotImplementedError(
                 "torch device coder: RGB and its RCT (incl. v4 RGB) are "
@@ -312,6 +344,8 @@ class DeviceFFV1Encoder:
             raise NotImplementedError(
                 "torch device coder: 2-pass initial states are not ported "
                 "yet")
+        self.golomb = p.ac == CODER_GOLOMB
+        self.kernels = RICE_KERNELS if self.golomb else RANGE_KERNELS
         self.code_bits = p.bits
         self.crop_plan = host.build_crop_plan(p)
         for prects in self.crop_plan:
@@ -353,14 +387,21 @@ class DeviceFFV1Encoder:
             n // gcap + self.n_chain_rows // 128 + 72, self.tiles_max)
         self.cellrows_cap = host.quantize_cap(
             n // 128 * 5 // 4 + 2 * gcap + 256, self.cellrows_max)
+        self.extradata = H.write_extradata(p) if p.version > 1 else b""
+        self.picture_number = 0
+        if self.golomb:
+            self._init_rice()
+        else:
+            self._init_range()
 
+    def _init_range(self):
+        p = self.p
         self.table = torch.as_tensor(host.packed_transition_table(p),
                                      device=self.device)
         self.canonical_key = torch.full((self.n_chain_rows + 1, 32), 128,
                                         dtype=torch.uint8,
                                         device=self.device)
         self.canonical = self.canonical_key
-        self.extradata = H.write_extradata(p) if p.version > 1 else b""
 
         # host-planned per-slice prefix ops (constant per keyframe flag)
         rects = p.rects()
@@ -391,25 +432,67 @@ class DeviceFFV1Encoder:
         # ops covers |diff| <= 7; grows to the content's ceil(maxops/4)
         self.unsort_words = min(2, host.n_ev_words(self.code_bits))
         self._shrinks = 2            # op_cap tightening budget
-        self.picture_number = 0
+
+    def _init_rice(self):
+        """Rice session state: the canonical VlcState table (one row of
+        drift, error_sum, bias, count per chain row, plus a spare row),
+        the slice headers and the adaptive event and bitstream sizes."""
+        p = self.p
+        self.vcanon_key = torch.as_tensor(
+            np.tile(VLC_INIT, (self.n_chain_rows + 1, 1)), device=self.device)
+        self.vcanon = self.vcanon_key
+        # a Golomb-Rice slice's range coder terminates after its header
+        # (encoder.py:80-83), so the header bytes are constant per
+        # (keyframe, slice)
+        rects = p.rects()
+        self.rice_headers = {}
+        for key in (True, False):
+            hdrs = []
+            for si in range(self.S):
+                c = RangeEncoder()
+                if si == 0:
+                    c.put(np.array([128], dtype=np.uint8), 0,
+                          1 if key else 0)
+                    if key and p.version < 2:
+                        H.write_v01_header(c, p)
+                if p.version > 2:
+                    H.write_slice_header(c, p, SliceState(p), rects[si])
+                hdrs.append(c.terminate(1 if p.version > 2 else 0))
+            self.rice_headers[key] = hdrs
+        nlines = sum(prects[0][3] for prects in self.crop_plan)
+        self.ev_cap_max = self.npix + nlines + 8
+        self.ev_cap = host.quantize_cap(self.npix // 4 + 1024,
+                                        self.ev_cap_max)
+        # worst element: the escape (11 ones + 1 + bits value bits) plus
+        # the run and ladder elements
+        self.nwords_max = self.npix * 3 * max(25, p.bits + 13) // 32 + 8
+        self.nwords = host.quantize_cap(self.npix // 16 * 8 + 256,
+                                        self.nwords_max, 8)
 
     # -- codec state ---------------------------------------------------------
 
     def state(self) -> np.ndarray:
-        """The per-chain context-state table (n_chain_rows + 1, 32) uint8
-        that the next inter frame starts from."""
-        return self.canonical.cpu().numpy()
+        """The per-chain state table that the next inter frame starts
+        from: the range coder's context states (n_chain_rows + 1, 32)
+        uint8, or the Golomb-Rice VlcStates (n_chain_rows + 1, 4) int32
+        (drift, error_sum, bias, count)."""
+        return (self.vcanon if self.golomb else self.canonical).cpu().numpy()
 
-    def load_state(self, canonical: np.ndarray, picture_number: int):
+    def load_state(self, table: np.ndarray, picture_number: int):
         """Continue a stream from another session's state (this package's
-        or the JAX DeviceFFV1Encoder's ``canonical``)."""
-        canonical = np.asarray(canonical)
-        shape = (self.n_chain_rows + 1, 32)
-        if canonical.shape != shape or canonical.dtype != np.uint8:
-            raise ValueError(f"load_state: expected uint8 {shape}, got "
-                             f"{canonical.dtype} {canonical.shape}")
-        self.canonical = torch.as_tensor(canonical.copy(),
-                                         device=self.device)
+        ``state()``, or the JAX DeviceFFV1Encoder's ``canonical``, or its
+        ``vcanon`` for Golomb-Rice)."""
+        table = np.asarray(table)
+        shape, dtype = (((self.n_chain_rows + 1, 4), np.int32) if self.golomb
+                        else ((self.n_chain_rows + 1, 32), np.uint8))
+        if table.shape != shape or table.dtype != dtype:
+            raise ValueError(f"load_state: expected {np.dtype(dtype)} "
+                             f"{shape}, got {table.dtype} {table.shape}")
+        t = torch.as_tensor(table.copy(), device=self.device)
+        if self.golomb:
+            self.vcanon = t
+        else:
+            self.canonical = t
         self.picture_number = int(picture_number)
 
     # -- pipeline stages -----------------------------------------------------
@@ -420,9 +503,11 @@ class DeviceFFV1Encoder:
         return phase_a(planes, self.crop_plan, self.qt, self.p.bits,
                        self.five)
 
-    def layout(self, ctx, diff, tiles_cap: int, cellrows_cap: int):
+    def layout(self, ctx, diff, tiles_cap: int, cellrows_cap: int,
+               payload_bits: int = 0):
         plan = layout_plan(self.class_off_stream[None, :] + ctx, diff,
-                           self.rows_per_slice, tiles_cap * 128, tiles_cap)
+                           self.rows_per_slice, tiles_cap * 128, tiles_cap,
+                           payload_bits)
         # under a cap overflow the frame is redone larger; keep every tile
         # inside the cells regardless
         lim = cellrows_cap - 1024
@@ -464,6 +549,17 @@ class DeviceFFV1Encoder:
         sizes = torch.cat([psizes, n_ops.max()[None], maxc[None]])
         return opw, n_ops, canonical, sizes
 
+    def _layout_fits(self, rows: int, tiles: int, slots: int) -> bool:
+        return (rows + 1024 <= self.cellrows_cap and tiles <= self.tiles_cap
+                and slots <= self.tiles_cap * 128)
+
+    def _grow_layout(self, rows: int, tiles: int):
+        """Grow the tile and cell-row caps to the measured need (+slack)."""
+        self.tiles_cap = host.quantize_cap(
+            max(tiles + 64, self.tiles_cap + 1), self.tiles_max)
+        self.cellrows_cap = host.quantize_cap(
+            max(rows + 2048, self.cellrows_cap + 1), self.cellrows_max)
+
     def _render_retry(self, opw, steps: int):
         """K4 with render-buffer growth; returns (bytes on the device,
         host lengths)."""
@@ -476,6 +572,94 @@ class DeviceFFV1Encoder:
                 max(int(ln_h.max()) + 4096, self.render_cap + 1),
                 self.render_cap_max, 4096)
         raise RuntimeError("render buffer exceeded worst-case cap")
+
+    # -- Golomb-Rice stages --------------------------------------------------
+
+    def phase_a_rice(self, planes):
+        """Planes -> (ctx (S, npix), the rice stream dict of (S, npix)
+        tensors, build_rice_streams); runs are planned per plane
+        (device_coder._phase_a_rice, YUV branch)."""
+        ctxs, diffs = phase_a_planes(planes, self.crop_plan, self.qt,
+                                     self.p.bits, self.five)
+        return (torch.cat([c.reshape(self.S, -1) for c in ctxs], dim=1),
+                build_rice_streams(ctxs, diffs))
+
+    def rice_front(self, ctx, payload, vcanon, keyframe: bool,
+                   tiles_cap: int, cellrows_cap: int, mark=no_mark):
+        """Layout, K1 place, start states, K5 vlc walk, the state
+        writeback and the unsort: returns (codes (S, npix) len << 18 | val
+        in stream order, vcanon after the frame, [rows, tiles, slots]).
+        ``mark`` is called after each stage (``rice.no_mark``)."""
+        plan = self.layout(ctx, payload, tiles_cap, cellrows_cap,
+                           PAYLOAD_BITS + 1)
+        mark("layout")
+        k1 = (plan["dest"], plan["ch1"], plan["orig"], cellrows_cap)
+        ch1c, ch2c = place(*k1)
+        mark("K1 place", k1)
+        if keyframe:
+            vcanon = self.vcanon_key
+        s0 = build_vlc_s0(plan, vcanon, tiles_cap)
+        mark("s0")
+        k5 = (ch1c, plan["tile_caps"], plan["tile_bases"], plan["tile_pred"],
+              s0)
+        code_cells, ends = vlc_adapt(*k5, self.code_bits)
+        mark("K5 vlc", k5)
+        vcanon = writeback_vlc(plan, vcanon, ends, tiles_cap)
+        mark("writeback")
+        codes = unsort_codes(code_cells, ch2c, self.S, self.npix)
+        mark("unsort")
+        psizes = torch.stack([plan["n_rows"], plan["n_tiles"],
+                              plan["n_slots"]])
+        return codes, vcanon, psizes
+
+    def rice_bits(self, streams, codes, ev_cap: int, nwords: int,
+                  mark=no_mark):
+        """The run-index ladder, the bit elements and their assembly:
+        (bytes (S, nwords * 4) uint8, nbits (S,), n_lad (S,))."""
+        ones, term_j, rem, n_lad = ladder_fields(streams, ev_cap, mark)
+        lens, vals = rice_elements(streams, codes, ones, term_j, rem)
+        mark("bit elements")
+        by, nbits = assemble_bits(lens, vals, nwords)
+        mark("bit assembly")
+        return by, nbits, n_lad
+
+    def rice_slices(self, by_h, nbits, keyframe: bool) -> list:
+        """Host bytes (S, nwords * 4) and bit counts -> raw slice payloads:
+        each slice's header bytes, then its bitstream."""
+        hdrs = self.rice_headers[keyframe]
+        return [hdrs[si] + by_h[si, :(nbits[si] + 7) // 8].tobytes()
+                for si in range(self.S)]
+
+    def _encode_rice(self, planes, keyframe: bool) -> list:
+        """One Golomb-Rice frame -> list of raw slice payloads
+        (encoder.py:_encode_slice)."""
+        dev = [torch.as_tensor(np.asarray(pl), dtype=I32, device=self.device)
+               for pl in planes]
+        ctx, streams = self.phase_a_rice(dev)
+        for _ in range(8):
+            codes, vcanon, psizes = self.rice_front(
+                ctx, streams["payload"], self.vcanon, keyframe,
+                self.tiles_cap, self.cellrows_cap)
+            by, nbits, n_lad = self.rice_bits(streams, codes, self.ev_cap,
+                                              self.nwords)
+            sizes = torch.cat([psizes, n_lad.max()[None], nbits]).tolist()
+            rows, tiles, slots, nl = sizes[:4]
+            nb = sizes[4:]
+            fits = self._layout_fits(rows, tiles, slots)
+            if fits and nl <= self.ev_cap and max(nb) <= self.nwords * 32:
+                break
+            # grow the adaptive working sizes to the measured need (+slack)
+            if not fits:
+                self._grow_layout(rows, tiles)
+            if nl > self.ev_cap:
+                self.ev_cap = host.quantize_cap(nl + 512, self.ev_cap_max)
+            if max(nb) > self.nwords * 32:
+                self.nwords = host.quantize_cap(max(nb) // 32 + 256,
+                                                self.nwords_max, 8)
+        else:
+            raise RuntimeError("device rice exceeded worst-case caps")
+        self.vcanon = vcanon
+        return self.rice_slices(by.cpu().numpy(), nb, keyframe)
 
     # -- public API ------------------------------------------------------------
 
@@ -510,6 +694,8 @@ class DeviceFFV1Encoder:
 
     def _encode_frame_data(self, planes, keyframe: bool) -> list:
         """One frame -> list of raw slice payloads (no trailers)."""
+        if self.golomb:
+            return self._encode_rice(planes, keyframe)
         dev = [torch.as_tensor(np.asarray(pl), dtype=I32, device=self.device)
                for pl in planes]
         ctx, diff = self.phase_a(dev)
@@ -520,10 +706,8 @@ class DeviceFFV1Encoder:
                 (self.tiles_cap, self.cellrows_cap, self.op_cap),
                 self.unsort_words)
             rows, tiles, slots, opmax, maxc = sizes.tolist()
-            if (rows + 1024 <= self.cellrows_cap
-                    and tiles <= self.tiles_cap
-                    and slots <= self.tiles_cap * 128
-                    and opmax <= self.op_cap
+            fits = self._layout_fits(rows, tiles, slots)
+            if (fits and opmax <= self.op_cap
                     and maxc <= 4 * self.unsort_words):
                 # tighten a fat op domain to the content's measured scale
                 # (+25%), at most twice per session so the caps settle
@@ -538,13 +722,8 @@ class DeviceFFV1Encoder:
                 by, ln_h = self._render_retry(opw, steps)
                 break
             # grow the adaptive working sizes to the measured need (+slack)
-            if (rows + 1024 > self.cellrows_cap or tiles > self.tiles_cap
-                    or slots > self.tiles_cap * 128):
-                self.tiles_cap = host.quantize_cap(
-                    max(tiles + 64, self.tiles_cap + 1), self.tiles_max)
-                self.cellrows_cap = host.quantize_cap(
-                    max(rows + 2048, self.cellrows_cap + 1),
-                    self.cellrows_max)
+            if not fits:
+                self._grow_layout(rows, tiles)
             if opmax > self.op_cap:
                 self.op_cap = host.quantize_cap(opmax + 512,
                                                 self.op_cap_max,

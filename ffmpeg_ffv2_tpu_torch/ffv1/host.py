@@ -22,11 +22,10 @@ from __future__ import annotations
 
 import numpy as np
 
-from ffmpeg_ffv2_tpu.coder.rac import (RangeEncoder, DEFAULT_ZERO_STATE,
-                                       DEFAULT_ONE_STATE)
-from ffmpeg_ffv2_tpu.ffv1.codec_py import SliceState
-from ffmpeg_ffv2_tpu.ffv1.params import FFV1Params, CODER_RANGE_CUSTOM
-from ffmpeg_ffv2_tpu.ffv1 import headers as H
+from ..coder.rac import RangeEncoder, DEFAULT_ZERO_STATE, DEFAULT_ONE_STATE
+from . import headers as H
+from .params import FFV1Params, CODER_RANGE_CUSTOM
+from .slice_state import SliceState
 
 GCAP = 4096          # max pixels per lane (sub-lane size for split groups)
 OP_GRAN = 4096       # op_cap granularity

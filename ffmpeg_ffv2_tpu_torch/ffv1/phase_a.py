@@ -3,10 +3,12 @@
 Counterpart of ``ffmpeg_ffv2_tpu/ffv1/tpu.py:34-165`` (``_wrap16``,
 ``_med3``, ``neighbours``, ``quant_lut``, ``build_quant_luts``,
 ``_apply_quant``, ``plane_context_diff``, ``lut_for``) and of the YUV
-branch of ``ffmpeg_ffv2_tpu/ffv1/device_coder.py:DeviceFFV1Encoder.
-_phase_a``.  Plain torch: the encoder side has no sequential dependency
-(the predictor reads original samples), so a plane is shifts, compares
-and a median, batched over the slices of a frame.
+branches of ``ffmpeg_ffv2_tpu/ffv1/device_coder.py:DeviceFFV1Encoder.
+_phase_a`` and ``_phase_a_rice`` (``phase_a_planes`` keeps the per-plane
+grids that the rice run planning needs).  Plain torch: the encoder side
+has no sequential dependency (the predictor reads original samples), so a
+plane is shifts, compares and a median, batched over the slices of a
+frame.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ffmpeg_ffv2_tpu.ffv1.params import FFV1Params
+from .params import FFV1Params
 
 
 def _wrap16(x):
@@ -114,16 +116,26 @@ def plane_context_diff(s: torch.Tensor, qt, bits: int, five: bool):
     return ctx.to(torch.int32), diff.to(torch.int32)
 
 
-def phase_a(planes, crop_plan, qt, bits: int, five: bool):
-    """YUV/gray planes (int32 tensors, one per coded plane) -> per-slice
-    streams (ctx, diff) int32 (n_slices, npix) in coding order: whole
-    planes concatenated per slice."""
-    ctx_parts, diff_parts = [], []
+def phase_a_planes(planes, crop_plan, qt, bits: int, five: bool):
+    """YUV/gray planes (int32 tensors, one per coded plane) -> per-plane
+    lists of (n_slices, h, w) int32 context and diff grids, one slice
+    crop per row of the batch."""
+    ctxs, diffs = [], []
     for plane, prects in zip(planes, crop_plan):
         crops = torch.stack([plane[y:y + h, x:x + w]
                              for (x, y, w, h) in prects])
         ctx, diff = plane_context_diff(_wrap16(crops.to(torch.int32)), qt,
                                        bits, five)
-        ctx_parts.append(ctx.reshape(len(prects), -1))
-        diff_parts.append(diff.reshape(len(prects), -1))
-    return torch.cat(ctx_parts, dim=1), torch.cat(diff_parts, dim=1)
+        ctxs.append(ctx)
+        diffs.append(diff)
+    return ctxs, diffs
+
+
+def phase_a(planes, crop_plan, qt, bits: int, five: bool):
+    """YUV/gray planes -> per-slice streams (ctx, diff) int32
+    (n_slices, npix) in coding order: whole planes concatenated per
+    slice."""
+    ctxs, diffs = phase_a_planes(planes, crop_plan, qt, bits, five)
+    S = len(crop_plan[0])
+    return (torch.cat([c.reshape(S, -1) for c in ctxs], dim=1),
+            torch.cat([d.reshape(S, -1) for d in diffs], dim=1))

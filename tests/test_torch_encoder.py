@@ -75,22 +75,29 @@ def test_torch_encoder_split_groups(monkeypatch):
 
 
 def test_torch_encoder_runs_plain_versions_on_cpu():
-    """On CPU tensors every wrapper takes its plain version and no kernel
-    launches (so no CUDA build is needed)."""
-    _build.reset_counts()
+    """On CPU tensors every wrapper of a coder's path takes its plain
+    version and no kernel launches (so no CUDA build is needed); between
+    them the range and the Golomb-Rice path reach every kernel."""
     w, h = 32, 24
-    cfg = FFV1Config(level=3, coder=1, slices=4)
-    enc = DeviceFFV1Encoder(w, h, "gray", cfg, device="cpu")
-    enc.encode([np.full((h, w), 9, np.int32)], force_keyframe=True)
-    for k in _build.KERNELS.values():
-        assert k.launches == 0 and k.plain_calls > 0, k.name
+    reached = set()
+    for coder in (1, 0):
+        _build.reset_counts()
+        cfg = FFV1Config(level=3, coder=coder, slices=4)
+        enc = DeviceFFV1Encoder(w, h, "gray", cfg, device="cpu")
+        enc.encode([np.full((h, w), 9, np.int32)], force_keyframe=True)
+        for name, k in _build.KERNELS.items():
+            assert k.launches == 0, name
+            assert (k.plain_calls > 0) == (name in enc.kernels), name
+        reached.update(enc.kernels)
+    assert reached == set(_build.KERNELS)
 
 
 @pytest.mark.parametrize("pix,cfg,err", [
     ("yuv420p10", FFV1Config(level=3, coder=1, slices=4), None),
     ("yuv420p12", FFV1Config(level=3, coder=1, slices=4), "depth"),
     ("bgr0", FFV1Config(level=3, coder=1, slices=4), "RGB"),
-    ("yuv420p", FFV1Config(level=3, coder=0, slices=4), "Golomb"),
+    ("yuv420p", FFV1Config(level=3, coder=0, slices=4), None),
+    ("bgr0", FFV1Config(level=3, coder=0, slices=4), "RGB"),
 ])
 def test_torch_encoder_scope(pix, cfg, err):
     if err is None:

@@ -1,5 +1,6 @@
 """The PyTorch port's CUDA kernels on the card: each kernel equals its plain
-PyTorch version, and the encoder's packets equal NativeFFV1Codec's.
+PyTorch version, and the encoder's packets equal NativeFFV1Codec's (the
+port's own copy), for the range and the Golomb-Rice coder.
 
 Needs an NVIDIA GPU and nvcc; skips itself elsewhere.  The machine with
 the card has no jax, so run this file without the repository's
@@ -18,15 +19,17 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-from ffmpeg_ffv2_tpu.ffv1.native import NativeFFV1Codec  # noqa: E402
-from ffmpeg_ffv2_tpu.ffv1.params import (FFV1Config,  # noqa: E402
-                                         params_from_config)
 from ffmpeg_ffv2_tpu_torch import _build  # noqa: E402
 from ffmpeg_ffv2_tpu_torch.ffv1 import adapt as ad  # noqa: E402
 from ffmpeg_ffv2_tpu_torch.ffv1 import device_coder as dc  # noqa: E402
 from ffmpeg_ffv2_tpu_torch.ffv1 import expand as ex  # noqa: E402
 from ffmpeg_ffv2_tpu_torch.ffv1 import host  # noqa: E402
 from ffmpeg_ffv2_tpu_torch.ffv1 import rac  # noqa: E402
+from ffmpeg_ffv2_tpu_torch.ffv1 import rice  # noqa: E402
+from ffmpeg_ffv2_tpu_torch.ffv1 import vlc  # noqa: E402
+from ffmpeg_ffv2_tpu_torch.ffv1.native import NativeFFV1Codec  # noqa: E402
+from ffmpeg_ffv2_tpu_torch.ffv1.params import (FFV1Config,  # noqa: E402
+                                               params_from_config)
 from ffmpeg_ffv2_tpu_torch.ops import place as pl  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -59,7 +62,9 @@ def _frame(p, w, h, t, rng, sparse):
 @pytest.mark.parametrize("pix,coder,gcap,sparse", [
     ("yuv420p", 1, 4096, False), ("yuv420p", -2, 4096, False),
     ("gray", 1, 4096, False), ("yuv420p", 1, 64, True),
-    ("yuv420p", 1, 4096, True)])
+    ("yuv420p", 1, 4096, True), ("yuv420p", 0, 4096, False),
+    ("gray", 0, 4096, False), ("yuv420p", 0, 64, True),
+    ("yuv420p", 0, 4096, True)])
 def test_torch_gpu_encoder_matches_native(monkeypatch, pix, coder, gcap,
                                           sparse):
     monkeypatch.setattr(host, "GCAP", gcap)
@@ -75,8 +80,9 @@ def test_torch_gpu_encoder_matches_native(monkeypatch, pix, coder, gcap,
         key = t % 3 == 0
         assert enc.encode(planes, force_keyframe=key) == nat.encode(planes,
                                                                     key)
-    for k in _build.KERNELS.values():
-        assert k.launches > 0 and k.plain_calls == 0, k.name
+    for name in enc.kernels:
+        k = _build.KERNELS[name]
+        assert k.launches > 0 and k.plain_calls == 0, name
 
 
 def test_torch_gpu_kernels_match_plain(monkeypatch):
@@ -148,3 +154,62 @@ def test_torch_gpu_rac_render_long_fill_run():
         b = rac.rac_render_plain(ops, steps, buf_cap)
         assert torch.equal(a[1].cpu(), b[1])
         assert torch.equal(a[0].cpu(), b[0])
+
+
+def test_torch_gpu_vlc_matches_plain(monkeypatch):
+    """K5 against its plain row scan on a small split-group frame, from
+    random start states (zero carries included: the continuation flag of a
+    successor whose predecessor tile is emptied)."""
+    monkeypatch.setattr(host, "GCAP", 64)
+    w, h = 128, 96
+    cfg = FFV1Config(level=3, coder=0, slices=4)
+    p = params_from_config(cfg, "yuv420p", w, h)
+    enc = dc.DeviceFFV1Encoder(w, h, "yuv420p", cfg, device="cuda")
+    planes = _frame(p, w, h, 0, np.random.RandomState(5), True)
+    enc.encode(planes, force_keyframe=True)             # settles the caps
+    dev = [torch.as_tensor(x, device="cuda") for x in planes]
+    ctx, streams = enc.phase_a_rice(dev)
+    plan = enc.layout(ctx, streams["payload"], enc.tiles_cap,
+                      enc.cellrows_cap, rice.PAYLOAD_BITS + 1)
+    assert (plan["tile_pred"] >= 0).any()
+    ch1c, _ = pl.place(plan["dest"], plan["ch1"], plan["orig"],
+                       enc.cellrows_cap)
+    rng = np.random.RandomState(2)
+    vcanon = np.stack([rng.randint(-128, 1, enc.vcanon.shape[0]),
+                       rng.randint(0, 1 << 16, enc.vcanon.shape[0]),
+                       rng.randint(-128, 128, enc.vcanon.shape[0]),
+                       rng.randint(1, 129, enc.vcanon.shape[0])], axis=1)
+    s0 = rice.build_vlc_s0(plan, torch.as_tensor(vcanon.astype(np.int32),
+                                                 device="cuda"),
+                           enc.tiles_cap)
+    caps = plan["tile_caps"]
+    for cut in (False, True):
+        if cut:      # empty the predecessor of the first split tile
+            caps = caps.clone()
+            caps[plan["tile_pred"][plan["tile_pred"] >= 0][0]] = 0
+        k5 = (ch1c, caps, plan["tile_bases"], plan["tile_pred"], s0)
+        for a, b in zip(vlc.vlc_adapt(*k5, 8), vlc.vlc_adapt_plain(*k5, 8)):
+            assert torch.equal(a, b)
+
+
+def test_torch_gpu_ladder_matches_plain():
+    """The ladder kernel against its plain loop: random counts, flushes,
+    resets and an invalid tail, longer than one BATCH of events."""
+    rng = np.random.RandomState(4)
+    L, E = 7, 1000
+    cnt = torch.as_tensor(rng.randint(0, 3000, (L, E)).astype(np.int32))
+    fl = torch.as_tensor(rng.rand(L, E) < 0.2)
+    va = torch.as_tensor(np.arange(E)[None, :] < rng.randint(0, E, (L, 1)))
+    rs = torch.as_tensor(rng.rand(L, E) < 0.01) & va
+    args = [t.cuda() for t in (cnt, fl, va, rs)]
+    full = torch.full((L,), E, dtype=torch.int32)
+    got = rice.run_index_scan(*args, full.cuda())
+    assert torch.equal(got.cpu(),
+                       rice.run_index_scan_plain(cnt, fl, va, rs, full))
+    # per-lane event counts: each lane stops at its own
+    n_ev = torch.as_tensor(rng.randint(0, E + 1, L).astype(np.int32))
+    n_ev[0], n_ev[1] = 0, E
+    live = torch.arange(E)[None, :] < n_ev[:, None]
+    got = rice.run_index_scan(*args, n_ev.cuda()).cpu()
+    ref = rice.run_index_scan_plain(cnt, fl, va, rs, n_ev)
+    assert torch.equal(got[live], ref[live])

@@ -1,6 +1,9 @@
-"""The PyTorch port's numpy host helpers equal their JAX-package originals,
-and the port imports no jax."""
+"""The PyTorch port's host side equals its JAX-package originals (the numpy
+helpers, and the copies of params, headers, the range encoder, CRC and the
+native codec), and the port imports neither jax nor the JAX package."""
 
+import ast
+import dataclasses
 import os
 import subprocess
 import sys
@@ -8,12 +11,24 @@ import sys
 import numpy as np
 import pytest
 
+from ffmpeg_ffv2_tpu.coder.rac import RangeEncoder as JRangeEncoder
+from ffmpeg_ffv2_tpu.core.crc import crc32_ieee as j_crc32_ieee
 from ffmpeg_ffv2_tpu.ffv1 import device_coder as jdc
+from ffmpeg_ffv2_tpu.ffv1 import headers as JH
+from ffmpeg_ffv2_tpu.ffv1 import params as jparams
+from ffmpeg_ffv2_tpu.ffv1.codec_py import SliceState as JSliceState
 from ffmpeg_ffv2_tpu.ffv1.expand_pallas import OP_GRAN
+from ffmpeg_ffv2_tpu.ffv1.native import NativeFFV1Codec as JNative
 from ffmpeg_ffv2_tpu.ffv1.params import FFV1Config, params_from_config
 from ffmpeg_ffv2_tpu.ffv1.codec_py import SliceState
 from ffmpeg_ffv2_tpu.ffv1.tpu_encoder import TPUFFV1Encoder
+from ffmpeg_ffv2_tpu_torch.coder.rac import RangeEncoder as TRangeEncoder
+from ffmpeg_ffv2_tpu_torch.core.crc import crc32_ieee as t_crc32_ieee
+from ffmpeg_ffv2_tpu_torch.ffv1 import headers as TH
 from ffmpeg_ffv2_tpu_torch.ffv1 import host
+from ffmpeg_ffv2_tpu_torch.ffv1 import params as tparams
+from ffmpeg_ffv2_tpu_torch.ffv1.native import NativeFFV1Codec as TNative
+from ffmpeg_ffv2_tpu_torch.ffv1.slice_state import SliceState as TSliceState
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -73,21 +88,134 @@ def test_torch_build_crop_plan(pix, wh, slices):
 
 
 def test_torch_port_imports_without_jax():
-    """Every module of the port imports with jax blocked."""
+    """Every module of the port imports with jax and the JAX package
+    blocked."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['ffmpeg_ffv2_tpu'] = None\n"
         "import ffmpeg_ffv2_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
         "pkg.__name__ + '.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "assert 'ffmpeg_ffv2_tpu_torch.ffv1.device_coder' in names\n"
-        "assert not any(m == 'jax' or m.startswith('jax.') "
+        "assert not any(m.split('.')[0] in ('jax', 'ffmpeg_ffv2_tpu') "
         "for m, v in sys.modules.items() if v is not None)\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 9
+    assert int(res.stdout.strip()) >= 21
+
+
+def test_torch_chip_smoke_imports_no_jax_package():
+    """chip_smoke.py imports neither the JAX package nor bench.py."""
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append(node.module or "")
+    assert "ffmpeg_ffv2_tpu_torch" in {n.split(".")[0] for n in names}
+    for n in names:
+        assert n.split(".")[0] not in ("ffmpeg_ffv2_tpu", "bench", "jax"), n
+
+
+def _params(pix, level, coder):
+    cfg = FFV1Config(level=level, coder=coder, slices=4 if level > 2 else 0)
+    return (params_from_config(cfg, pix, 64, 48),
+            tparams.params_from_config(
+                tparams.FFV1Config(level=level, coder=coder,
+                                   slices=4 if level > 2 else 0),
+                pix, 64, 48))
+
+
+@pytest.mark.parametrize("pix", ["yuv420p", "gray", "yuv420p10", "bgr0"])
+@pytest.mark.parametrize("level", [1, 3])
+@pytest.mark.parametrize("coder", [0, 1])
+def test_torch_params_copy(pix, level, coder):
+    jp, tp = _params(pix, level, coder)
+    for f in dataclasses.fields(jp):
+        a, b = getattr(jp, f.name), getattr(tp, f.name)
+        if f.name == "pix_fmt":
+            assert dataclasses.asdict(a) == dataclasses.asdict(b)
+        elif isinstance(a, np.ndarray):
+            assert a.dtype == b.dtype and np.array_equal(a, b), f.name
+        else:
+            assert a == b, f.name
+    assert jp.rects() == tp.rects() and jp.slice_count == tp.slice_count
+    for name in ("CODER_GOLOMB", "CODER_RANGE_DEFAULT", "CODER_RANGE_CUSTOM",
+                 "CONTEXT_SIZE"):
+        assert getattr(jparams, name) == getattr(tparams, name)
+
+
+@pytest.mark.parametrize("pix,level,coder", [
+    ("yuv420p", 3, 0), ("yuv420p", 3, 1), ("gray", 1, 1), ("bgr0", 3, 1),
+    ("yuv420p10", 1, 0), ("yuv420p", 4, 1)])
+def test_torch_headers_copy(pix, level, coder):
+    """write_extradata, write_v01_header and write_slice_header byte for
+    byte, with the custom and the default transition tables."""
+    jp, tp = _params(pix, level, coder)
+    assert TH.write_extradata(tp) == JH.write_extradata(jp)
+    a, b = TRangeEncoder(), JRangeEncoder()
+    TH.write_v01_header(a, tp)
+    JH.write_v01_header(b, jp)
+    assert a.terminate(1) == b.terminate(1)
+    for rect in jp.rects():
+        a, b = TRangeEncoder(), JRangeEncoder()
+        a.set_state_tables(tp.state_transition)
+        b.set_state_tables(jp.state_transition)
+        TH.write_slice_header(a, tp, TSliceState(tp), rect)
+        JH.write_slice_header(b, jp, JSliceState(jp), rect)
+        assert a.terminate(0) == b.terminate(0)
+
+
+def test_torch_coder_and_slice_state_copy():
+    """The range encoder's default tables, the run ladder, the VlcState
+    defaults and SliceState's per-plane fields equal the originals."""
+    from ffmpeg_ffv2_tpu.coder import golomb as jg
+    from ffmpeg_ffv2_tpu.coder import rac as jrac
+    from ffmpeg_ffv2_tpu_torch.coder import golomb as tg
+    from ffmpeg_ffv2_tpu_torch.coder import rac as trac
+    for name in ("DEFAULT_ZERO_STATE", "DEFAULT_ONE_STATE"):
+        assert np.array_equal(getattr(trac, name), getattr(jrac, name))
+    assert tg.LOG2_RUN == jg.LOG2_RUN
+    assert dataclasses.asdict(tg.VlcState()) == dataclasses.asdict(
+        jg.VlcState())
+    for pix, coder in (("yuv420p", 0), ("gray", 1), ("yuva420p", 1)):
+        jp, tp = _params(pix, 3, coder)
+        a, b = TSliceState(tp), JSliceState(jp)
+        assert a.plane_ctx_count == b.plane_ctx_count
+        assert a.plane_qt_index == b.plane_qt_index
+        assert (a.slice_rct_by, a.slice_rct_ry, a.slice_coding_mode) == (
+            b.slice_rct_by, b.slice_rct_ry, b.slice_coding_mode)
+
+
+def test_torch_crc_copy():
+    rng = np.random.default_rng(9)
+    for n in (0, 1, 3, 4, 1000):
+        data = rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+        assert t_crc32_ieee(data) == j_crc32_ieee(data)
+        assert t_crc32_ieee(data, 0x1234567) == j_crc32_ieee(data, 0x1234567)
+
+
+@pytest.mark.parametrize("coder", [0, 1])
+def test_torch_native_copy(coder):
+    """The port's native codec copy encodes the packets of the original,
+    and decodes them back."""
+    jp, tp = _params("yuv420p", 3, coder)
+    a, b, dec = TNative(tp), JNative(jp), TNative(tp)
+    rng = np.random.RandomState(6)
+    for t in range(3):
+        planes = [rng.randint(0, 256, s).astype(np.int32)
+                  for s in ((48, 64), (24, 32), (24, 32))]
+        if t == 1:
+            planes = [pl_ // 16 * 16 for pl_ in planes]
+        pkt = a.encode(planes, t == 0)
+        assert pkt == b.encode(planes, t == 0)
+        for x, y in zip(dec.decode(pkt), planes):
+            assert np.array_equal(x, y)
