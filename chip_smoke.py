@@ -3,37 +3,50 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths through ffmpeg_ffv2_tpu_torch's
-DeviceFFV1Encoder.encode at 1920x1080 yuv420p with FFV1Config(level=3,
-slices=30): coder=1 (the range coder) and coder=0 (Golomb-Rice, FFV1's
-default for 8-bit video), on synthetic frames (``synth_1080p_frames``), in
-phases that each print a line:
+Drives the port's paths through ffmpeg_ffv2_tpu_torch's
+DeviceFFV1Encoder.encode on synthetic frames, in phases that each print a
+line and their wall seconds:
 
 0. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
 1. the build of the CUDA kernels from csrc/ (one nvcc per source, all
    started together) and of the native C++ FFV1 codec, the oracle (g++);
-2. range: K1-K4 each against its plain PyTorch version on the card, on the
-   inputs frame 0 gives it (K2 and K4 plain versions on a stated cut),
-   with CUDA-event times of both, plus the time of each stage of frame 0;
-3. range: 8 frames (1 key, 7 inter) through encode(): every packet must
+2. range, 1920x1080 yuv420p, FFV1Config(level=3, coder=1, slices=30): K1-K4
+   each against its plain PyTorch version on the card, on the inputs frame
+   0 gives it (K2 and K4 plain versions on a stated cut), with CUDA-event
+   times of both, plus the time of each stage of frame 0;
+3. range: 4 frames (1 key, 3 inter) through encode(): every packet must
    equal the native codec's and decode back to the input exactly, K1-K4
    must have launched and no plain version may have run;
-4. Golomb-Rice: K5 (vlc) against its plain version (on a cut) and the
-   ladder kernel against its plain loop (on the frame's events), K1 again
-   on the rice cells, all on the inputs the encoder's own stages give
-   them, and the stage times of frame 0;
-5. Golomb-Rice: 8 frames through encode(), checked as in phase 3, with K1,
-   K5 and the ladder kernel launched and no plain version run.
+4. Golomb-Rice, the same frames with coder=0: K5 (vlc) against its plain
+   version (on a cut) and the ladder kernel against its plain loop (on the
+   frame's events), K1 again on the rice cells, and the stage times;
+5. Golomb-Rice: 4 frames through encode(), checked as in phase 3, with K1,
+   K5 and the ladder kernel launched and no plain version run;
+6. rgb48 1920x1080 (16-bit RGB film scans), FFV1Config(level=3, coder=1,
+   slices=30, slicecrc=1), coding depth 17: K2 with its R = 7 repeat
+   sub-steps and K6 against their plain versions (on a cut), then 3 frames
+   through encode() on the default route (K1-K4), checked as in phase 3;
+7. bgr0 1920x1080, FFV1Config(level=4, coder=1, slices=30, slicecrc=1)
+   with emission_order=True: the per-slice RCT search on the card (the
+   histogram of its picks), K6 against its plain version, 3 frames
+   checked as in phase 3 with K1, K6, K3 and K4 launched and K2 not;
+8. bgr0 1920x1080, FFV1Config(level=3, coder=0, slices=30): FATE's RGB
+   Golomb-Rice configuration, 3 frames with K1, K5 and the ladder kernel;
+9. yuv422p10 720x486 (SD tape transfers), FFV1Config(level=3, coder=1,
+   slices=24, slicecrc=1): slice rects of 120x121 and 120x122, so the
+   session splits into two shape banks; 3 frames checked as in phase 3.
 
-The launch counts of a path are reset just before its 8 frames and read
+The launch counts of a path are reset just before its frames and read
 just after.  The line before the last is a JSON object with one entry per
-kernel: its times, its bound on this card (bytes over the memory rate or
-operations over the peak rate, whichever is larger, from this run's
-inputs; and for a serial kernel the longest dependent chain at one step
-per SM clock) and the time of one PyTorch call computing the same function
-where there is one.  The last line is {"ok": true, "device": {...}}.  Any
-failure raises and exits non-zero without those lines.  Exits non-zero at
-once when torch sees no CUDA device.
+kernel (and K2 again at rgb48; K6's entry carries its rgb48 numbers too):
+its times, its bound on this card (bytes
+over the memory rate or operations over the peak rate, whichever is
+larger, from this run's inputs; and for a serial kernel the longest
+dependent chain at one step per SM clock) and the time of one PyTorch call
+computing the same function where there is one.  The last line is
+{"ok": true, "device": {...}}.  Any failure raises and exits non-zero
+without those lines.  Exits non-zero at once when torch sees no CUDA
+device.
 """
 
 from __future__ import annotations
@@ -46,7 +59,9 @@ import time
 
 import numpy as np
 
-W, H, N_FRAMES = 1920, 1080, 8
+W, H, N_FRAMES = 1920, 1080, 4
+N_NEW = 3                   # frames of each of phases 6-9 (1 key, 2 inter)
+SD = (720, 486)             # phase 9's frame size
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 # no int32 rate is published; the float32 non-tensor peak (67 TFLOP/s) is
 # no lower than the int32 rate, so ops over it are a lower bound on time
@@ -70,6 +85,65 @@ def synth_1080p_frames(n, w=W, h=H):
              (cb * 2 + t) & 0xFF] for t in range(n)]
 
 
+def synth_rgb_frames(n, w=W, h=H, seed=1):
+    """Channel-correlated 8-bit RGB (g, b, r planes): a gradient g, and
+    per slice-sized region one of four relations, so that the v4 RCT
+    search picks different pairs per slice: b = 2g + noise and r = g + x +
+    noise; a grainy g beside a smooth b and r; b following g; r following
+    g (sample values wrap at 256)."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    region = (xx * 6 // w + yy * 5 // h) % 4
+    frames = []
+    for t in range(n):
+        ramp = xx * 3 + yy * 2 + 11 * t
+        grain = rng.randint(0, 8, (3, h, w))
+        g = np.where(region == 0, ramp, ramp + grain[0])
+        b = np.select([region == 0, region == 2], [2 * g + grain[1], g + 7],
+                      ramp * 2)
+        r = np.select([region == 0, region == 3], [g + xx + grain[2] % 3,
+                                                   g + 5], ramp * 2 + xx)
+        frames.append([(x % 256).astype(np.int32) for x in (g, b, r)])
+    return frames
+
+
+def synth_rgb48_frames(n, w=W, h=H, seed=2):
+    """16-bit RGB film-scan stand-in (g, b, r planes): 16-bit gradients
+    with 4-bit grain; at 1080 rows, rows 400..463 carry 12-bit noise and
+    rows 800..807 full 16-bit noise, so that coded residuals reach
+    exponents 10..16 and the walk's repeat sub-steps run."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    b12 = slice(h * 10 // 27, h * 10 // 27 + max(2, h * 64 // 1080))
+    b16 = slice(h * 20 // 27, h * 20 // 27 + max(1, h // 135))
+    base = xx * 29 + yy * 13
+    bases = (base, base * 2 // 3 + 3000, base // 2 + 9000)
+    frames = []
+    for t in range(n):
+        planes = []
+        for c in range(3):
+            x = bases[c] + 7 * t + rng.randint(0, 16, (h, w))
+            x[b12] += rng.randint(0, 4096, (b12.stop - b12.start, w))
+            x[b16] = rng.randint(0, 65536, (b16.stop - b16.start, w))
+            planes.append((x & 0xFFFF).astype(np.int32))
+        frames.append(planes)
+    return frames
+
+
+def synth_sd_frames(n, w, h, seed=3):
+    """10-bit 4:2:2 SD: a luma gradient with 2-bit noise, chroma ramps."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    cyy, cxx = np.mgrid[0:h, 0:w // 2]
+    out = []
+    for t in range(n):
+        y = (xx * 5 + yy * 3 + 4 * t + rng.randint(0, 4, (h, w))) % 1024
+        u = (cxx * 3 + cyy + 2 * t) % 1024
+        v = (cxx + cyy * 2 + 512 + t) % 1024
+        out.append([a.astype(np.int32) for a in (y, u, v)])
+    return out
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Median CUDA-event time of fn() over reps runs, after one warm-up."""
     import torch
@@ -86,6 +160,20 @@ def cuda_ms(fn, reps: int) -> float:
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+def cuda_ms_once(fn):
+    """fn()'s result and its CUDA-event time of one run: a plain version's
+    Python loop needs no warm-up, and its comparison run is its timed run."""
+    import torch
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
 
 
 def max_abs_err(got, ref) -> float:
@@ -133,8 +221,7 @@ def chain_rows(caps_h, pred_h) -> int:
 
 def cut_tiles(caps, pred):
     """The first two non-empty tiles and the last four, closed under
-    tile_pred; returns (tiles, caps with every other tile emptied, the
-    cut's rows)."""
+    tile_pred; returns (tiles, caps with every other tile emptied)."""
     import torch
     caps_h, pred_h = caps.tolist(), pred.tolist()
     nonempty = [t for t, c in enumerate(caps_h) if c > 0]
@@ -174,43 +261,23 @@ class Marks:
 
 
 def capture_range(enc, planes):
-    """Run range frame ``planes`` (a keyframe) through the encoder's stages
-    one by one; returns each kernel's inputs and the stage times."""
+    """Run range frame ``planes`` (a keyframe) through the encoder's own
+    stages (``range_streams``, ``ops_from_streams``; then K4 as
+    ``_render_retry`` calls it) with a CUDA event after each; returns
+    each kernel's inputs and the stage times."""
     import torch
-    from ffmpeg_ffv2_tpu_torch.ffv1 import device_coder as dc
-    from ffmpeg_ffv2_tpu_torch.ffv1.adapt import adapt
-    from ffmpeg_ffv2_tpu_torch.ffv1.expand import expand
     from ffmpeg_ffv2_tpu_torch.ffv1.rac import rac_render
-    from ffmpeg_ffv2_tpu_torch.ops.place import place
 
     mark = Marks()
     dev = [torch.as_tensor(pl, dtype=torch.int32, device=enc.device)
            for pl in planes]
     mark("upload")
-    ctx, diff = enc.phase_a(dev)
-    mark("phase_a")
-    plan = enc.layout(ctx, diff, enc.tiles_cap, enc.cellrows_cap)
-    mark("layout")
-    k1 = (plan["dest"], plan["ch1"], plan["orig"], enc.cellrows_cap)
-    ch1c, ch2c = place(*k1)
-    mark("K1 place")
-    s0 = dc.build_s0_blocks(plan, enc.canonical_key, enc.tiles_cap)
-    mark("s0")
-    k2 = (ch1c, plan["tile_caps"], plan["tile_bases"], plan["tile_pred"],
-          s0, enc.table)
-    sv, ends = adapt(*k2, enc.code_bits)
-    mark("K2 adapt")
-    ev_cells = dc.repack_emission_order(sv, (ch1c & 0xFFF) - 2048,
-                                        enc.code_bits, enc.unsort_words)
-    mark("repack")
-    dc.writeback_canonical(plan, enc.canonical_key, ends, enc.tiles_cap)
-    mark("writeback")
-    words, maxc = dc.unsort_cells(ev_cells, ch1c, ch2c, enc.S, enc.npix)
-    mark("unsort")
-    svp, btp, hlen = enc.prefix[True]
-    k3 = (words, diff, svp, btp, hlen, enc.op_cap)
-    opw, n_ops = expand(*k3)
-    mark("K3 expand")
+    ctx, diff, (svp, btp, hlen) = enc.range_streams(dev, True)
+    mark("RCT search + phase_a" if enc.v4rgb else "phase_a")
+    opw, n_ops, _, _ = enc.ops_from_streams(
+        ctx, diff, enc.canonical_key, svp, btp, hlen, True,
+        (enc.tiles_cap, enc.cellrows_cap, enc.op_cap), enc.unsort_words,
+        mark)
     opmax = int(n_ops.max())
     mark("sizes to host")
     steps = max(512, min(1 << opmax.bit_length(), opw.shape[1]))
@@ -224,7 +291,9 @@ def capture_range(enc, planes):
     enc._finish_packet([by_h[s, :ln_h[s]].tobytes() for s in range(enc.S)])
     stages["slice trailers + CRC (host clock)"] = round(
         (time.perf_counter() - t0) * 1e3, 4)
-    return dict(k1=k1, k2=k2, k3=k3, k4=k4, n_ops=n_ops,
+    walk = "K6 adapt_emission" if enc.emission_order else "K2 adapt"
+    return dict(k1=mark.inputs["K1 place"], walk=mark.inputs[walk],
+                k3=mark.inputs["K3 expand"], k4=k4, n_ops=n_ops,
                 rendered=int(ln_h.sum())), stages
 
 
@@ -256,14 +325,18 @@ def capture_rice(enc, planes):
                 kl=mark.inputs["ladder kernel"]), stages
 
 
-def entry(out, name, err, ms, plain_ms, library_ms, bnd, **extra):
+def entry(out, name, path, err, ms, plain_ms, library_ms, bnd, key=None,
+          **extra):
+    """One kernel's entry of the ``kernels`` line, under ``key`` (the
+    kernel's name unless it is measured twice); ``path`` names the main
+    path whose launches it reports."""
     from ffmpeg_ffv2_tpu_torch import _build
     k = _build.KERNELS[name]
-    out[name] = dict(name=name, route="cuda", source=k.source,
-                     replaces=k.replaces, max_abs_err=err, ms=ms,
-                     plain_ms=plain_ms, library_ms=library_ms, **bnd,
-                     **extra)
-    log(f"kernel {name}: equal to plain (tolerance: exact, torch.equal), "
+    key = key or name
+    out[key] = dict(name=key, route="cuda", source=k.source,
+                    replaces=k.replaces, path=path, max_abs_err=err, ms=ms,
+                    plain_ms=plain_ms, library_ms=library_ms, **bnd, **extra)
+    log(f"kernel {key}: equal to plain (tolerance: exact, torch.equal), "
         f"max_abs_err {err}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"library {library_ms} ms, bound {bnd['bound_ms']:.5f} ms "
         f"({bnd['bound_by']})"
@@ -276,8 +349,13 @@ def used_tiles(caps) -> int:
     return int((caps > 0).sum())
 
 
+def valid_cells(ch1c, vbit: int = 13) -> int:
+    return int(((ch1c >> vbit) & 1).sum())
+
+
 def live_cells(ch1c) -> tuple:
-    """(cells with the valid flag, of them the ones not silent)."""
+    """Rice cells: (cells with the valid flag, of them the ones not
+    silent)."""
     valid = (ch1c >> 13) & 1
     return int(valid.sum()), int((valid & (1 - ((ch1c >> 12) & 1))).sum())
 
@@ -298,7 +376,7 @@ def place_checks(out, k1, rice_k1):
     vals2 = torch.stack([ch1, orig])
     out2 = torch.empty((2, cells + 1), dtype=torch.int32, device=dest.device)
     n = dest.shape[0]
-    entry(out, "place", err, cuda_ms(lambda: pl.place(*k1), 5),
+    entry(out, "place", "range", err, cuda_ms(lambda: pl.place(*k1), 5),
           cuda_ms(lambda: pl.scatter_cells(*k1), 5),
           cuda_ms(lambda: out2.scatter_(1, idx2, vals2), 5),
           bound(n * 12 + rows_used * 128 * 8, n),
@@ -308,41 +386,62 @@ def place_checks(out, k1, rice_k1):
                 f"{rice_k1[0].shape[0]} cells={rice_k1[3] * 128}")
 
 
-def range_checks(out, inputs, clock_mhz):
-    """K2-K4 against their plain versions on range frame 0's inputs."""
+def walk_check(out, inputs, clock_mhz, key, path, emission: bool):
+    """K2 (or K6) on every tile of a frame's cells, and against its plain
+    row scan on a cut of tiles closed under tile_pred (the kernel again on
+    the cut, every other tile emptied).  Bound: each valid cell read and
+    its output words written, the start and end blocks and the tile words
+    of the tiles in use, the table; chain: the longest successor chain's
+    rows.  Returns the count of valid cells with e > 9 in the cut."""
     import torch
     from ffmpeg_ffv2_tpu_torch.ffv1 import adapt as ad
-    from ffmpeg_ffv2_tpu_torch.ffv1 import expand as ex
-    from ffmpeg_ffv2_tpu_torch.ffv1 import rac
-
-    # K2 adapt: kernel on every tile; the plain row scan on a cut of
-    # tiles closed under tile_pred, and the kernel again on the cut
-    ch1c, caps, bases, pred, s0, table = inputs["k2"]
+    from ffmpeg_ffv2_tpu_torch.ffv1 import host
+    k = inputs["walk"]
+    ch1c, caps, bases, pred, s0, table, code_bits = k[:7]
+    rest = k[7:]                                  # K6: ev_words
+    kern = ad.adapt_emission if emission else ad.adapt
+    plain = ad.adapt_emission_plain if emission else ad.adapt_plain
     cut, caps_cut = cut_tiles(caps, pred)
     bases_h, caps_h = bases.tolist(), caps.tolist()
     rows = torch.cat([torch.arange(bases_h[t], bases_h[t] + caps_h[t],
                                    device=caps.device) for t in cut])
-    sv_k, ends_k = ad.adapt(*inputs["k2"], 8)
-    sv_c, ends_c = ad.adapt(ch1c, caps_cut, bases, pred, s0, table, 8)
-    sv_p, ends_p = ad.adapt_plain(*inputs["k2"], tiles=cut)
-    err = max_abs_err([sv_k[rows], ends_k[cut], sv_c[rows], ends_c[cut]],
-                      [sv_p[rows], ends_p[cut], sv_p[rows], ends_p[cut]])
-    # bound: each valid cell read and its 8 sv words written, the start
-    # and end blocks and the tile words of the tiles in use, the table
+    kc = (ch1c, caps_cut, bases, pred, s0, table, code_bits, *rest)
+    out_k, ends_k = kern(*k)
+    out_c, ends_c = kern(*kc)
+    (out_p, ends_p), plain_ms = cuda_ms_once(lambda: plain(*k, tiles=cut))
+    err = max_abs_err([out_k[rows], ends_k[cut], out_c[rows], ends_c[cut]],
+                      [out_p[rows], ends_p[cut], out_p[rows], ends_p[cut]])
+    vbit = host.payload_field(code_bits)[2]
+    valid = valid_cells(ch1c, vbit)
+    big = ((ad.cell_diff(ch1c, code_bits).abs() >= 1 << 10)
+           & (((ch1c >> vbit) & 1) == 1))
+    big_cut = int(big[rows].sum())
     n_rows = sum(c for c in caps_h if c > 0)
     tiles = used_tiles(caps)
-    valid, _ = live_cells(ch1c)
-    entry(out, "adapt", err, cuda_ms(lambda: ad.adapt(*inputs["k2"], 8), 5),
-          cuda_ms(lambda: ad.adapt_plain(*inputs["k2"], tiles=cut), 1),
-          None,
-          bound(valid * (4 + 32) + tiles * ((33 + 32) * 128 * 4 + 12)
-                + 512, valid * 32, chain_rows(caps_h, pred.tolist()),
-                clock_mhz),
-          ms_cut=cuda_ms(lambda: ad.adapt(ch1c, caps_cut, bases, pred, s0,
-                                          table, 8), 5),
+    words = out_k.shape[1]
+    entry(out, "adapt_emission" if emission else "adapt", path, err,
+          cuda_ms(lambda: kern(*k), 5), plain_ms, None,
+          bound(valid * (4 + 4 * words)
+                + tiles * ((33 + 32) * 128 * 4 + 12) + 512,
+                valid * (32 + 2 * max(0, code_bits - 10)),
+                chain_rows(caps_h, pred.tolist()), clock_mhz),
+          key=key, ms_cut=cuda_ms(lambda: kern(*kc), 5),
           cut=f"tiles {cut} ({rows.numel()} of {n_rows} rows); plain_ms "
               "and ms_cut on the cut, ms on every tile",
-          split_tiles=sum(1 for t in pred.tolist() if t >= 0))
+          code_bits=code_bits, out_words=words,
+          split_tiles=sum(1 for t in pred.tolist() if t >= 0),
+          valid_cells=valid, cells_e_over_9=int(big.sum()),
+          cells_e_over_9_in_cut=big_cut)
+    return big_cut
+
+
+def range_checks(out, inputs, clock_mhz):
+    """K2-K4 against their plain versions on range frame 0's inputs."""
+    import torch
+    from ffmpeg_ffv2_tpu_torch.ffv1 import expand as ex
+    from ffmpeg_ffv2_tpu_torch.ffv1 import rac
+
+    walk_check(out, inputs, clock_mhz, "adapt", "range", False)
 
     # K3 expand: full main-path shapes; bound: the inputs read, the op
     # words the slices hold written (not the op_cap capacity)
@@ -350,7 +449,7 @@ def range_checks(out, inputs, clock_mhz):
     words, diff, svp, btp, hlen, op_cap = k3
     err = max_abs_err(ex.expand(*k3), ex.expand_plain(*k3))
     n_ops = int(inputs["n_ops"].sum())
-    entry(out, "expand", err, cuda_ms(lambda: ex.expand(*k3), 5),
+    entry(out, "expand", "range", err, cuda_ms(lambda: ex.expand(*k3), 5),
           cuda_ms(lambda: ex.expand_plain(*k3), 3), None,
           bound(4 * (words.numel() + diff.numel() + svp.numel()
                      + btp.numel() + hlen.numel() + n_ops
@@ -367,7 +466,7 @@ def range_checks(out, inputs, clock_mhz):
     err = max_abs_err(rac.rac_render(opw_cut, n, 8192),
                       rac.rac_render_plain(opw_cut, n, 8192))
     S = opw.shape[0]
-    entry(out, "rac_render", err,
+    entry(out, "rac_render", "range", err,
           cuda_ms(lambda: rac.rac_render(opw, steps, buf_cap), 5),
           cuda_ms(lambda: rac.rac_render_plain(opw_cut, n, 8192), 1), None,
           bound(n_ops * 4 + inputs["rendered"] + S * 4, n_ops,
@@ -392,7 +491,8 @@ def rice_checks(out, inputs, clock_mhz):
                                    device=caps.device) for t in cut])
     code_k, ends_k = vlc.vlc_adapt(*k5, 8)
     code_c, ends_c = vlc.vlc_adapt(ch1c, caps_cut, bases, pred, s0, 8)
-    code_p, ends_p = vlc.vlc_adapt_plain(*k5, 8, tiles=cut)
+    (code_p, ends_p), plain_ms = cuda_ms_once(
+        lambda: vlc.vlc_adapt_plain(*k5, 8, tiles=cut))
     err = max_abs_err(
         [code_k[rows], ends_k[cut], code_c[rows], ends_c[cut]],
         [code_p[rows], ends_p[cut], code_p[rows], ends_p[cut]])
@@ -401,8 +501,8 @@ def rice_checks(out, inputs, clock_mhz):
     n_rows = sum(c for c in caps_h if c > 0)
     tiles = used_tiles(caps)
     valid, live = live_cells(ch1c)
-    entry(out, "vlc", err, cuda_ms(lambda: vlc.vlc_adapt(*k5, 8), 5),
-          cuda_ms(lambda: vlc.vlc_adapt_plain(*k5, 8, tiles=cut), 1), None,
+    entry(out, "vlc", "rice", err, cuda_ms(lambda: vlc.vlc_adapt(*k5, 8), 5),
+          plain_ms, None,
           bound(valid * 8 + tiles * ((5 + 4) * 128 * 4 + 12), live * 40,
                 chain_rows(caps_h, pred.tolist()), clock_mhz),
           ms_cut=cuda_ms(lambda: vlc.vlc_adapt(ch1c, caps_cut, bases, pred,
@@ -422,7 +522,8 @@ def rice_checks(out, inputs, clock_mhz):
     err = max_abs_err([rice.run_index_scan(*kl)[live_ev]],
                       [rice.run_index_scan_plain(*kl)[live_ev]])
     events = int(n_ev.sum())
-    entry(out, "ladder", err, cuda_ms(lambda: rice.run_index_scan(*kl), 5),
+    entry(out, "ladder", "rice", err,
+          cuda_ms(lambda: rice.run_index_scan(*kl), 5),
           cuda_ms(lambda: rice.run_index_scan_plain(*kl), 1), None,
           bound(events * (4 + 3 + 4) + L * 4, events * 10, int(n_ev.max()),
                 clock_mhz),
@@ -430,11 +531,38 @@ def rice_checks(out, inputs, clock_mhz):
           events=events, max_events=int(n_ev.max()))
 
 
-def drive(enc, frames, nat, dec, card, label, phase):
-    """The main path of one coder: frames through encode() with the launch
-    counts reset just before; every packet against the native codec and
-    its lossless decode.  Returns the launch counts."""
+def probe(label, pix, w, h, cfg, frame, emission=False):
+    """An encoder whose caps the frame settles, and the captured kernel
+    inputs and stage times of that frame, run twice (the first warms)."""
+    from ffmpeg_ffv2_tpu_torch.ffv1.device_coder import DeviceFFV1Encoder
+    enc = DeviceFFV1Encoder(w, h, pix, cfg, device="cuda",
+                            emission_order=emission)
+    enc.encode(frame, force_keyframe=True)
+    capture = capture_rice if enc.golomb else capture_range
+    capture(enc, frame)
+    inputs, stages = capture(enc, frame)
+    log(f"{label} frame 0 stage times (ms, CUDA events): "
+        + json.dumps(stages))
+    return enc, inputs
+
+
+def drive(label, pix, w, h, cfg, frames, card, phase, emission=False,
+          not_launched=(), check=None):
+    """The main path of one configuration: frames through encode() with
+    the launch counts reset just before; every packet against the native
+    codec and its lossless decode.  ``check(enc)`` runs on the session
+    before the frames.  Returns the launch counts."""
     from ffmpeg_ffv2_tpu_torch import _build
+    from ffmpeg_ffv2_tpu_torch.ffv1.device_coder import DeviceFFV1Encoder
+    from ffmpeg_ffv2_tpu_torch.ffv1.native import NativeFFV1Codec
+    from ffmpeg_ffv2_tpu_torch.ffv1.params import params_from_config
+    p = params_from_config(cfg, pix, w, h)
+    nat, dec = NativeFFV1Codec(p), NativeFFV1Codec(p)
+    enc = DeviceFFV1Encoder(w, h, pix, cfg, device="cuda",
+                            emission_order=emission)
+    if check is not None:
+        check(enc)
+    kernels = (enc.banks[0] if enc.banks else enc).kernels
     _build.reset_counts()
     packets, ms = [], []
     for t, frame in enumerate(frames):
@@ -453,24 +581,42 @@ def drive(enc, frames, nat, dec, card, label, phase):
             if not np.array_equal(a, b):
                 raise AssertionError(f"{label} frame {t}: decode is not "
                                      "lossless")
-    for name in enc.kernels:
+    for name in kernels:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  f"{label} path")
+    for name in not_launched:
+        if launches[name]:
+            raise AssertionError(f"kernel {name} launched on the {label} "
+                                 "path")
     if any(plain.values()):
         raise AssertionError(f"plain versions ran on the {label} path: "
                              f"{plain}")
     steady = sorted(ms[1:])[len(ms[1:]) // 2]
-    log(f"phase {phase}: {label}: {len(frames)} frames 1920x1080 yuv420p "
-        f"(1 key + "
-        f"{len(frames) - 1} inter, 30 slices, level 3) byte-identical to "
-        f"the native codec and decoded losslessly; launches {launches}, "
-        f"plain calls {plain}")
+    log(f"phase {phase}: {label}: {len(frames)} frames {w}x{h} {pix} (1 "
+        f"key + {len(frames) - 1} inter, {p.slice_count} slices, level "
+        f"{p.version}, coder {cfg.coder}) byte-identical to the native "
+        f"codec and decoded losslessly; launches {launches}, plain calls "
+        f"{plain}")
     log(f"phase {phase}: {label}: ms per frame "
-        f"{[round(x, 2) for x in ms]}; inter-frame "
-        f"median {steady:.2f} ms = {W * H / steady / 1e3:.2f} Mpixel/s "
-        f"[{card}]; packet bytes {[len(x) for x in packets]}")
+        f"{[round(x, 2) for x in ms]}; inter-frame median {steady:.2f} ms "
+        f"= {w * h / steady / 1e3:.2f} Mpixel/s [{card}]; packet bytes "
+        f"{[len(x) for x in packets]}")
     return launches
+
+
+class Phase:
+    """Logs a phase's wall seconds when its block ends."""
+
+    def __init__(self, n):
+        self.n = n
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        if exc[0] is None:
+            log(f"phase {self.n}: wall {time.perf_counter() - self.t0:.1f} s")
 
 
 def main() -> int:
@@ -480,9 +626,7 @@ def main() -> int:
         return 1
     from ffmpeg_ffv2_tpu_torch import _build
     from ffmpeg_ffv2_tpu_torch.ffv1 import native
-    from ffmpeg_ffv2_tpu_torch.ffv1.device_coder import DeviceFFV1Encoder
-    from ffmpeg_ffv2_tpu_torch.ffv1.native import NativeFFV1Codec
-    from ffmpeg_ffv2_tpu_torch.ffv1.params import FFV1Config, params_from_config
+    from ffmpeg_ffv2_tpu_torch.ffv1.params import FFV1Config
 
     # 0. device
     def smi(query):
@@ -500,65 +644,132 @@ def main() -> int:
         f"clock {clock_mhz} MHz")
 
     # 1. build: the native oracle (g++) beside the kernels (nvcc)
-    t0 = time.perf_counter()
-    nat_err = []
+    with Phase(1):
+        t0 = time.perf_counter()
+        nat_err = []
 
-    def build_native():
-        try:
-            native.build()
-        except Exception as e:            # re-raised below, after the join
-            nat_err.append(e)
+        def build_native():
+            try:
+                native.build()
+            except Exception as e:        # re-raised below, after the join
+                nat_err.append(e)
 
-    th = threading.Thread(target=build_native)
-    th.start()
-    _build.load()
-    t_kern = time.perf_counter() - t0
-    th.join()
-    if nat_err:
-        raise nat_err[0]
-    log(f"phase 1: kernels built and loaded in {t_kern:.1f} s "
-        f"({_build.library_path()}); native codec built by "
-        f"{time.perf_counter() - t0:.1f} s")
-    with open(_build.library_path().rsplit("/", 1)[0] + "/build.log") as f:
-        for line in f:
-            if "registers" in line or "spill" in line:
-                log("  ptxas:", line.strip())
+        th = threading.Thread(target=build_native)
+        th.start()
+        _build.load()
+        t_kern = time.perf_counter() - t0
+        th.join()
+        if nat_err:
+            raise nat_err[0]
+        log(f"phase 1: kernels built and loaded in {t_kern:.1f} s "
+            f"({_build.library_path()}); native codec built by "
+            f"{time.perf_counter() - t0:.1f} s")
+        with open(_build.library_path().rsplit("/", 1)[0]
+                  + "/build.log") as f:
+            for line in f:
+                if "registers" in line or "spill" in line:
+                    log("  ptxas:", line.strip())
 
-    frames = synth_1080p_frames(N_FRAMES)
+    frames = synth_1080p_frames(N_FRAMES, W, H)
     kernels, launches = {}, {}
-    cfgs = {"range": FFV1Config(level=3, coder=1, slices=30),
-            "rice": FFV1Config(level=3, coder=0, slices=30)}
-    inputs, encs = {}, {}
-    for label, cfg in cfgs.items():
-        probe = DeviceFFV1Encoder(W, H, "yuv420p", cfg, device="cuda")
-        probe.encode(frames[0], force_keyframe=True)     # settles the caps
-        capture = capture_range if label == "range" else capture_rice
-        capture(probe, frames[0])                        # warm-up
-        inputs[label], stages = capture(probe, frames[0])
-        phase = 2 if label == "range" else 4
-        log(f"phase {phase}: {label} frame 0 stage times (ms, CUDA events): "
-            + json.dumps(stages))
-        encs[label] = probe
-        if label == "range":
-            range_checks(kernels, inputs[label], clock_mhz)
-        else:
-            place_checks(kernels, inputs["range"]["k1"], inputs[label]["k1"])
-            rice_checks(kernels, inputs[label], clock_mhz)
-    del inputs, encs
+    range_cfg = FFV1Config(level=3, coder=1, slices=30)
+    rice_cfg = FFV1Config(level=3, coder=0, slices=30)
 
-    # 3. and 5. the main paths: 8 frames each through encode()
-    for phase, (label, cfg) in zip((3, 5), cfgs.items()):
-        p = params_from_config(cfg, "yuv420p", W, H)
-        enc = DeviceFFV1Encoder(W, H, "yuv420p", cfg, device="cuda")
-        launches[label] = drive(enc, frames, NativeFFV1Codec(p),
-                                NativeFFV1Codec(p), card, label, phase)
+    # 2.-5. yuv420p 1080p: the range and the Golomb-Rice coder
+    with Phase(2):
+        _, inputs = probe("phase 2: range", "yuv420p", W, H, range_cfg,
+                          frames[0])
+        range_checks(kernels, inputs, clock_mhz)
+        range_k1 = inputs["k1"]
+        del inputs
+    with Phase(3):
+        launches["range"] = drive("range", "yuv420p", W, H, range_cfg,
+                                  frames, card, 3)
+    with Phase(4):
+        _, inputs = probe("phase 4: rice", "yuv420p", W, H, rice_cfg,
+                          frames[0])
+        place_checks(kernels, range_k1, inputs["k1"])
+        rice_checks(kernels, inputs, clock_mhz)
+        del inputs, range_k1
+    with Phase(5):
+        launches["rice"] = drive("rice", "yuv420p", W, H, rice_cfg, frames,
+                                 card, 5)
 
-    for name, k in kernels.items():
-        by_path = {label: launches[label][name] for label in launches}
-        k["launches"] = by_path["rice" if name in ("vlc", "ladder")
-                                else "range"]
-        k["launches_by_path"] = by_path
-    order = ["place", "adapt", "expand", "rac_render", "vlc", "ladder"]
+    # 6. rgb48: K2 with R = 7 and K6 on the same cells, then the frames
+    with Phase(6):
+        rgb48 = synth_rgb48_frames(N_NEW, W, H)
+        cfg = FFV1Config(level=3, coder=1, slices=30, slicecrc=1)
+        enc, inputs = probe("phase 6: rgb48", "rgb48", W, H, cfg, rgb48[0])
+        big = walk_check(kernels, inputs, clock_mhz, "adapt_rgb48", "rgb48",
+                         False)
+        k = inputs["walk"]
+        from ffmpeg_ffv2_tpu_torch.ffv1 import host
+        ev_in = dict(walk=k + (host.n_ev_words(enc.code_bits),))
+        walk_check(kernels, ev_in, clock_mhz, "adapt_emission_rgb48",
+                   "rgb48", True)
+        e = kernels["adapt_rgb48"]
+        log(f"phase 6: rgb48: {e['cells_e_over_9']} of {e['valid_cells']} "
+            f"valid cells have e > 9 ({big} in the cut), so the repeat "
+            "sub-steps run")
+        if not big:
+            raise AssertionError("rgb48: no cell with e > 9 in the cut")
+        del enc, inputs, ev_in, k
+        launches["rgb48"] = drive("rgb48", "rgb48", W, H, cfg, rgb48, card,
+                                  6, not_launched=("adapt_emission",))
+        del rgb48
+
+    # 7. bgr0 v4: the per-slice RCT search, emission order (K6)
+    rgb = synth_rgb_frames(N_NEW, W, H)
+    with Phase(7):
+        cfg = FFV1Config(level=4, coder=1, slices=30, slicecrc=1)
+        enc, inputs = probe("phase 7: bgr0 v4", "bgr0", W, H, cfg, rgb[0],
+                            emission=True)
+        walk_check(kernels, inputs, clock_mhz, None, "bgr0 v4", True)
+        # K6 on phase 6's rgb48 cells (a path that runs K2) rides in K6's
+        # entry, which reports the launches of its own path
+        kernels["adapt_emission"]["at_rgb48"] = kernels.pop(
+            "adapt_emission_rgb48")
+        hist = {}
+        for fr in rgb:
+            dev = [torch.as_tensor(x, device=enc.device) for x in fr]
+            for pair in enc.pick_rct(dev):
+                hist[str(pair)] = hist.get(str(pair), 0) + 1
+        log(f"phase 7: bgr0 v4: chosen (by, ry) over {N_NEW} frames x "
+            f"{enc.S} slices: {json.dumps(hist, sort_keys=True)}")
+        del enc, inputs
+        launches["bgr0 v4"] = drive("bgr0 v4", "bgr0", W, H, cfg, rgb, card,
+                                    7, emission=True,
+                                    not_launched=("adapt",))
+
+    # 8. bgr0 Golomb-Rice (FATE's RGB configuration)
+    with Phase(8):
+        launches["bgr0 rice"] = drive("bgr0 rice", "bgr0", W, H, rice_cfg,
+                                      rgb, card, 8)
+    del rgb
+
+    # 9. yuv422p10 SD: two shape banks
+    with Phase(9):
+        cfg = FFV1Config(level=3, coder=1, slices=24, slicecrc=1)
+
+        def two_banks(enc):
+            shapes = sorted((b.crop_plan[0][0][2], b.crop_plan[0][0][3])
+                            for b in enc.banks or ())
+            log(f"phase 9: yuv422p10 {SD[0]}x{SD[1]}: {len(shapes)} shape "
+                f"banks, luma slice rects {shapes}")
+            if len(shapes) != 2:
+                raise AssertionError(f"expected two banks, got {shapes}")
+
+        launches["sd banks"] = drive("sd banks", "yuv422p10", *SD, cfg,
+                                     synth_sd_frames(N_NEW, *SD), card, 9,
+                                     check=two_banks)
+
+    for k in kernels.values():
+        k["launches"] = launches[k["path"]][k["name"].split("_rgb48")[0]]
+        k["launches_by_path"] = {
+            label: launches[label][k["name"].split("_rgb48")[0]]
+            for label in launches}
+    order = ["place", "adapt", "adapt_rgb48", "adapt_emission", "expand",
+             "rac_render", "vlc", "ladder"]
     print(json.dumps({"kernels": [kernels[n] for n in order]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

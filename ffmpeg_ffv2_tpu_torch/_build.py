@@ -165,9 +165,13 @@ KERNELS = {k.name: k for k in (
     Kernel("place", "ffv2_place_cells", [P, P, P, LL, LL, P, P, P],
            "ffmpeg_ffv2_tpu_torch/csrc/place.cu",
            "ffmpeg_ffv2_tpu/ops/place_pallas.py:63"),
-    Kernel("adapt", "ffv2_adapt", [P, P, P, P, P, P, P, I, I, P, P, P],
+    Kernel("adapt", "ffv2_adapt", [P, P, P, P, P, P, P, I, I, I, P, P, P],
            "ffmpeg_ffv2_tpu_torch/csrc/adapt.cu",
            "ffmpeg_ffv2_tpu/ffv1/adapt_pallas.py:189"),
+    Kernel("adapt_emission", "ffv2_adapt_emission",
+           [P, P, P, P, P, P, P, I, I, I, I, P, P, P],
+           "ffmpeg_ffv2_tpu_torch/csrc/adapt.cu",
+           "ffmpeg_ffv2_tpu/ffv1/adapt_pallas.py:36"),
     Kernel("expand", "ffv2_expand",
            [P, I, P, P, P, P, P, P, I, I, I, I, P, P],
            "ffmpeg_ffv2_tpu_torch/csrc/expand.cu",

@@ -1,25 +1,30 @@
 """FFV1 encoder with phase A and the entropy coder on an NVIDIA GPU.
 
-Counterpart of ``ffmpeg_ffv2_tpu/ffv1/device_coder.py`` for YUV and gray
-formats on uniform slice geometries: the range coder at coding depths
-<= 10 and the Golomb-Rice coder (8-bit by the format).  The plain torch
-stages ``repack_emission_order``, ``layout_plan``, ``build_s0_blocks``,
-``writeback_canonical`` and the unsorts (``_s_unsort_impl``,
-``_s_rice_unsort_impl``), and the session class ``DeviceFFV1Encoder``
-(``__init__``, ``ops_from_streams``, ``_s_front``, ``_code_render``,
-``_render_retry``, ``_encode_rice``, ``encode``, ``_finish_packet``,
-``_encode_frame_data``).
+Counterpart of ``ffmpeg_ffv2_tpu/ffv1/device_coder.py``: the range coder
+on YUV, gray and RGB formats at coding depths up to 17 (rgb48), with the
+fixed RCT of versions <= 3 and the per-slice RCT search of version 4, and
+the Golomb-Rice coder (8-bit YUV, gray and RGB by the format), on uniform
+and non-uniform slice geometries (shape banks).  The plain torch stages
+``layout_plan``, ``build_s0_blocks``, ``writeback_canonical`` and the
+unsorts (``_s_unsort_impl``, ``_s_rice_unsort_impl``), and the session
+class ``DeviceFFV1Encoder`` (``__init__`` with ``slice_subset``,
+``ops_from_streams``, ``_s_front``, ``_adapt``, ``_pick_rct``,
+``_prefix_for_rct``, ``_code_render``, ``_render_retry``, ``_encode_rice``,
+``encode``, ``_finish_packet``, ``_encode_frame_data``).
 
 A range-coded frame runs phase A (plain torch), the chain-grouping layout
 (plain torch), then four CUDA kernels: K1 ``ops/place.py`` places the
-cells, K2 ``adapt.py`` walks the context states, K3 ``expand.py`` lays out
-each slice's rac ops and K4 ``rac.py`` codes and renders each slice's
-bytes.  A Golomb-Rice frame plans its runs in phase A (``rice.py``), takes
-the same layout and K1, then K5 ``vlc.py`` walks the VlcStates, the ladder
-kernel (``rice.run_index_scan``) carries each slice's run index, and plain
-torch assembles the bits.  The host reads the sizes once per frame to
-check the adaptive caps (and retries larger on a miss), and adds the
-slice headers (rice) and trailers.
+cells, K2 ``adapt.py`` walks the context states (then a plain repack to
+emission order; or K6, the same walk packing the emission order itself,
+under ``emission_order=True``), K3 ``expand.py`` lays out each slice's rac
+ops and K4 ``rac.py`` codes and renders each slice's bytes.  A Golomb-Rice
+frame plans its runs in phase A (``rice.py``), takes the same layout and
+K1, then K5 ``vlc.py`` walks the VlcStates, the ladder kernel
+(``rice.run_index_scan``) carries each slice's run index, and plain torch
+assembles the bits.  The host reads the sizes once per frame to check the
+adaptive caps (and retries larger on a miss), picks the v4 RCT
+coefficients from the device's cost sums, and adds the slice headers
+(rice) and trailers.
 """
 
 from __future__ import annotations
@@ -32,16 +37,18 @@ from ..core.crc import crc32_trailer
 from ..ops.place import place
 from . import headers as H
 from . import host
-from .adapt import adapt
+from .adapt import (adapt, adapt_emission, cell_diff,
+                    repack_emission_order)
 from .expand import expand
-from .params import FFV1Config, params_from_config, CODER_GOLOMB
-from .phase_a import lut_for, phase_a, phase_a_planes
+from .params import FFV1Config, FFV1Params, params_from_config, CODER_GOLOMB
+from .phase_a import (interleave_lines, lut_for, phase_a, phase_a_planes,
+                      phase_a_rgb, phase_a_rgb_planes, pick_rct, rct_costs)
 from .rac import rac_render
 from .rice import (PAYLOAD_BITS, VLC_INIT, assemble_bits, build_rice_streams,
                    build_vlc_s0, ladder_fields, no_mark, rice_elements,
                    writeback_vlc)
 from .slice_state import SliceState
-from .symbols import event_count, exponent
+from .symbols import event_count
 from .vlc import vlc_adapt
 
 INT32_MAX = 2 ** 31 - 1
@@ -60,52 +67,20 @@ def _set_drop(dst, idx, val):
     return ext[:n]
 
 
-def repack_emission_order(sv_words, diff, code_bits: int,
-                          n_words: int | None = None):
-    """Slot-packed sv words (..., 8, 128) -> emission-order byte words
-    (..., Wk, 128): byte k of a cell's output (word k >> 2, byte k & 3) is
-    the sv byte its k-th rac op consumes.  ``n_words`` caps Wk (the
-    adaptive unsort width).  Coding depths <= 10."""
-    if code_bits > 10:
-        raise NotImplementedError("repack_emission_order: coding depth "
-                                  "above 10 is not ported yet")
-    k_max = host.k_max_for_bits(code_bits)
-    Wk = (k_max + 3) // 4
-    if n_words is not None:
-        Wk = min(Wk, n_words)
-    e = exponent(diff.abs())
-    outs = []
-    for m in range(Wk):
-        acc = torch.zeros_like(diff)
-        for k in range(4 * m, min(4 * m + 4, k_max)):
-            if k == 0:
-                slot = torch.zeros_like(e)
-            else:
-                mant_i = 2 * e + 1 - k
-                slot = torch.where(
-                    k <= e, min(k, 10),
-                    torch.where(k == e + 1, torch.clamp(e + 1, max=10),
-                                torch.where(k <= 2 * e + 1,
-                                            22 + torch.clamp(mant_i, max=9),
-                                            11 + torch.clamp(e, max=10))))
-            b = sv_words.gather(-2, (slot >> 2).long().unsqueeze(-2))
-            b = (b.squeeze(-2) >> ((slot & 3) * 8)) & 0xFF
-            acc = acc | (b << ((k & 3) * 8))
-        outs.append(acc)
-    return torch.stack(outs, dim=-2)
-
-
 def layout_plan(row_local, diff, rows_per_slice: int, slots_cap: int,
-                tiles_cap: int, payload_bits: int = 0):
+                tiles_cap: int, payload_bits: int = 0, wide: int = 0):
     """Group-sort + lane/tile layout (device_coder.py:426 layout_plan, the
-    range coder's 12-bit diff field or a rice payload).  Every key of the
+    range coder's diff field or a rice payload).  Every key of the
     returned dict equals JAX's.
 
     row_local/diff: int32 (n_slices, npix) per-slice coding-order streams;
     row_local is the slice-local chain row (plane-class offset + context).
     payload_bits > 0: ``diff`` already carries an encoded payload (the
     rice walk's diff + 2048 | silent << 12) and only the valid flag at
-    bit ``payload_bits`` is added.
+    bit ``payload_bits`` is added.  Otherwise the cell payload is diff +
+    2048 with the valid flag at bit 13, or with ``wide`` (16 for coding
+    depths 11..16, 17 for depth 17: ``host.payload_field``'s valid bit)
+    diff + 2^(wide - 1) with the flag at bit ``wide``.
     Pixels merge with one sentinel record per chain row and sort by
     (row, stream index); the sentinel carries its group's lane word,
     which a forward fill spreads over the group.  Lanes: buckets of GCAP
@@ -224,10 +199,12 @@ def layout_plan(row_local, diff, rows_per_slice: int, slots_cap: int,
     dest_b = (gcap * (bk + (v >> 7)) + t2) * 128 + (v & 127)
     dest = torch.where(is_sent, INT32_MAX,
                        torch.where((wfill & 1) == 1, dest_b, v + r * 128))
-    # cell channel: diff + 2048 in bits 0..11 (or the payload), then the
-    # pixel-valid flag
+    # cell channel: the biased diff (or the payload), then the pixel-valid
+    # flag
     if payload_bits:
         ch1 = diff_s | ((~is_sent).to(I32) << payload_bits)
+    elif wide:
+        ch1 = (diff_s + (1 << (wide - 1))) | ((~is_sent).to(I32) << wide)
     else:
         ch1 = (diff_s + 2048) | ((~is_sent).to(I32) << 13)
     orig = torch.where(is_sent, INT32_MAX, ar(S)[:, None] * npix + idx_s)
@@ -270,12 +247,13 @@ def writeback_canonical(plan, canonical, end_states, tiles_cap: int):
     return ext[:n]
 
 
-def unsort_cells(ev_cells, ch1c, ch2c, S: int, npix: int):
+def unsort_cells(ev_cells, ch1c, ch2c, S: int, npix: int,
+                 code_bits: int = 10):
     """Cells -> stream order.  ch2c holds each real cell's stream index
     (unique; empty cells INT32_MAX), so one scatter replaces the payload
     sort.  Returns (words (W, S, npix) int32, maxc): maxc is the frame's
-    largest op count over the valid cells, checked against the unsort
-    width by the caller."""
+    largest op count over the valid cells (read through the payload field
+    of ``code_bits``), checked against the unsort width by the caller."""
     n = S * npix
     W = ev_cells.shape[1]
     keys = ch2c.reshape(-1)
@@ -283,8 +261,11 @@ def unsort_cells(ev_cells, ch1c, ch2c, S: int, npix: int):
     words = ev_cells.permute(1, 0, 2).reshape(W, -1)
     out = torch.zeros((W, n + 1), dtype=I32, device=ev_cells.device)
     out.scatter_(1, idx.expand(W, -1), words)
-    diff_c = (ch1c & 0x1FFF) - 2048
-    maxc = torch.where(((ch1c >> 13) & 1) == 1, event_count(diff_c),
+    mask, bias, vbit = host.payload_field(code_bits)
+    if code_bits <= 10:
+        mask = 0x1FFF                    # as the JAX unsort reads it
+    diff_c = (ch1c & mask) - bias
+    maxc = torch.where(((ch1c >> vbit) & 1) == 1, event_count(diff_c),
                        0).max()
     return out[:, :n].reshape(W, S, npix).contiguous(), maxc
 
@@ -301,25 +282,37 @@ def unsort_codes(code_cells, ch2c, S: int, npix: int):
     return out[:n].reshape(S, npix)
 
 
-# the kernels each coder's frame launches (chip_smoke.py and the card tests
+# the kernels each path's frame launches (chip_smoke.py and the card tests
 # check that a path went through all of its kernels)
 RANGE_KERNELS = ("place", "adapt", "expand", "rac_render")
+EMISSION_KERNELS = ("place", "adapt_emission", "expand", "rac_render")
 RICE_KERNELS = ("place", "vlc", "ladder")
 
 
 class DeviceFFV1Encoder:
     """FFV1 encode with phase A and the entropy coder on a CUDA device.
 
-    Covers the range coder (custom table, coder=1, and the default table,
-    coder=-2) on YUV/gray formats up to 10 bits and the Golomb-Rice coder
-    (coder=0, 8-bit YUV/gray), on uniform slice geometries; one keyframe
+    Covers versions 0/1/3/4 with the range coder (custom table, coder=1,
+    and the default table, coder=-2) on YUV, gray and RGB formats at every
+    depth up to 16 bits per sample (RGB codes at bits + 1: rgb48 at 17,
+    with int32 samples), the v4 per-slice RCT search, and the Golomb-Rice
+    coder (coder=0, 8-bit YUV/gray/RGB up to version 3); one keyframe
     followed by inter frames carries the context states from frame to
-    frame.  device="cpu" runs every kernel's plain PyTorch version
-    (tests).  Raises NotImplementedError for the rest of the JAX encoder's
-    format matrix."""
+    frame.  Non-uniform slice geometries split into shape banks, one
+    sub-encoder per slice shape, assembled in global slice order.
+    ``emission_order`` runs K6 (the walk that packs the emission order
+    itself) instead of K2 and the repack, as the JAX encoder does under
+    FFV1_ADAPT_EMISSION=1.  device="cpu" runs every kernel's plain
+    PyTorch version (tests).  ``params`` overrides the config's
+    FFV1Params.  Raises NotImplementedError for 2-pass initial states,
+    v4 RGB with Golomb-Rice and coding depths above 17."""
 
     def __init__(self, width: int, height: int, pix_fmt: str,
-                 config: FFV1Config | None = None, device="cuda"):
+                 config: FFV1Config | None = None, device="cuda",
+                 emission_order: bool = False,
+                 params: FFV1Params | None = None, slice_subset=None):
+        """slice_subset (internal): restrict this session to the given
+        global slice indices, one bank of a non-uniform geometry."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("DeviceFFV1Encoder: device='cuda' but torch "
@@ -327,44 +320,81 @@ class DeviceFFV1Encoder:
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {self.device}")
         self.cfg = config or FFV1Config()
-        p = self.p = params_from_config(self.cfg, pix_fmt, width, height)
+        p = self.p = (params if params is not None else
+                      params_from_config(self.cfg, pix_fmt, width, height))
         if p.version == 2:
             raise NotImplementedError(
                 "device coder: versions 0/1/3/4 (v2's in-band slice table "
                 "is a deprecated transitional layout)")
-        if p.colorspace == 1:
-            raise NotImplementedError(
-                "torch device coder: RGB and its RCT (incl. v4 RGB) are "
-                "not ported yet")
-        if p.bits > 10:
-            raise NotImplementedError(
-                "torch device coder: coding depth above 10 needs the "
-                "repeat sub-steps, which are not ported yet")
         if p.initial_states is not None:
             raise NotImplementedError(
                 "torch device coder: 2-pass initial states are not ported "
                 "yet")
         self.golomb = p.ac == CODER_GOLOMB
-        self.kernels = RICE_KERNELS if self.golomb else RANGE_KERNELS
-        self.code_bits = p.bits
-        self.crop_plan = host.build_crop_plan(p)
-        for prects in self.crop_plan:
-            if len({(w, h) for (_, _, w, h) in prects}) > 1:
-                raise NotImplementedError(
-                    "torch device coder: non-uniform slice geometry needs "
-                    "shape banks, which are not ported yet")
-        self.S = p.slice_count
+        # version-4 RGB searches the RCT coefficients per slice on the
+        # device and codes them in the slice headers
+        self.v4rgb = p.version > 3 and p.colorspace == 1
+        if self.golomb and self.v4rgb:
+            raise NotImplementedError(
+                "device rice + version-4 RGB: the per-slice RCT search "
+                "re-plans the static rice headers per frame; use version "
+                "<= 3 (the FATE configuration) or the range coder")
+        # RGB codes the RCT planes at depth bits + 1
+        # (ffv1enc_template.c:193)
+        self.code_bits = (max(p.bits, 8) + 1 if p.colorspace == 1
+                          else p.bits)
+        if self.code_bits > 17:
+            raise NotImplementedError("device coder: coding depth <= 17")
+        # the range cells' valid bit for coding depths over 10
+        self.wide = (0 if self.code_bits <= 10
+                     else host.payload_field(self.code_bits)[2])
+        self.emission_order = bool(emission_order)
+        self.kernels = (RICE_KERNELS if self.golomb else
+                        EMISSION_KERNELS if self.emission_order else
+                        RANGE_KERNELS)
+        self.picture_number = 0
+        self.banks = None
+        full_plan = host.build_crop_plan(p)
+        if slice_subset is None:
+            # the batched stream layout needs one slice shape: a
+            # non-uniform geometry splits into banks of equal shapes
+            groups = {}
+            for si in range(p.slice_count):
+                sig = tuple((prects[si][2], prects[si][3])
+                            for prects in full_plan)
+                groups.setdefault(sig, []).append(si)
+            if len(groups) > 1:
+                self.banks = [
+                    DeviceFFV1Encoder(width, height, pix_fmt, self.cfg,
+                                      device=device,
+                                      emission_order=emission_order,
+                                      params=p, slice_subset=g)
+                    for g in groups.values()]
+                self.extradata = self.banks[0].extradata
+                return
+            slice_subset = range(p.slice_count)
+        self.slice_ids = list(slice_subset)
+        self.S = len(self.slice_ids)
+        self.crop_plan = [[prects[si] for si in self.slice_ids]
+                          for prects in full_plan]
         self.qt = lut_for(p, p.context_model)
         self.five = bool(p.quant_tables[p.context_model][3][127]
                          or p.quant_tables[p.context_model][4][127])
 
-        # stream: whole planes concatenated per slice; chain rows are
-        # (plane class, context) with plane class (plane + 1) // 2
+        # stream: YUV concatenates whole planes per slice, RGB interleaves
+        # them line by line; chain rows are (plane class, context) with
+        # plane class (plane + 1) // 2
         plane_sizes = [prects[0][2] * prects[0][3]
                        for prects in self.crop_plan]
         self.npix = int(np.sum(plane_sizes))
-        pclass = np.concatenate([np.full(sz, (li + 1) // 2, np.int32)
-                                 for li, sz in enumerate(plane_sizes)])
+        if p.colorspace == 1:
+            sw, sh = self.crop_plan[0][0][2], self.crop_plan[0][0][3]
+            pclass = np.tile(np.repeat(np.array(
+                [(li + 1) // 2 for li in range(len(self.crop_plan))],
+                np.int32), sw), sh)
+        else:
+            pclass = np.concatenate([np.full(sz, (li + 1) // 2, np.int32)
+                                     for li, sz in enumerate(plane_sizes)])
         class_counts = SliceState(p).plane_ctx_count
         class_off = np.zeros(p.plane_count, np.int32)
         class_off[1:] = np.cumsum(class_counts[:-1])
@@ -388,7 +418,6 @@ class DeviceFFV1Encoder:
         self.cellrows_cap = host.quantize_cap(
             n // 128 * 5 // 4 + 2 * gcap + 256, self.cellrows_max)
         self.extradata = H.write_extradata(p) if p.version > 1 else b""
-        self.picture_number = 0
         if self.golomb:
             self._init_rice()
         else:
@@ -403,21 +432,11 @@ class DeviceFFV1Encoder:
                                         device=self.device)
         self.canonical = self.canonical_key
 
-        # host-planned per-slice prefix ops (constant per keyframe flag)
-        rects = p.rects()
-        self.prefix = {}
-        for key in (True, False):
-            ops = [host.plan_slice_prefix(p, SliceState(p), si, rects[si],
-                                          key) for si in range(self.S)]
-            hmax = max(len(sv) for sv, _ in ops)
-            svp = np.zeros((self.S, hmax), np.int32)
-            btp = np.zeros((self.S, hmax), np.int32)
-            for si, (sv, bit) in enumerate(ops):
-                svp[si, :len(sv)] = sv
-                btp[si, :len(bit)] = bit
-            hlen = np.array([len(sv) for sv, _ in ops], np.int32)
-            self.prefix[key] = tuple(torch.as_tensor(a, device=self.device)
-                                     for a in (svp, btp, hlen))
+        # host-planned per-slice prefix ops (constant per keyframe flag;
+        # v4 RGB re-plans them per frame with the chosen RCT coefficients)
+        self.prefix = {key: self._plan_prefix(key, None)
+                       for key in (True, False)}
+        self._rct_prefix_cache = {}
 
         hmax = max(int(self.prefix[k][0].shape[1]) for k in (True, False))
         k_max = host.k_max_for_bits(self.code_bits)
@@ -433,11 +452,37 @@ class DeviceFFV1Encoder:
         self.unsort_words = min(2, host.n_ev_words(self.code_bits))
         self._shrinks = 2            # op_cap tightening budget
 
+    def _plan_prefix(self, keyframe: bool, rct_list, pad_to: int = 1):
+        """(svp, btp, hlen) tensors of this session's slices' prefix ops;
+        rct_list gives each slice's (by, ry) for its v4 slice header."""
+        p = self.p
+        rects = p.rects()
+        ops = []
+        for li, si in enumerate(self.slice_ids):
+            ss = SliceState(p)
+            if rct_list is not None:
+                ss.slice_rct_by, ss.slice_rct_ry = rct_list[li]
+            ops.append(host.plan_slice_prefix(p, ss, si, rects[si],
+                                              keyframe))
+        hmax = -(-max(len(sv) for sv, _ in ops) // pad_to) * pad_to
+        svp = np.zeros((self.S, hmax), np.int32)
+        btp = np.zeros((self.S, hmax), np.int32)
+        for li, (sv, bit) in enumerate(ops):
+            svp[li, :len(sv)] = sv
+            btp[li, :len(bit)] = bit
+        hlen = np.array([len(sv) for sv, _ in ops], np.int32)
+        return tuple(torch.as_tensor(a, device=self.device)
+                     for a in (svp, btp, hlen))
+
     def _init_rice(self):
         """Rice session state: the canonical VlcState table (one row of
         drift, error_sum, bias, count per chain row, plus a spare row),
         the slice headers and the adaptive event and bitstream sizes."""
         p = self.p
+        if self.code_bits > 12:
+            raise NotImplementedError(
+                "torch device rice: the 12-bit cell payload covers coding "
+                "depths <= 12 (Golomb-Rice is 8-bit by the format)")
         self.vcanon_key = torch.as_tensor(
             np.tile(VLC_INIT, (self.n_chain_rows + 1, 1)), device=self.device)
         self.vcanon = self.vcanon_key
@@ -448,7 +493,7 @@ class DeviceFFV1Encoder:
         self.rice_headers = {}
         for key in (True, False):
             hdrs = []
-            for si in range(self.S):
+            for si in self.slice_ids:
                 c = RangeEncoder()
                 if si == 0:
                     c.put(np.array([128], dtype=np.uint8), 0,
@@ -471,17 +516,28 @@ class DeviceFFV1Encoder:
 
     # -- codec state ---------------------------------------------------------
 
+    def _unbanked(self, what: str):
+        if self.banks is not None:
+            raise ValueError(
+                f"{what}: this session splits a non-uniform slice geometry "
+                f"into {len(self.banks)} shape banks, each with its own "
+                "state table; there is no single table")
+
     def state(self) -> np.ndarray:
         """The per-chain state table that the next inter frame starts
         from: the range coder's context states (n_chain_rows + 1, 32)
         uint8, or the Golomb-Rice VlcStates (n_chain_rows + 1, 4) int32
-        (drift, error_sum, bias, count)."""
+        (drift, error_sum, bias, count).  Raises ValueError on a session
+        with shape banks."""
+        self._unbanked("state")
         return (self.vcanon if self.golomb else self.canonical).cpu().numpy()
 
     def load_state(self, table: np.ndarray, picture_number: int):
         """Continue a stream from another session's state (this package's
         ``state()``, or the JAX DeviceFFV1Encoder's ``canonical``, or its
-        ``vcanon`` for Golomb-Rice)."""
+        ``vcanon`` for Golomb-Rice).  Raises ValueError on a session with
+        shape banks."""
+        self._unbanked("load_state")
         table = np.asarray(table)
         shape, dtype = (((self.n_chain_rows + 1, 4), np.int32) if self.golomb
                         else ((self.n_chain_rows + 1, 32), np.uint8))
@@ -497,17 +553,53 @@ class DeviceFFV1Encoder:
 
     # -- pipeline stages -----------------------------------------------------
 
-    def phase_a(self, planes):
+    def phase_a(self, planes, by=None, ry=None):
         """Planes (tensors on the device) -> per-slice (ctx, diff) streams
-        (n_slices, npix) int32."""
+        (n_slices, npix) int32.  RGB takes the fixed RCT, or the per-slice
+        coefficients ``by``/``ry`` ((n_slices,) int32) of version 4."""
+        if self.p.colorspace == 1:
+            return phase_a_rgb(planes, self.crop_plan[0], self.p, self.qt,
+                               self.code_bits, self.five, by, ry)
         return phase_a(planes, self.crop_plan, self.qt, self.p.bits,
                        self.five)
+
+    def range_streams(self, planes, keyframe: bool):
+        """Planes on the device -> (ctx, diff, the slices' prefix ops): v4
+        RGB first picks each slice's RCT coefficients and plans the slice
+        headers that carry them (device_coder._encode_frame_data)."""
+        if not self.v4rgb:
+            return (*self.phase_a(planes), self.prefix[keyframe])
+        rct = self.pick_rct(planes)
+        by, ry = torch.tensor(rct, dtype=I32, device=self.device).T
+        return (*self.phase_a(planes, by.contiguous(), ry.contiguous()),
+                self.prefix_for_rct(keyframe, rct))
+
+    def pick_rct(self, planes) -> list:
+        """The v4 per-slice RCT search: [(by, ry)] per slice, from the
+        candidates' cost sums on the device (device_coder._pick_rct)."""
+        x, y, w, h = self.crop_plan[0][0]
+        if h < 2 or w < 2:
+            return [(1, 1)] * self.S
+        return pick_rct(rct_costs(planes, self.crop_plan[0]))
+
+    def prefix_for_rct(self, keyframe: bool, rct_list):
+        """Slice-header prefixes carrying the chosen per-slice RCT
+        coefficients, cached per (keyframe, coefficients); hmax is rounded
+        up to a multiple of 16 (device_coder._prefix_for_rct)."""
+        key = (keyframe, tuple(rct_list))
+        hit = self._rct_prefix_cache.get(key)
+        if hit is None:
+            if len(self._rct_prefix_cache) > 64:
+                self._rct_prefix_cache.clear()
+            hit = self._rct_prefix_cache[key] = self._plan_prefix(
+                keyframe, rct_list, pad_to=16)
+        return hit
 
     def layout(self, ctx, diff, tiles_cap: int, cellrows_cap: int,
                payload_bits: int = 0):
         plan = layout_plan(self.class_off_stream[None, :] + ctx, diff,
                            self.rows_per_slice, tiles_cap * 128, tiles_cap,
-                           payload_bits)
+                           payload_bits, self.wide)
         # under a cap overflow the frame is redone larger; keep every tile
         # inside the cells regardless
         lim = cellrows_cap - 1024
@@ -516,36 +608,60 @@ class DeviceFFV1Encoder:
                                           lim - plan["tile_bases"])
         return plan
 
+    def adapt(self, ch1c, plan, s0, ev_words: int, mark=no_mark):
+        """The walk -> (emission-order words (CELLROWS, ev_words, 128),
+        end states): K2 and the repack, or K6 under emission_order
+        (device_coder._adapt)."""
+        k = (ch1c, plan["tile_caps"], plan["tile_bases"], plan["tile_pred"],
+             s0, self.table, self.code_bits)
+        if self.emission_order:
+            out = adapt_emission(*k, ev_words)
+            mark("K6 adapt_emission", k + (ev_words,))
+            return out
+        sv, ends = adapt(*k)
+        mark("K2 adapt", k)
+        ev = repack_emission_order(sv, cell_diff(ch1c, self.code_bits),
+                                   self.code_bits, ev_words)
+        mark("repack")
+        return ev, ends
+
     def front(self, ctx, diff, canonical, keyframe: bool, tiles_cap: int,
-              cellrows_cap: int, ev_words: int):
-        """Layout, K1 place, start states, K2 adapt, the repack to
-        emission order and the state writeback (device_coder._s_front)."""
+              cellrows_cap: int, ev_words: int, mark=no_mark):
+        """Layout, K1 place, start states, the walk (K2 then the repack
+        to emission order, or K6) and the state writeback
+        (device_coder._s_front).  ``mark`` is called after each stage
+        (``rice.no_mark``)."""
         plan = self.layout(ctx, diff, tiles_cap, cellrows_cap)
-        ch1c, ch2c = place(plan["dest"], plan["ch1"], plan["orig"],
-                           cellrows_cap)
+        mark("layout")
+        k1 = (plan["dest"], plan["ch1"], plan["orig"], cellrows_cap)
+        ch1c, ch2c = place(*k1)
+        mark("K1 place", k1)
         if keyframe:
             canonical = self.canonical_key
         s0 = build_s0_blocks(plan, canonical, tiles_cap)
-        sv, ends = adapt(ch1c, plan["tile_caps"], plan["tile_bases"],
-                         plan["tile_pred"], s0, self.table, self.code_bits)
-        ev = repack_emission_order(sv, (ch1c & 0xFFF) - 2048, self.code_bits,
-                                   ev_words)
+        mark("s0")
+        ev, ends = self.adapt(ch1c, plan, s0, ev_words, mark)
         canonical = writeback_canonical(plan, canonical, ends, tiles_cap)
+        mark("writeback")
         psizes = torch.stack([plan["n_rows"], plan["n_tiles"],
                               plan["n_slots"]])
         return ev, ch1c, ch2c, canonical, psizes
 
     def ops_from_streams(self, ctx, diff, canonical, svp, btp, hlen,
-                         keyframe: bool, caps, ev_words: int):
+                         keyframe: bool, caps, ev_words: int, mark=no_mark):
         """Streams -> (opw (S, op_cap) int32 op words, n_ops (S,),
         canonical after the frame, sizes = [rows, tiles, slots, opmax,
         maxcount])."""
         tiles_cap, cellrows_cap, op_cap = caps
         ev, ch1c, ch2c, canonical, psizes = self.front(
             ctx, diff, canonical, keyframe, tiles_cap, cellrows_cap,
-            ev_words)
-        words, maxc = unsort_cells(ev, ch1c, ch2c, ctx.shape[0], self.npix)
-        opw, n_ops = expand(words, diff, svp, btp, hlen, op_cap)
+            ev_words, mark)
+        words, maxc = unsort_cells(ev, ch1c, ch2c, ctx.shape[0], self.npix,
+                                   self.code_bits)
+        mark("unsort")
+        k3 = (words, diff, svp, btp, hlen, op_cap)
+        opw, n_ops = expand(*k3)
+        mark("K3 expand", k3)
         sizes = torch.cat([psizes, n_ops.max()[None], maxc[None]])
         return opw, n_ops, canonical, sizes
 
@@ -578,7 +694,14 @@ class DeviceFFV1Encoder:
     def phase_a_rice(self, planes):
         """Planes -> (ctx (S, npix), the rice stream dict of (S, npix)
         tensors, build_rice_streams); runs are planned per plane
-        (device_coder._phase_a_rice, YUV branch)."""
+        (device_coder._phase_a_rice).  RGB takes the fixed RCT and
+        interleaves the planes line by line under one run-index ladder."""
+        if self.p.colorspace == 1:
+            ctxs, diffs = phase_a_rgb_planes(planes, self.crop_plan[0],
+                                             self.p, self.qt, self.code_bits,
+                                             self.five)
+            return (interleave_lines(ctxs),
+                    build_rice_streams(ctxs, diffs, interleave=True))
         ctxs, diffs = phase_a_planes(planes, self.crop_plan, self.qt,
                                      self.p.bits, self.five)
         return (torch.cat([c.reshape(self.S, -1) for c in ctxs], dim=1),
@@ -668,9 +791,15 @@ class DeviceFFV1Encoder:
         keyframe = gop == 0 or self.picture_number % gop == 0
         if force_keyframe is not None:
             keyframe = bool(force_keyframe)
-        datas = self._encode_frame_data(planes, keyframe)
+        chunks = [None] * self.p.slice_count
+        for bank in self.banks or (self,):
+            # a non-uniform geometry: one pipeline per slice shape, the
+            # packet assembled in global slice order
+            for si, data in zip(bank.slice_ids,
+                                bank._encode_frame_data(planes, keyframe)):
+                chunks[si] = data
         self.picture_number += 1
-        return self._finish_packet(datas)
+        return self._finish_packet(chunks)
 
     def encode_batch(self, frames_list) -> list:
         raise NotImplementedError(
@@ -693,13 +822,13 @@ class DeviceFFV1Encoder:
         return b"".join(out)
 
     def _encode_frame_data(self, planes, keyframe: bool) -> list:
-        """One frame -> list of raw slice payloads (no trailers)."""
+        """This session's slices of one frame -> list of raw slice
+        payloads (no trailers)."""
         if self.golomb:
             return self._encode_rice(planes, keyframe)
         dev = [torch.as_tensor(np.asarray(pl), dtype=I32, device=self.device)
                for pl in planes]
-        ctx, diff = self.phase_a(dev)
-        svp, btp, hlen = self.prefix[keyframe]
+        ctx, diff, (svp, btp, hlen) = self.range_streams(dev, keyframe)
         for _ in range(8):
             opw, n_ops, canon, sizes = self.ops_from_streams(
                 ctx, diff, self.canonical, svp, btp, hlen, keyframe,

@@ -3,12 +3,20 @@
 Counterpart of ``ffmpeg_ffv2_tpu/ffv1/tpu.py:34-165`` (``_wrap16``,
 ``_med3``, ``neighbours``, ``quant_lut``, ``build_quant_luts``,
 ``_apply_quant``, ``plane_context_diff``, ``lut_for``) and of the YUV
-branches of ``ffmpeg_ffv2_tpu/ffv1/device_coder.py:DeviceFFV1Encoder.
-_phase_a`` and ``_phase_a_rice`` (``phase_a_planes`` keeps the per-plane
-grids that the rice run planning needs).  Plain torch: the encoder side
-has no sequential dependency (the predictor reads original samples), so a
+and RGB branches of ``ffmpeg_ffv2_tpu/ffv1/device_coder.py:
+DeviceFFV1Encoder._phase_a``, ``_phase_a_rct`` and ``_phase_a_rice``
+(``phase_a_planes`` and ``phase_a_rgb_planes`` keep the per-plane grids
+that the rice run planning needs), and of ``_rct_cost_parts`` (the v4
+per-slice RCT search, ``rct_costs``).  Plain torch: the encoder side has
+no sequential dependency (the predictor reads original samples), so a
 plane is shifts, compares and a median, batched over the slices of a
 frame.
+
+RGB codes the reversible colour transform of its planes at depth bits + 1
+(ffv1enc_template.c:175-198): g' = g + ((b - g) * by + (r - g) * ry >> 2),
+b' = b - g + offset, r' = r - g + offset, with the fixed by = ry = 1 up to
+version 3 and a per-slice pair from the cost search in version 4.  Its
+stream interleaves the planes line by line.
 """
 
 from __future__ import annotations
@@ -17,6 +25,7 @@ import numpy as np
 import torch
 
 from .params import FFV1Params
+from .rct import RCT_Y_COEFF
 
 
 def _wrap16(x):
@@ -139,3 +148,91 @@ def phase_a(planes, crop_plan, qt, bits: int, five: bool):
     S = len(crop_plan[0])
     return (torch.cat([c.reshape(S, -1) for c in ctxs], dim=1),
             torch.cat([d.reshape(S, -1) for d in diffs], dim=1))
+
+
+def _crops(plane, rects):
+    return torch.stack([plane[y:y + h, x:x + w]
+                        for (x, y, w, h) in rects]).to(torch.int32)
+
+
+def rct_planes(planes, rects, p: FFV1Params, by=None, ry=None):
+    """RGB planes (g, b, r[, a] as given; int32 tensors) -> the coded
+    planes' slice crops (n_slices, h, w): the RCT with the fixed by = ry =
+    1, or the per-slice coefficients ``by``/``ry`` ((n_slices,) int32).
+    Formats over 8 bits that are neither 32-bit nor transparent code their
+    first two planes swapped; 32-bit samples (rgb48) are not wrapped to 16
+    bits."""
+    swap = not p.use32bit and not p.transparency and p.bits > 8
+    order = ((1, 0, 2) if swap else (0, 1, 2)) + ((3,) if p.transparency
+                                                  else ())
+    crops = [_crops(planes[k], rects) for k in order]
+    g, b, r = crops[:3]
+    offset = 1 << max(p.bits, 8)
+    b2 = b - g
+    r2 = r - g
+    if by is None:
+        g2 = g + ((b2 + r2) >> 2)
+    else:
+        g2 = g + ((b2 * by[:, None, None] + r2 * ry[:, None, None]) >> 2)
+    coded = [g2, b2 + offset, r2 + offset] + crops[3:]
+    return coded if p.use32bit else [_wrap16(c) for c in coded]
+
+
+def phase_a_rgb_planes(planes, rects, p: FFV1Params, qt, code_bits: int,
+                       five: bool, by=None, ry=None):
+    """RGB planes -> per-plane lists of (n_slices, h, w) int32 context and
+    diff grids of the coded planes (``rct_planes``)."""
+    ctxs, diffs = [], []
+    for c in rct_planes(planes, rects, p, by, ry):
+        ctx, diff = plane_context_diff(c, qt, code_bits, five)
+        ctxs.append(ctx)
+        diffs.append(diff)
+    return ctxs, diffs
+
+
+def interleave_lines(grids):
+    """Per-plane (n_slices, h, w) grids -> (n_slices, h * w * planes)
+    streams whose planes alternate line by line."""
+    return torch.stack(grids, dim=2).reshape(grids[0].shape[0], -1)
+
+
+def phase_a_rgb(planes, rects, p: FFV1Params, qt, code_bits: int,
+                five: bool, by=None, ry=None):
+    """RGB planes -> per-slice streams (ctx, diff) int32 (n_slices, npix)
+    with the planes interleaved per line."""
+    ctxs, diffs = phase_a_rgb_planes(planes, rects, p, qt, code_bits, five,
+                                     by, ry)
+    return interleave_lines(ctxs), interleave_lines(diffs)
+
+
+def rct_costs(planes, rects):
+    """The v4 RCT search's cost of each candidate on each slice: (n_slices,
+    15) int64 sums of |bg + ((br * ry + bb * by) >> 2)| over the second
+    differences of the g, b, r planes (the first three as given), in the
+    order of ``rct.RCT_Y_COEFF`` (choose_rct_params, ffv1enc.c:963-1043).
+    int64 sums are exact where the reference sums in uint64."""
+    g, b, r = (_crops(planes[k], rects).long() for k in (0, 1, 2))
+
+    def hdiff(x):
+        return torch.cat([x[:, :, :1], x[:, :, 1:] - x[:, :, :-1]], dim=2)
+
+    ag, ab, ar = hdiff(g), hdiff(b), hdiff(r)
+    bg = ag[:, 1:, 1:] - ag[:, :-1, 1:]
+    bb = ab[:, 1:, 1:] - ab[:, :-1, 1:] - bg
+    br = ar[:, 1:, 1:] - ar[:, :-1, 1:] - bg
+    return torch.stack([(bg + ((br * ry + bb * by) >> 2)).abs().sum((1, 2))
+                        for (ry, by) in RCT_Y_COEFF], dim=1)
+
+
+def pick_rct(costs) -> list:
+    """(n_slices, 15) candidate costs -> [(by, ry)] per slice: the first
+    strict minimum, as the reference's ``<`` scan picks it."""
+    out = []
+    for stats in costs.cpu().tolist():
+        best = 0
+        for i in range(1, len(RCT_Y_COEFF)):
+            if stats[i] < stats[best]:
+                best = i
+        ry, by = RCT_Y_COEFF[best]
+        out.append((by, ry))
+    return out

@@ -1,7 +1,8 @@
 """Golomb-Rice (run mode) planning and bit assembly of the device encoder.
 
 Counterpart of ``ffmpeg_ffv2_tpu/ffv1/device_rice.py`` for YUV and gray
-streams (planes concatenated per slice): ``plan_runs_plane``,
+streams (planes concatenated per slice) and RGB streams (planes
+interleaved per line, one run-index ladder per slice): ``plan_runs_plane``,
 ``build_rice_streams``, ``VLC_INIT``, ``vlc_code_word``, ``vlc_update``,
 ``build_vlc_s0``, ``writeback_vlc``, ``ladder_step``, ``run_index_scan``,
 ``ladder_fields``, ``rice_elements`` and ``assemble_bits``.  Plain torch,
@@ -78,12 +79,18 @@ def plan_runs_plane(ctx, diff):
                 flush=flush, flush_count=flush_count, diff_adj=diff_adj)
 
 
-def build_rice_streams(ctx_planes, diff_planes):
+def build_rice_streams(ctx_planes, diff_planes, interleave: bool = False):
     """Per-plane (S, h, w) |context| / folded-diff grids -> stream-order
-    (S, npix) tensors, planes concatenated per slice: payload
-    ((diff_adj + 2048) | silent << 12, the vlc walk's cell word before the
-    layout adds the valid flag at bit 13), lad (the pixel carries a ladder
-    event: run end or line flush), cnt (its ladder count), flush, plane."""
+    (S, npix) tensors: payload ((diff_adj + 2048) | silent << 12, the vlc
+    walk's cell word before the layout adds the valid flag at bit 13), lad
+    (the pixel carries a ladder event: run end or line flush), cnt (its
+    ladder count), flush, plane.
+
+    YUV concatenates the planes per slice and resets the run index per
+    plane.  ``interleave`` (RGB) alternates the planes line by line and
+    runs one run-index ladder over the whole stream, reset once per slice
+    (ffv1enc_template.c:138), so every position carries plane 0.  Runs are
+    planned per plane either way: a line end flushes the run."""
     pb = PAYLOAD_BITS
     pays, lads, cnts, flushes, planes = [], [], [], [], []
     for li, (ctx, diff) in enumerate(zip(ctx_planes, diff_planes)):
@@ -94,10 +101,12 @@ def build_rice_streams(ctx_planes, diff_planes):
         cnts.append(torch.where(pr["flush"], pr["flush_count"],
                                 pr["run_count"]))
         flushes.append(pr["flush"])
-        planes.append(torch.full(diff.shape, li, dtype=I32,
-                                 device=diff.device))
+        planes.append(torch.full(diff.shape, 0 if interleave else li,
+                                 dtype=I32, device=diff.device))
 
     def cat(xs):
+        if interleave:
+            return torch.stack(xs, dim=2).reshape(xs[0].shape[0], -1)
         return torch.cat([x.reshape(x.shape[0], -1) for x in xs], dim=1)
 
     return dict(payload=cat(pays), lad=cat(lads), cnt=cat(cnts),

@@ -18,6 +18,7 @@ from ffmpeg_ffv2_tpu.ffv1.params import FFV1Config
 from ffmpeg_ffv2_tpu.ffv1.tpu_coder import rac_scan_lanes as jax_rac_scan
 from ffmpeg_ffv2_tpu_torch.ffv1 import device_coder as tdc
 from ffmpeg_ffv2_tpu_torch.ffv1 import host
+from test_torch_formats import torch_one_thread  # noqa: F401
 from ffmpeg_ffv2_tpu_torch.ffv1.adapt import adapt
 from ffmpeg_ffv2_tpu_torch.ffv1.expand import expand
 from ffmpeg_ffv2_tpu_torch.ffv1.rac import (rac_render, rac_scan_lanes,

@@ -2,6 +2,8 @@
 kernel wrapper runs its plain PyTorch version on CPU tensors): packets
 equal NativeFFV1Codec's and the JAX DeviceFFV1Encoder's, byte for byte."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -11,12 +13,14 @@ from ffmpeg_ffv2_tpu.ffv1.params import FFV1Config, params_from_config
 from ffmpeg_ffv2_tpu_torch import _build
 from ffmpeg_ffv2_tpu_torch.ffv1 import host
 from ffmpeg_ffv2_tpu_torch.ffv1.device_coder import DeviceFFV1Encoder
+from test_torch_formats import torch_one_thread  # noqa: F401
 
 
 def _shapes(p, w, h):
     shapes = [(h, w)]
     if p.chroma_planes:
-        shapes += [(h >> p.chroma_v_shift, w >> p.chroma_h_shift)] * 2
+        shapes += [(-(-h >> p.chroma_v_shift),
+                    -(-w >> p.chroma_h_shift))] * 2
     return shapes
 
 
@@ -75,15 +79,16 @@ def test_torch_encoder_split_groups(monkeypatch):
 
 
 def test_torch_encoder_runs_plain_versions_on_cpu():
-    """On CPU tensors every wrapper of a coder's path takes its plain
-    version and no kernel launches (so no CUDA build is needed); between
-    them the range and the Golomb-Rice path reach every kernel."""
+    """On CPU tensors every wrapper of a path takes its plain version and
+    no kernel launches (so no CUDA build is needed); between them the
+    range path (K2 or K6) and the Golomb-Rice path reach every kernel."""
     w, h = 32, 24
     reached = set()
-    for coder in (1, 0):
+    for coder, emission in ((1, False), (1, True), (0, False)):
         _build.reset_counts()
         cfg = FFV1Config(level=3, coder=coder, slices=4)
-        enc = DeviceFFV1Encoder(w, h, "gray", cfg, device="cpu")
+        enc = DeviceFFV1Encoder(w, h, "gray", cfg, device="cpu",
+                                emission_order=emission)
         enc.encode([np.full((h, w), 9, np.int32)], force_keyframe=True)
         for name, k in _build.KERNELS.items():
             assert k.launches == 0, name
@@ -92,25 +97,62 @@ def test_torch_encoder_runs_plain_versions_on_cpu():
     assert reached == set(_build.KERNELS)
 
 
-@pytest.mark.parametrize("pix,cfg,err", [
-    ("yuv420p10", FFV1Config(level=3, coder=1, slices=4), None),
-    ("yuv420p12", FFV1Config(level=3, coder=1, slices=4), "depth"),
-    ("bgr0", FFV1Config(level=3, coder=1, slices=4), "RGB"),
-    ("yuv420p", FFV1Config(level=3, coder=0, slices=4), None),
-    ("bgr0", FFV1Config(level=3, coder=0, slices=4), "RGB"),
+def _frame_for(p, w, h, seed=1):
+    rng = np.random.RandomState(seed)
+    shapes = ([(h, w)] * 3 if p.colorspace == 1 else
+              _shapes(p, w, h) if p.chroma_planes else [(h, w)])
+    return [rng.randint(0, 1 << p.bits, s).astype(np.int32) for s in shapes]
+
+
+@pytest.mark.parametrize("pix,cfg", [
+    ("yuv420p10", FFV1Config(level=3, coder=1, slices=4)),
+    ("yuv420p12", FFV1Config(level=3, coder=1, slices=4)),
+    ("bgr0", FFV1Config(level=3, coder=1, slices=4)),
+    ("yuv420p", FFV1Config(level=3, coder=0, slices=4)),
+    ("bgr0", FFV1Config(level=3, coder=0, slices=4)),
+], ids=["yuv420p10-cfg0-None", "yuv420p12-cfg1-depth", "bgr0-cfg2-RGB",
+        "yuv420p-cfg3-None", "bgr0-cfg4-RGB"])
+def test_torch_encoder_scope(pix, cfg):
+    """Formats the port covers, deep and RGB ones among them, construct
+    and encode a keyframe equal to the native codec's."""
+    w, h = 32, 24
+    p = params_from_config(cfg, pix, w, h)
+    enc = DeviceFFV1Encoder(w, h, pix, cfg, device="cpu")
+    planes = _frame_for(p, w, h)
+    assert enc.encode(planes, force_keyframe=True) == NativeFFV1Codec(
+        p).encode(planes, True)
+
+
+@pytest.mark.parametrize("pix,cfg,change,err", [
+    ("bgr0", FFV1Config(level=4, coder=0, slices=4), None, "version-4 RGB"),
+    ("yuv420p", FFV1Config(level=3, coder=1, slices=4),
+     "initial_states", "2-pass"),
+    ("yuv420p", FFV1Config(level=3, coder=1, slices=4), "bits", "depth"),
 ])
-def test_torch_encoder_scope(pix, cfg, err):
-    if err is None:
-        DeviceFFV1Encoder(64, 48, pix, cfg, device="cpu")
-        return
+def test_torch_encoder_scope_missing(pix, cfg, change, err):
+    """What the port still leaves out raises NotImplementedError: v4 RGB
+    with Golomb-Rice (as the JAX encoder does), 2-pass initial states and
+    coding depths above 17."""
+    p = params_from_config(cfg, pix, 64, 48)
+    if change == "initial_states":
+        p = dataclasses.replace(p, initial_states=[None] * len(
+            p.context_counts))
+    elif change == "bits":
+        p = dataclasses.replace(p, bits=18)
     with pytest.raises(NotImplementedError, match=err):
-        DeviceFFV1Encoder(64, 48, pix, cfg, device="cpu")
+        DeviceFFV1Encoder(64, 48, pix, cfg, device="cpu", params=p)
 
 
 def test_torch_encoder_scope_geometry_and_batch():
+    """A non-uniform geometry (35, 33) builds one bank per slice shape and
+    encodes; encode_batch is not ported."""
     cfg = FFV1Config(level=3, coder=1, slices=4)
-    with pytest.raises(NotImplementedError, match="shape banks"):
-        DeviceFFV1Encoder(35, 33, "yuv420p", cfg, device="cpu")
+    enc = DeviceFFV1Encoder(35, 33, "yuv420p", cfg, device="cpu")
+    assert len(enc.banks) == 4
+    p = params_from_config(cfg, "yuv420p", 35, 33)
+    planes = [np.full(s, 50, np.int32) for s in _shapes(p, 35, 33)]
+    assert enc.encode(planes, force_keyframe=True) == NativeFFV1Codec(
+        p).encode(planes, True)
     enc = DeviceFFV1Encoder(64, 48, "yuv420p", cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="encode_batch"):
         enc.encode_batch([])

@@ -1,6 +1,7 @@
 """The PyTorch port's CUDA kernels on the card: each kernel equals its plain
 PyTorch version, and the encoder's packets equal NativeFFV1Codec's (the
-port's own copy), for the range and the Golomb-Rice coder.
+port's own copy), for the range and the Golomb-Rice coder, deep and RGB
+formats, shape banks and the emission-order walk (K6).
 
 Needs an NVIDIA GPU and nvcc; skips itself elsewhere.  The machine with
 the card has no jax, so run this file without the repository's
@@ -42,10 +43,16 @@ def _needs_cuda():
                     "false)")
 
 
+def _shapes(p, w, h):
+    if p.colorspace == 1:
+        return [(h, w)] * (3 + p.transparency)
+    return [(h, w)] + ([(-(-h >> p.chroma_v_shift), -(-w >> p.chroma_h_shift))]
+                       * 2 if p.chroma_planes else [])
+
+
 def _frame(p, w, h, t, rng, sparse):
     planes = []
-    shapes = [(h, w)] + ([(h >> p.chroma_v_shift, w >> p.chroma_h_shift)]
-                         * 2 if p.chroma_planes else [])
+    shapes = _shapes(p, w, h)
     for (hh, ww) in shapes:
         if sparse:
             yy, xx = np.mgrid[0:hh, 0:ww]
@@ -213,3 +220,80 @@ def test_torch_gpu_ladder_matches_plain():
     got = rice.run_index_scan(*args, n_ev.cuda()).cpu()
     ref = rice.run_index_scan_plain(cnt, fl, va, rs, n_ev)
     assert torch.equal(got[live], ref[live])
+
+
+@pytest.mark.parametrize("pix,wh,level,coder,emission", [
+    ("yuv444p16", (96, 64), 3, 1, False), ("gray16", (96, 64), 3, 1, True),
+    ("rgb48", (96, 64), 3, 1, False), ("rgb48", (96, 64), 4, 1, True),
+    ("bgr0", (96, 64), 4, 1, True), ("bgr0", (96, 64), 3, 0, False),
+    ("yuv420p", (35, 33), 3, 1, False), ("yuv420p", (35, 33), 3, 0, False),
+    ("bgr0", (35, 33), 3, 1, True)])
+def test_torch_gpu_deep_rgb_banks_match_native(pix, wh, level, coder,
+                                               emission):
+    """Deep YUV, RGB (fixed RCT, the v4 search, rgb48, Golomb-Rice) and
+    the shape banks of a non-uniform geometry on the card == native, on
+    the kernels of the path and no plain version."""
+    w, h = wh
+    cfg = FFV1Config(level=level, coder=coder, slices=4, slicecrc=1)
+    p = params_from_config(cfg, pix, w, h)
+    enc = dc.DeviceFFV1Encoder(w, h, pix, cfg, device="cuda",
+                               emission_order=emission)
+    nat, dec = NativeFFV1Codec(p), NativeFFV1Codec(p)
+    rng = np.random.RandomState(8)
+    _build.reset_counts()
+    for t in range(3):
+        planes = [rng.randint(0, 1 << p.bits, s).astype(np.int32)
+                  for s in _shapes(p, w, h)]
+        a = enc.encode(planes, force_keyframe=t == 0)
+        assert a == nat.encode(planes, t == 0), f"frame {t}"
+        if enc.banks is None:
+            # (a non-uniform geometry may leave the last ceil-rounded
+            # chroma column uncoded, in the native codec too)
+            for x, y in zip(dec.decode(a), planes):
+                assert np.array_equal(x, y), f"frame {t}: decode"
+    kernels = (enc.banks[0] if enc.banks else enc).kernels
+    for name in kernels:
+        k = _build.KERNELS[name]
+        assert k.launches > 0 and k.plain_calls == 0, name
+
+
+@pytest.mark.parametrize("pix,code_bits", [("gbrp12", 13), ("rgb48", 17)])
+def test_torch_gpu_adapt_repeat_substeps(monkeypatch, pix, code_bits):
+    """K2 with R = code_bits - 10 repeat sub-steps and K6 against their
+    plain versions on a small split-group RGB frame (a smooth ramp, whose
+    large context groups split at GCAP 64, with a band of full-range
+    noise: e up to code_bits - 1), from random start states; K6 with
+    ev_words full and capped."""
+    monkeypatch.setattr(host, "GCAP", 64)
+    w, h = 96, 64
+    cfg = FFV1Config(level=3, coder=1, slices=4)
+    p = params_from_config(cfg, pix, w, h)
+    enc = dc.DeviceFFV1Encoder(w, h, pix, cfg, device="cuda")
+    assert enc.code_bits == code_bits
+    rng = np.random.RandomState(5)
+    yy, xx = np.mgrid[0:h, 0:w]
+    band = (yy >= 8) & (yy < 24)
+    planes = [np.where(band, rng.randint(0, 1 << p.bits, (h, w)),
+                       (xx * 37 + 1000 * c) % (1 << p.bits)).astype(np.int32)
+              for c in range(3)]
+    enc.encode(planes, force_keyframe=True)             # settles the caps
+    dev = [torch.as_tensor(x, device="cuda") for x in planes]
+    ctx, diff = enc.phase_a(dev)
+    plan = enc.layout(ctx, diff, enc.tiles_cap, enc.cellrows_cap)
+    assert (plan["tile_pred"] >= 0).any()
+    ch1c, _ = pl.place(plan["dest"], plan["ch1"], plan["orig"],
+                       enc.cellrows_cap)
+    assert int((ad.cell_diff(ch1c, code_bits).abs() >= 1 << 10).sum()) > 0
+    canon = torch.as_tensor(rng.randint(1, 256, enc.canonical.shape)
+                            .astype(np.uint8), device="cuda")
+    s0 = dc.build_s0_blocks(plan, canon, enc.tiles_cap)
+    k2 = (ch1c, plan["tile_caps"], plan["tile_bases"], plan["tile_pred"],
+          s0, enc.table, code_bits)
+    sv, ends = ad.adapt(*k2)
+    assert sv.shape[1] == host.n_sv_words(code_bits)
+    for a, b in zip((sv, ends), ad.adapt_plain(*k2)):
+        assert torch.equal(a, b)
+    for ev_words in (host.n_ev_words(code_bits), 3):
+        for a, b in zip(ad.adapt_emission(*k2, ev_words),
+                        ad.adapt_emission_plain(*k2, ev_words)):
+            assert torch.equal(a, b), ev_words

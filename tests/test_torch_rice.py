@@ -18,6 +18,7 @@ from ffmpeg_ffv2_tpu_torch.ffv1 import host
 from ffmpeg_ffv2_tpu_torch.ffv1 import rice
 from ffmpeg_ffv2_tpu_torch.ffv1.device_coder import DeviceFFV1Encoder
 from ffmpeg_ffv2_tpu_torch.ffv1.vlc import vlc_adapt, vlc_adapt_plain
+from test_torch_formats import torch_one_thread  # noqa: F401
 from ffmpeg_ffv2_tpu_torch.ops.place import place
 
 
