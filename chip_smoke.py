@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Drives the port's paths through ffmpeg_ffv2_tpu_torch's
-DeviceFFV1Encoder.encode on synthetic frames, in phases that each print a
-line and their wall seconds:
+Drives the port's paths through the encode() of ffmpeg_ffv2_tpu_torch's
+DeviceFFV1Encoder, TPUCoderFFV1Encoder and TPUFFV1Encoder on synthetic
+frames, in phases that each print a line, their ms per frame and their
+wall seconds:
 
 0. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
 1. the build of the CUDA kernels from csrc/ (one nvcc per source, all
@@ -34,7 +35,21 @@ line and their wall seconds:
    Golomb-Rice configuration, 3 frames with K1, K5 and the ladder kernel;
 9. yuv422p10 720x486 (SD tape transfers), FFV1Config(level=3, coder=1,
    slices=24, slicecrc=1): slice rects of 120x121 and 120x122, so the
-   session splits into two shape banks; 3 frames checked as in phase 3.
+   session splits into two shape banks; 3 frames checked as in phase 3;
+10. the hybrid lane-coder encoder TPUCoderFFV1Encoder, 1080p yuv420p with
+   phase 2's config: K7 (rac_lanes) against its plain version on the first
+   2048 steps of frame 0's lanes, frame 0's stage times, then 3 frames
+   with pass-1 statistics on, checked as in phase 3, K7 launched once a
+   frame, and the statistics equal to a native session's;
+11. TPUCoderFFV1Encoder with phase 4's Golomb-Rice config: K7 codes the
+   slice headers, bit_pack_lanes packs the Rice bits on the card, 3
+   frames;
+12. TPUFFV1Encoder (phase A on the card, the native entropy coder): 3
+   frames of 1080p yuv420p coder=1, then 2 of bgr0 coder=0 (fixed RCT);
+13. the 2-pass flow: twopass.apply_pass2 on phase 10's statistics, then
+   DeviceFFV1Encoder(params=p2) for 2 frames (K1-K4, with the custom
+   initial states and transition table), checked against
+   NativeFFV1Codec(p2), and its extradata against write_extradata(p2).
 
 The launch counts of a path are reset just before its frames and read
 just after.  The line before the last is a JSON object with one entry per
@@ -531,6 +546,49 @@ def rice_checks(out, inputs, clock_mhz):
           events=events, max_events=int(n_ev.max()))
 
 
+def lanes_checks(out, enc, frame, clock_mhz):
+    """K7 on the lane matrices of ``frame`` planned as a keyframe by
+    ``enc`` (a TPUCoderFFV1Encoder session of its own), timed after a
+    warm-up; kernel and plain version on the first 2048 steps of every
+    lane ending in the two flush steps.  Bound: each used step of each
+    lane reads 3 int32 and writes 3 int32; chain: the longest lane's
+    steps.  Also times frame 0's host and device stages."""
+    import torch
+    from ffmpeg_ffv2_tpu_torch.ffv1 import rac
+    from ffmpeg_ffv2_tpu_torch.ffv1 import tpu_coder as tc
+    stages = {}
+    t0 = time.perf_counter()
+    svs, bits, lens, _ = enc._plan(frame, True)
+    stages["plan (native planner, host)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    k7 = enc.lane_matrices(svs, bits, lens)
+    torch.cuda.synchronize()
+    stages["ops up + lane matrices"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    staged = torch.stack(rac.rac_lanes(*k7)).cpu().numpy()
+    stages["K7 + staged events down"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tc.compact_lanes(*staged)
+    stages["compaction (host)"] = time.perf_counter() - t0
+    log("phase 10: hybrid range frame 0 stage times (ms, host clock): "
+        + json.dumps({k: round(v * 1e3, 4) for k, v in stages.items()}))
+    steps, lanes = k7[0].shape
+    n = min(2048, steps)
+    cut = [a[:n].clone() for a in k7]
+    cut[2][n - 2] = tc.MODE_FLUSH1
+    cut[2][n - 1] = tc.MODE_FLUSH2
+    got = rac.rac_lanes(*cut)
+    ref, plain_ms = cuda_ms_once(lambda: rac.rac_scan_lanes(*cut))
+    err = max_abs_err(got, ref)
+    entry(out, "rac_lanes", "hybrid range", err,
+          cuda_ms(lambda: rac.rac_lanes(*k7), 5), plain_ms, None,
+          bound(steps * lanes * 6 * 4, steps * lanes, steps, clock_mhz),
+          ms_cut=cuda_ms(lambda: rac.rac_lanes(*cut), 5),
+          cut=f"first {n} steps of each of {lanes} lanes; plain_ms and "
+              f"ms_cut on the cut, ms on {steps} steps",
+          ops_per_lane_max=max(lens), ops_per_lane_min=min(lens))
+
+
 def probe(label, pix, w, h, cfg, frame, emission=False):
     """An encoder whose caps the frame settles, and the captured kernel
     inputs and stage times of that frame, run twice (the first warms)."""
@@ -546,23 +604,28 @@ def probe(label, pix, w, h, cfg, frame, emission=False):
     return enc, inputs
 
 
-def drive(label, pix, w, h, cfg, frames, card, phase, emission=False,
-          not_launched=(), check=None):
-    """The main path of one configuration: frames through encode() with
-    the launch counts reset just before; every packet against the native
-    codec and its lossless decode.  ``check(enc)`` runs on the session
-    before the frames.  Returns the launch counts."""
-    from ffmpeg_ffv2_tpu_torch import _build
+def device_encoder(pix, w, h, cfg, emission=False, params=None):
     from ffmpeg_ffv2_tpu_torch.ffv1.device_coder import DeviceFFV1Encoder
+    return DeviceFFV1Encoder(w, h, pix, cfg, device="cuda",
+                             emission_order=emission, params=params)
+
+
+def drive(label, enc, frames, card, phase, not_launched=(), check=None,
+          nat=None):
+    """The main path of one configuration: frames through ``enc.encode()``
+    with the launch counts reset just before; every packet against the
+    native codec (``nat``, or a new session of the encoder's params) and
+    the lossless decode of a second session.  ``check(enc)`` runs on the
+    session before the frames.  Returns the launch counts."""
+    from ffmpeg_ffv2_tpu_torch import _build
     from ffmpeg_ffv2_tpu_torch.ffv1.native import NativeFFV1Codec
-    from ffmpeg_ffv2_tpu_torch.ffv1.params import params_from_config
-    p = params_from_config(cfg, pix, w, h)
-    nat, dec = NativeFFV1Codec(p), NativeFFV1Codec(p)
-    enc = DeviceFFV1Encoder(w, h, pix, cfg, device="cuda",
-                            emission_order=emission)
+    p = enc.p
+    w, h, pix = p.width, p.height, p.pix_fmt.name
+    nat, dec = nat or NativeFFV1Codec(p), NativeFFV1Codec(p)
     if check is not None:
         check(enc)
-    kernels = (enc.banks[0] if enc.banks else enc).kernels
+    kernels = (enc.banks[0] if getattr(enc, "banks", None) else
+               enc).kernels
     _build.reset_counts()
     packets, ms = [], []
     for t, frame in enumerate(frames):
@@ -593,11 +656,11 @@ def drive(label, pix, w, h, cfg, frames, card, phase, emission=False,
         raise AssertionError(f"plain versions ran on the {label} path: "
                              f"{plain}")
     steady = sorted(ms[1:])[len(ms[1:]) // 2]
-    log(f"phase {phase}: {label}: {len(frames)} frames {w}x{h} {pix} (1 "
-        f"key + {len(frames) - 1} inter, {p.slice_count} slices, level "
-        f"{p.version}, coder {cfg.coder}) byte-identical to the native "
-        f"codec and decoded losslessly; launches {launches}, plain calls "
-        f"{plain}")
+    log(f"phase {phase}: {label}: {type(enc).__name__}, {len(frames)} "
+        f"frames {w}x{h} {pix} (1 key + {len(frames) - 1} inter, "
+        f"{p.slice_count} slices, level {p.version}, coder {enc.cfg.coder})"
+        f" byte-identical to the native codec and decoded losslessly; "
+        f"launches {launches}, plain calls {plain}")
     log(f"phase {phase}: {label}: ms per frame "
         f"{[round(x, 2) for x in ms]}; inter-frame median {steady:.2f} ms "
         f"= {w * h / steady / 1e3:.2f} Mpixel/s [{card}]; packet bytes "
@@ -683,8 +746,9 @@ def main() -> int:
         range_k1 = inputs["k1"]
         del inputs
     with Phase(3):
-        launches["range"] = drive("range", "yuv420p", W, H, range_cfg,
-                                  frames, card, 3)
+        launches["range"] = drive(
+            "range", device_encoder("yuv420p", W, H, range_cfg), frames,
+            card, 3)
     with Phase(4):
         _, inputs = probe("phase 4: rice", "yuv420p", W, H, rice_cfg,
                           frames[0])
@@ -692,8 +756,9 @@ def main() -> int:
         rice_checks(kernels, inputs, clock_mhz)
         del inputs, range_k1
     with Phase(5):
-        launches["rice"] = drive("rice", "yuv420p", W, H, rice_cfg, frames,
-                                 card, 5)
+        launches["rice"] = drive(
+            "rice", device_encoder("yuv420p", W, H, rice_cfg), frames, card,
+            5)
 
     # 6. rgb48: K2 with R = 7 and K6 on the same cells, then the frames
     with Phase(6):
@@ -714,8 +779,9 @@ def main() -> int:
         if not big:
             raise AssertionError("rgb48: no cell with e > 9 in the cut")
         del enc, inputs, ev_in, k
-        launches["rgb48"] = drive("rgb48", "rgb48", W, H, cfg, rgb48, card,
-                                  6, not_launched=("adapt_emission",))
+        launches["rgb48"] = drive(
+            "rgb48", device_encoder("rgb48", W, H, cfg), rgb48, card, 6,
+            not_launched=("adapt_emission",))
         del rgb48
 
     # 7. bgr0 v4: the per-slice RCT search, emission order (K6)
@@ -737,14 +803,14 @@ def main() -> int:
         log(f"phase 7: bgr0 v4: chosen (by, ry) over {N_NEW} frames x "
             f"{enc.S} slices: {json.dumps(hist, sort_keys=True)}")
         del enc, inputs
-        launches["bgr0 v4"] = drive("bgr0 v4", "bgr0", W, H, cfg, rgb, card,
-                                    7, emission=True,
-                                    not_launched=("adapt",))
+        launches["bgr0 v4"] = drive(
+            "bgr0 v4", device_encoder("bgr0", W, H, cfg, emission=True), rgb,
+            card, 7, not_launched=("adapt",))
 
     # 8. bgr0 Golomb-Rice (FATE's RGB configuration)
     with Phase(8):
-        launches["bgr0 rice"] = drive("bgr0 rice", "bgr0", W, H, rice_cfg,
-                                      rgb, card, 8)
+        launches["bgr0 rice"] = drive(
+            "bgr0 rice", device_encoder("bgr0", W, H, rice_cfg), rgb, card, 8)
     del rgb
 
     # 9. yuv422p10 SD: two shape banks
@@ -759,9 +825,76 @@ def main() -> int:
             if len(shapes) != 2:
                 raise AssertionError(f"expected two banks, got {shapes}")
 
-        launches["sd banks"] = drive("sd banks", "yuv422p10", *SD, cfg,
-                                     synth_sd_frames(N_NEW, *SD), card, 9,
-                                     check=two_banks)
+        launches["sd banks"] = drive(
+            "sd banks", device_encoder("yuv422p10", *SD, cfg),
+            synth_sd_frames(N_NEW, *SD), card, 9, check=two_banks)
+
+    # 10.-11. the hybrid lane-coder encoder: range (with pass-1
+    # statistics) and Golomb-Rice
+    from ffmpeg_ffv2_tpu_torch.ffv1 import headers, twopass
+    from ffmpeg_ffv2_tpu_torch.ffv1.native import NativeFFV1Codec
+    from ffmpeg_ffv2_tpu_torch.ffv1.params import params_from_config
+    from ffmpeg_ffv2_tpu_torch.ffv1.tpu_coder import TPUCoderFFV1Encoder
+    from ffmpeg_ffv2_tpu_torch.ffv1.tpu_encoder import TPUFFV1Encoder
+
+    def once_a_frame(label, n):
+        if launches[label]["rac_lanes"] != n:
+            raise AssertionError(f"{label}: K7 launched "
+                                 f"{launches[label]['rac_lanes']} times over "
+                                 f"{n} frames, not once a frame")
+
+    with Phase(10):
+        lanes_checks(kernels, TPUCoderFFV1Encoder(W, H, "yuv420p", range_cfg),
+                     frames[0], clock_mhz)
+        enc = TPUCoderFFV1Encoder(W, H, "yuv420p", range_cfg)
+        enc.set_stats_mode(True)
+        nat = NativeFFV1Codec(enc.p)
+        nat.enable_stats()
+        launches["hybrid range"] = drive("hybrid range", enc, frames[:N_NEW],
+                                         card, 10, nat=nat)
+        once_a_frame("hybrid range", N_NEW)
+        stats = twopass.collect_stats(enc.native)
+        ref = twopass.collect_stats(nat)
+        if stats[2] != ref[2] or not all(np.array_equal(a, b) for a, b in
+                                         zip(stats[:2], ref[:2])):
+            raise AssertionError("hybrid range: pass-1 statistics differ "
+                                 "from the native session's")
+        log(f"phase 10: pass-1 statistics equal the native session's: "
+            f"{int(stats[0].sum())} state tallies, gob count {stats[2]}")
+        stats_text = twopass.stats_to_text(enc.p, *stats)
+        del enc, nat
+    with Phase(11):
+        launches["hybrid rice"] = drive(
+            "hybrid rice", TPUCoderFFV1Encoder(W, H, "yuv420p", rice_cfg),
+            frames[:N_NEW], card, 11)
+        once_a_frame("hybrid rice", N_NEW)
+
+    # 12. the hybrid phase-A encoder: yuv420p range, bgr0 rice (fixed RCT)
+    with Phase(12):
+        launches["phase-A yuv"] = drive(
+            "phase-A yuv", TPUFFV1Encoder(W, H, "yuv420p", range_cfg),
+            frames[:N_NEW], card, 12)
+        launches["phase-A bgr0"] = drive(
+            "phase-A bgr0", TPUFFV1Encoder(W, H, "bgr0", rice_cfg),
+            synth_rgb_frames(2, W, H), card, 12)
+
+    # 13. the 2-pass flow: pass-2 parameters from phase 10's statistics
+    # through the device encoder (K1-K4)
+    with Phase(13):
+        p2 = twopass.apply_pass2(params_from_config(range_cfg, "yuv420p",
+                                                    W, H), stats_text)
+        enc = device_encoder("yuv420p", W, H, range_cfg, params=p2)
+        if enc.extradata != headers.write_extradata(p2):
+            raise AssertionError("2-pass: extradata differs")
+        moved = int((p2.initial_states[p2.context_model] != 128).sum())
+        p1 = params_from_config(range_cfg, "yuv420p", W, H)
+        sorted_ = int((p2.state_transition != p1.state_transition).sum())
+        log(f"phase 13: pass 2: {moved} initial states differ from 128, "
+            f"{sorted_} transition-table entries moved by the sort")
+        if not moved:
+            raise AssertionError("2-pass: no initial state moved")
+        launches["2-pass"] = drive("2-pass", enc, frames[:2], card, 13)
+        del enc
 
     for k in kernels.values():
         k["launches"] = launches[k["path"]][k["name"].split("_rgb48")[0]]
@@ -769,7 +902,7 @@ def main() -> int:
             label: launches[label][k["name"].split("_rgb48")[0]]
             for label in launches}
     order = ["place", "adapt", "adapt_rgb48", "adapt_emission", "expand",
-             "rac_render", "vlc", "ladder"]
+             "rac_render", "vlc", "ladder", "rac_lanes"]
     print(json.dumps({"kernels": [kernels[n] for n in order]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

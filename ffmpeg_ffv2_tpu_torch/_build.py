@@ -187,6 +187,9 @@ KERNELS = {k.name: k for k in (
            "ffmpeg_ffv2_tpu_torch/csrc/ladder.cu",
            "ffmpeg_ffv2_tpu/ffv1/device_rice.py:124 (a lax.scan; no Pallas "
            "counterpart)"),
+    Kernel("rac_lanes", "ffv2_rac_lanes", [P, P, P, I, I, P, P, P, P],
+           "ffmpeg_ffv2_tpu_torch/csrc/rac_lanes.cu",
+           "ffmpeg_ffv2_tpu/ffv1/pallas_coder.py:31"),
 )}
 
 

@@ -304,8 +304,11 @@ class DeviceFFV1Encoder:
     itself) instead of K2 and the repack, as the JAX encoder does under
     FFV1_ADAPT_EMISSION=1.  device="cpu" runs every kernel's plain
     PyTorch version (tests).  ``params`` overrides the config's
-    FFV1Params.  Raises NotImplementedError for 2-pass initial states,
-    v4 RGB with Golomb-Rice and coding depths above 17."""
+    FFV1Params, such as the 2-pass parameters of
+    ``twopass.apply_pass2`` (custom transition table and per-context
+    initial states, on every bank).  Raises NotImplementedError for v4
+    RGB with Golomb-Rice, initial states with Golomb-Rice and coding
+    depths above 17."""
 
     def __init__(self, width: int, height: int, pix_fmt: str,
                  config: FFV1Config | None = None, device="cuda",
@@ -326,11 +329,10 @@ class DeviceFFV1Encoder:
             raise NotImplementedError(
                 "device coder: versions 0/1/3/4 (v2's in-band slice table "
                 "is a deprecated transitional layout)")
-        if p.initial_states is not None:
-            raise NotImplementedError(
-                "torch device coder: 2-pass initial states are not ported "
-                "yet")
         self.golomb = p.ac == CODER_GOLOMB
+        if p.initial_states is not None and self.golomb:
+            raise NotImplementedError("initial states are a range-coder "
+                                      "feature")
         # version-4 RGB searches the RCT coefficients per slice on the
         # device and codes them in the slice headers
         self.v4rgb = p.version > 3 and p.colorspace == 1
@@ -427,9 +429,22 @@ class DeviceFFV1Encoder:
         p = self.p
         self.table = torch.as_tensor(host.packed_transition_table(p),
                                      device=self.device)
-        self.canonical_key = torch.full((self.n_chain_rows + 1, 32), 128,
-                                        dtype=torch.uint8,
-                                        device=self.device)
+        # keyframe canonical: 128 everywhere, or the 2-pass per-context
+        # initial states (ff_ffv1_clear_slice_state, ffv1.c:70-84): one
+        # slice's (rows_per_slice, 32) key tiled over the slices, plus the
+        # spare row
+        ck = np.full((self.rows_per_slice, 32), 128, np.uint8)
+        if p.initial_states is not None:
+            ss = SliceState(p)
+            off = 0
+            for cnt, qt in zip(ss.plane_ctx_count, ss.plane_qt_index):
+                init = p.initial_states[qt]
+                if init is not None:
+                    ck[off:off + cnt] = np.asarray(init, np.uint8)[:cnt]
+                off += cnt
+        full = np.full((self.n_chain_rows + 1, 32), 128, np.uint8)
+        full[:self.n_chain_rows] = np.tile(ck, (self.S, 1))
+        self.canonical_key = torch.as_tensor(full, device=self.device)
         self.canonical = self.canonical_key
 
         # host-planned per-slice prefix ops (constant per keyframe flag;

@@ -1,5 +1,7 @@
 """Copy of ``ffmpeg_ffv2_tpu/ffv1/native.py``: the ``NativeFFV1Codec``
-ctypes wrapper, encode and decode.
+ctypes wrapper (encode, decode, the encode from precomputed symbols and
+pass-1 statistics) and the signatures of the runtime's planner and 2-pass
+entry points.
 
 The C++ FFV1 codec (``native/ffv1_runtime.cpp``, a copy of the JAX
 package's runtime) is the port's byte-exactness oracle: the same bitstream
@@ -106,6 +108,50 @@ def get_lib():
         lib.ffv1rt_set_initial_states.argtypes = [
             ctypes.c_void_p, ctypes.c_int,
             ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64]
+        lib.ffv1rt_encode_sym.restype = ctypes.c_int64
+        lib.ffv1rt_encode_sym.argtypes = [
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
+            ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
+            ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64]
+        lib.ffv1rt_set_stats_mode.argtypes = [ctypes.c_void_p, ctypes.c_int32]
+        lib.ffv1rt_get_stats.restype = ctypes.c_int32
+        lib.ffv1rt_get_stats.argtypes = [
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint64),
+            ctypes.POINTER(ctypes.c_uint64), ctypes.c_int64]
+        lib.ffv1rt_sort_stt.restype = ctypes.c_int32
+        lib.ffv1rt_sort_stt.argtypes = [
+            ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_uint8)]
+        lib.ffv1rt_find_best_state.argtypes = [
+            ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_uint8)]
+        # the hybrid lane coder's planners (tpu_coder.py)
+        planner = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
+                   ctypes.c_int]
+        lib.ffv1rt_plan.restype = ctypes.c_int64
+        lib.ffv1rt_plan.argtypes = planner
+        lib.ffv1rt_plan_golomb.restype = ctypes.c_int64
+        lib.ffv1rt_plan_golomb.argtypes = planner
+        lib.ffv1rt_get_plan.restype = ctypes.c_int64
+        lib.ffv1rt_get_plan.argtypes = [
+            ctypes.c_void_p, ctypes.c_int32,
+            ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_uint8),
+            ctypes.c_int64]
+        lib.ffv1rt_get_plan_bits.restype = ctypes.c_int64
+        lib.ffv1rt_get_plan_bits.argtypes = [
+            ctypes.c_void_p, ctypes.c_int32,
+            ctypes.POINTER(ctypes.c_uint32), ctypes.POINTER(ctypes.c_uint8),
+            ctypes.c_int64]
+        lib.ffv1rt_get_plan_rows.restype = ctypes.c_int64
+        lib.ffv1rt_get_plan_rows.argtypes = [
+            ctypes.c_void_p, ctypes.c_int32,
+            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32),
+            ctypes.c_int64]
+        lib.ffv1rt_replan_pcm.restype = ctypes.c_int64
+        lib.ffv1rt_replan_pcm.argtypes = [
+            ctypes.c_void_p, ctypes.c_int32,
+            ctypes.POINTER(ctypes.c_void_p), ctypes.c_int]
+        lib.ffv1rt_set_budget_override.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64]
         _lib = lib
         return _lib
 
@@ -188,6 +234,29 @@ class NativeFFV1Codec:
         if n < 0:
             raise RuntimeError("native encode failed")
         return out[:n].tobytes()
+
+    def encode_sym(self, planes, ctx_streams, diff_streams,
+                   keyframe: bool) -> bytes:
+        """Phase-B entropy coding over precomputed (context, diff) streams
+        (one int32 [h, w] pair per coded plane, from the card's phase A in
+        tpu_encoder.py)."""
+        arrs, ptrs = self._plane_ptrs(planes)
+        carrs, cptrs = self._plane_ptrs(ctx_streams)
+        darrs, dptrs = self._plane_ptrs(diff_streams)
+        cap = 16384 + 4 * 37 * self.p.width * self.p.height
+        out = np.empty(cap, dtype=np.uint8)
+        n = self.lib.ffv1rt_encode_sym(
+            self.handle, ptrs, cptrs, dptrs, len(carrs),
+            1 if keyframe else 0,
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), cap)
+        if n < 0:
+            raise RuntimeError("native encode_sym failed")
+        return out[:n].tobytes()
+
+    def enable_stats(self):
+        """Tally pass-1 statistics in every later encode of this session
+        (read them with twopass.collect_stats)."""
+        self.lib.ffv1rt_set_stats_mode(self.handle, 1)
 
     def decode(self, packet: bytes):
         p = self.p

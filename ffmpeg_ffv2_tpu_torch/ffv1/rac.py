@@ -8,6 +8,12 @@ render_bytes_pallas`` (``_compact_kernel``, ``_place_bytes_kernel``).
 ``rac_render`` launches the CUDA kernel ``csrc/rac_render.cu`` (K4), which
 codes and renders in one pass, on CUDA tensors and takes the plain
 ``rac_render_plain`` on CPU tensors.
+
+``rac_lanes`` is the counterpart of the TPU kernel ``pallas_coder.py:
+rac_pallas_lanes`` (``_coder_kernel``), the lane coder of the hybrid
+encoder over unpacked (sv, bit, mode) ops: it launches ``csrc/
+rac_lanes.cu`` (K7) on CUDA tensors and takes the plain ``rac_scan_lanes``
+on CPU tensors.
 """
 
 from __future__ import annotations
@@ -18,57 +24,80 @@ from .. import _build
 from .expand import MODE_OP, MODE_FLUSH1, MODE_FLUSH2
 
 _K = _build.KERNELS["rac_render"]
+_K7 = _build.KERNELS["rac_lanes"]
 
 
 def rac_scan_lanes(sv, bit, mode):
     """Plain coder: the range-coder recursion for all lanes, one Python
     step per op.  sv/bit/mode int32 (steps, lanes) -> staged events
     (first byte, -1 = none; fill count; fill value), each (steps, lanes)
-    int32."""
+    int32.
+
+    The step's case masks (op with bit 1 or 0, flush 1, any flush) come
+    from the modes of all steps at once; per step, an emission needs
+    low <= 0xFF00 (case c: fill 0xFF, first byte = pending) or
+    low >= 0x10000 (case d: fill 0, first byte = pending + 1), and a
+    pending byte (pending >= 0, else case b)."""
     steps, lanes = sv.shape
     dev = sv.device
     i32 = torch.int32
+    is_op = mode == MODE_OP
+    flush = (mode == MODE_FLUSH1) | (mode == MODE_FLUSH2)
+    op1 = is_op & (bit != 0)
+    op0 = is_op & (bit == 0)
+    add_f1 = (mode == MODE_FLUSH1).to(i32) * 0xFF
+    coded = is_op | flush
     low = torch.zeros(lanes, dtype=i32, device=dev)
     rng = torch.full((lanes,), 0xFF00, dtype=i32, device=dev)
     pending = torch.full((lanes,), -1, dtype=i32, device=dev)
     pcount = torch.zeros(lanes, dtype=i32, device=dev)
-    first, fcount, fval = [], [], []
+    first = torch.empty((steps, lanes), dtype=i32, device=dev)
+    fcount = torch.empty_like(first)
+    fval = torch.empty_like(first)
     for i in range(steps):
-        s, b, m = sv[i], bit[i], mode[i]
-        is_op = m == MODE_OP
-        is_flush1 = m == MODE_FLUSH1
-        is_flush = is_flush1 | (m == MODE_FLUSH2)
-        r1 = (rng * s) >> 8
-        low_op = torch.where(b != 0, low + rng - r1, low)
-        rng_op = torch.where(b != 0, r1, rng - r1)
-        low1 = torch.where(is_op, low_op,
-                           torch.where(is_flush1, low + 0xFF, low))
-        rng1 = torch.where(is_op, rng_op, torch.where(is_flush, 0xFF, rng))
-        renorm = (rng1 < 0x100) & (is_op | is_flush)
+        r1 = (rng * sv[i]) >> 8
+        d = rng - r1
+        low1 = torch.where(op1[i], low + d, low) + add_f1[i]
+        rng1 = torch.where(op1[i], r1, torch.where(
+            op0[i], d, torch.where(flush[i], 0xFF, rng)))
+        renorm = (rng1 < 0x100) & coded[i]
         case_b = pending < 0
         case_c = low1 <= 0xFF00
-        case_d = low1 >= 0x10000
-        emit = renorm & ~case_b & (case_c | case_d)
-        first.append(torch.where(
-            emit, torch.where(case_c, pending, pending + 1) & 0xFF, -1))
-        fcount.append(torch.where(emit, pcount, 0))
-        fval.append(torch.where(case_c, 0xFF, 0x00))
-        pending = torch.where(
-            renorm,
-            torch.where(case_b | case_c, low1 >> 8,
-                        torch.where(case_d, (low1 >> 8) & 0xFF, pending)),
-            pending)
-        pcount = torch.where(
-            renorm,
-            torch.where(case_b | case_c | case_d,
-                        torch.where(case_b, pcount, 0), pcount + 1),
-            pcount)
+        c_or_d = case_c | (low1 >= 0x10000)
+        settle = renorm & ~case_b
+        emit = settle & c_or_d
+        hi = low1 >> 8
+        first[i] = torch.where(emit, (pending + (~case_c).to(i32)) & 0xFF,
+                               -1)
+        fcount[i] = torch.where(emit, pcount, 0)
+        fval[i] = case_c.to(i32) * 0xFF
+        # case b takes low >> 8 whole; c (hi <= 0xFF) and d take its byte
+        pending = torch.where(renorm & (case_b | c_or_d),
+                              torch.where(case_b, hi, hi & 0xFF), pending)
+        pcount = torch.where(settle, torch.where(c_or_d, 0, pcount + 1),
+                             pcount)
         low = torch.where(renorm, (low1 & 0xFF) << 8, low1)
         rng = torch.where(renorm, rng1 << 8, rng1)
-    if not steps:
-        return (torch.empty((0, lanes), dtype=i32, device=dev),) * 3
-    return (torch.stack(first).to(i32), torch.stack(fcount).to(i32),
-            torch.stack(fval).to(i32))
+    return first, fcount, fval
+
+
+def rac_lanes(sv, bit, mode):
+    """K7 wrapper: the lane coder of the hybrid encoder (tpu_coder.py).
+    sv/bit/mode contiguous int32 (steps, lanes) on one device -> staged
+    (first, fcount, fval), each int32 (steps, lanes), as
+    ``rac_scan_lanes`` (its plain version, taken for CPU tensors) gives
+    them.  The three outputs are views of one (3, steps, lanes) tensor."""
+    steps, lanes = sv.shape
+    dev = sv.device
+    for name, t in (("sv", sv), ("bit", bit), ("mode", mode)):
+        _K7.check(name, t, (steps, lanes), dev)
+    if _K7.plain_for(dev):
+        return rac_scan_lanes(sv, bit, mode)
+    out = torch.empty((3, steps, lanes), dtype=torch.int32, device=dev)
+    _K7.launch(sv.data_ptr(), bit.data_ptr(), mode.data_ptr(), steps, lanes,
+               out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+               _build.stream_handle(sv))
+    return out[0], out[1], out[2]
 
 
 def render_bytes(first, fcount, fval, buf_cap: int):

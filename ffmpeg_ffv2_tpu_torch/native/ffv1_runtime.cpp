@@ -1,12 +1,17 @@
-// Copy of ffmpeg_ffv2_tpu/native/ffv1_runtime.cpp, trimmed to the codec
-// core that ffmpeg_ffv2_tpu_torch/ffv1/native.py binds and builds:
-// ffv1rt_create, ffv1rt_set_initial_states, ffv1rt_destroy, ffv1rt_encode
-// and ffv1rt_decode.  Left out: the op and bit planners of the TPU coder,
-// the encode from precomputed (ctx, diff) symbols, pass-1 statistics, the
-// 2-pass state search, the frame-pipelined decode and the PCM budget test
-// hook.  What is kept is the original's code, less the branches into
-// those parts, and tests/test_torch_host.py holds this copy's packets
-// against the original's.
+// Copy of ffmpeg_ffv2_tpu/native/ffv1_runtime.cpp, the original's code
+// verbatim but for two parts that the port does not bind: the
+// frame-pipelined decode (Codec::decode_frames_pipelined and
+// ffv1rt_decode_pipelined) and the damaged-slice query
+// ffv1rt_slice_damaged.  ffmpeg_ffv2_tpu_torch/ffv1/native.py binds and
+// builds it: the codec (ffv1rt_create, ffv1rt_set_initial_states,
+// ffv1rt_destroy, ffv1rt_encode, ffv1rt_decode), the encode from
+// precomputed (ctx, diff) symbols (ffv1rt_encode_sym), the op and bit
+// planners of the hybrid lane coder (ffv1rt_plan, ffv1rt_get_plan,
+// ffv1rt_get_plan_rows, ffv1rt_replan_pcm, ffv1rt_plan_golomb,
+// ffv1rt_get_plan_bits, ffv1rt_set_budget_override), pass-1 statistics
+// (ffv1rt_set_stats_mode, ffv1rt_get_stats) and the 2-pass searches
+// (ffv1rt_sort_stt, ffv1rt_find_best_state).  tests/test_torch_host.py
+// holds this copy's packets, plans and statistics against the original's.
 //
 // The original's description: a C++17 host runtime for the FFV1 codec, a
 // complete FFV1 frame encoder/decoder (versions 0-4, range + Golomb-Rice
@@ -26,6 +31,7 @@
 #include <thread>
 #include <atomic>
 #include <algorithm>
+#include <cmath>
 
 namespace f2t {
 
@@ -216,6 +222,44 @@ struct RangeDec {
 
 static inline int ilog2(unsigned v) { return 31 - __builtin_clz(v); }
 
+struct RcStats {
+    // [state_value][bit] and per-(context,slot)[bit] tallies (pass 1)
+    std::vector<uint64_t> stat;    // 256*2
+    std::vector<uint64_t> stat2;   // ctx*32*2 for the active quant table
+    void init(size_t nctx) {
+        stat.assign(256 * 2, 0);
+        stat2.assign(nctx * 32 * 2, 0);  // 32 == kContextSize
+    }
+};
+
+static void put_symbol_stats(RangeEnc& c, uint8_t* st, int v, bool is_signed,
+                             RcStats& rs, size_t ctx_base) {
+    auto put = [&](int slot, int bit) {
+        rs.stat[(size_t)st[slot] * 2 + bit]++;
+        rs.stat2[(ctx_base + slot) * 2 + bit]++;
+        c.put(st + slot, bit);
+    };
+    if (v) {
+        const unsigned a = v < 0 ? -(unsigned)v : (unsigned)v;
+        const int e = ilog2(a);
+        put(0, 0);
+        if (e <= 9) {
+            for (int i = 0; i < e; i++) put(1 + i, 1);
+            put(1 + e, 0);
+            for (int i = e - 1; i >= 0; i--) put(22 + i, (a >> i) & 1);
+            if (is_signed) put(11 + e, v < 0);
+        } else {
+            for (int i = 0; i < e; i++) put(1 + std::min(i, 9), 1);
+            put(1 + 9, 0);
+            for (int i = e - 1; i >= 0; i--)
+                put(22 + std::min(i, 9), (a >> i) & 1);
+            if (is_signed) put(11 + 10, v < 0);
+        }
+    } else {
+        put(0, 1);
+    }
+}
+
 static void put_symbol(RangeEnc& c, uint8_t* st, int v, bool is_signed) {
     if (v) {
         const unsigned a = v < 0 ? -(unsigned)v : (unsigned)v;
@@ -252,6 +296,87 @@ static int get_symbol(RangeDec& c, uint8_t* st, bool is_signed) {
         a += a + c.get(st + 22 + std::min(i, 9));
     int neg = is_signed && c.get(st + 11 + std::min(e, 10));
     return neg ? -(int)a : (int)a;
+}
+
+// ---------------------------------------------------------------------------
+// Op planner for the on-device arithmetic coder: expands a slice's entire
+// range-coded stream (headers + per-pixel symbols) into (state_value, bit)
+// pairs with the context adaptation already applied.  The TPU lane kernel
+// (ffv1/tpu_coder.py) then runs the pure low/range arithmetic for all
+// slices in parallel; outputs are byte-exact with RangeEnc.
+// ---------------------------------------------------------------------------
+
+struct OpSink {
+    std::vector<uint8_t> sv;
+    std::vector<uint8_t> bit;
+    // (op offset, row width) at every plane-row start: lets the caller
+    // replay the encoder's per-row budget check (obuf + w*35 > budget)
+    // against the device coder's byte prefix for the exact v4 PCM rule
+    std::vector<int64_t> row_marks;
+    std::vector<int32_t> row_widths;
+    void mark_row(int w) {
+        row_marks.push_back((int64_t)sv.size());
+        row_widths.push_back(w);
+    }
+    void put(uint8_t* state, int b, const RacTables& tab) {
+        sv.push_back(*state);
+        bit.push_back((uint8_t)b);
+        *state = b ? tab.one[*state] : tab.zero[*state];
+    }
+};
+
+// golomb-mode planning sink: (value, nbits) pairs for the device
+// bit-packer (ffv1/tpu_coder.py:bit_pack_lanes)
+struct BitSink {
+    std::vector<uint32_t> val;
+    std::vector<uint8_t> nb;
+    void put(int n, unsigned v) {
+        val.push_back(v);
+        nb.push_back((uint8_t)n);
+    }
+};
+
+static void plan_symbol(OpSink& o, uint8_t* st, int v, bool is_signed,
+                        const RacTables& tab, RcStats* rs = nullptr,
+                        size_t ctx_base = 0) {
+    if (rs) {
+        // mirror put_symbol_stats' tallies on the planned ops so pass-1
+        // runs through the device-coder path too
+        if (v) {
+            const unsigned a = v < 0 ? -(unsigned)v : (unsigned)v;
+            const int e = ilog2(a);
+            // replay the slot walk against the CURRENT states (before
+            // o.put advances them): tally then fall through to planning
+            uint8_t snap[32];
+            std::memcpy(snap, st, 32);
+            auto tally = [&](int slot, int bit) {
+                rs->stat[(size_t)snap[slot] * 2 + bit]++;
+                rs->stat2[(ctx_base + slot) * 2 + bit]++;
+                snap[slot] = bit ? tab.one[snap[slot]] : tab.zero[snap[slot]];
+            };
+            tally(0, 0);
+            for (int i = 0; i < e; i++) tally(1 + std::min(i, 9), 1);
+            tally(1 + std::min(e, 9), 0);
+            for (int i = e - 1; i >= 0; i--)
+                tally(22 + std::min(i, 9), (a >> i) & 1);
+            if (is_signed) tally(11 + std::min(e, 10), v < 0);
+        } else {
+            rs->stat[(size_t)st[0] * 2 + 1]++;
+            rs->stat2[(ctx_base + 0) * 2 + 1]++;
+        }
+    }
+    if (v) {
+        const unsigned a = v < 0 ? -(unsigned)v : (unsigned)v;
+        const int e = ilog2(a);
+        o.put(st + 0, 0, tab);
+        for (int i = 0; i < e; i++) o.put(st + 1 + std::min(i, 9), 1, tab);
+        o.put(st + 1 + std::min(e, 9), 0, tab);
+        for (int i = e - 1; i >= 0; i--)
+            o.put(st + 22 + std::min(i, 9), (a >> i) & 1, tab);
+        if (is_signed) o.put(st + 11 + std::min(e, 10), v < 0, tab);
+    } else {
+        o.put(st + 0, 1, tab);
+    }
 }
 
 // ---------------------------------------------------------------------------
@@ -438,6 +563,24 @@ static int get_vlc_symbol(BitReader& gb, VlcState& st, int bits) {
     return ret;
 }
 
+static void plan_sr_golomb(BitSink& b, int i, int k, int limit,
+                           int esc_len) {
+    unsigned v = i >= 0 ? 2u * i : -2u * i - 1;
+    int e = v >> k;
+    if (e < limit)
+        b.put(e + k + 1, (1u << k) + (v & ((1u << k) - 1)));
+    else
+        b.put(limit + esc_len, v - limit + 1);
+}
+
+static void plan_vlc_symbol(BitSink& b, VlcState& st, int v, int bits) {
+    v = fold(v - st.bias, bits);
+    int k = rice_k(st.count, st.error_sum);
+    int code = v ^ ((2 * st.drift + st.count) >> 31);
+    plan_sr_golomb(b, code, k, 12, bits);
+    st.update(v);
+}
+
 // ---------------------------------------------------------------------------
 // Parameters (C ABI mirror)
 // ---------------------------------------------------------------------------
@@ -495,6 +638,7 @@ struct SliceState {
     int coding_mode = 0;
     int reset_contexts = 0;
     bool damaged = false;
+    RcStats* stats = nullptr;   // set when pass-1 collection is on
 
     void init(const Params& p) {
         states.assign(p.plane_count, {});
@@ -598,8 +742,13 @@ struct LineCodec {
             diff = fold(diff, bits);
 
             if (p.ac != AC_GOLOMB) {
-                put_symbol(c, states + (size_t)context * kContextSize, diff,
-                           true);
+                if (ss.stats)
+                    put_symbol_stats(c, states + (size_t)context * kContextSize,
+                                     diff, true, *ss.stats,
+                                     (size_t)context * kContextSize);
+                else
+                    put_symbol(c, states + (size_t)context * kContextSize,
+                               diff, true);
             } else {
                 if (context == 0) run_mode = 1;
                 if (run_mode) {
@@ -797,6 +946,126 @@ static bool decode_plane_t(const Params& p, SliceState& ss, RangeDec& c,
             return false;
         int32_t* dst = pv.dst_row(y);
         for (int x = 0; x < w; x++) dst[x] = cur[x] & mask;
+    }
+    return true;
+}
+
+// Phase-B-only plane encode: (context, diff) precomputed by the TPU
+// phase-A pass (ffv1/tpu.py); full-frame int32 streams, same geometry as
+// the plane.  Coder semantics identical to encode_line.
+struct SymView {
+    const int32_t* ctx;   // contiguous [h, w] crop for this slice+plane
+    const int32_t* diff;
+    int stride;
+    const int32_t* ctx_row(int y) const {
+        return ctx + (size_t)y * stride;
+    }
+    const int32_t* diff_row(int y) const {
+        return diff + (size_t)y * stride;
+    }
+};
+
+static void encode_sym_row(const Params& p, SliceState& ss, RangeEnc& c,
+                           BitWriter& pb, const int32_t* ctxs,
+                           const int32_t* diffs, int w, uint8_t* states,
+                           VlcState* vlc, int bits);
+
+static bool sym_row_budget(const Params& p, BitWriter& pb, int w,
+                           size_t budget, const std::vector<uint8_t>& obuf) {
+    if (p.ac != AC_GOLOMB)
+        return obuf.size() + (size_t)w * 35 <= budget;
+    if (obuf.size() + pb.byte_len() + (size_t)w * 4 > budget) return false;
+    pb.ensure((size_t)w * 4 + 64);
+    return true;
+}
+
+static bool encode_plane_sym(const Params& p, SliceState& ss, RangeEnc& c,
+                             BitWriter& pb, const SymView& sv, int w, int h,
+                             int plane_index, int bits, size_t budget,
+                             const std::vector<uint8_t>& obuf) {
+    ss.run_index = 0;
+    uint8_t* states = p.ac != AC_GOLOMB ? ss.states[plane_index].data()
+                                        : nullptr;
+    VlcState* vlc = p.ac == AC_GOLOMB ? ss.vlc[plane_index].data() : nullptr;
+
+    for (int y = 0; y < h; y++) {
+        if (!sym_row_budget(p, pb, w, budget, obuf)) return false;
+        encode_sym_row(p, ss, c, pb, sv.ctx_row(y), sv.diff_row(y), w,
+                       states, vlc, bits);
+    }
+    return true;
+}
+
+// one row of precomputed (ctx, diff) symbols; golomb run state carries
+// through ss.run_index (shared across planes in the RGB interleave)
+static void encode_sym_row(const Params& p, SliceState& ss, RangeEnc& c,
+                           BitWriter& pb, const int32_t* ctxs,
+                           const int32_t* diffs, int w, uint8_t* states,
+                           VlcState* vlc, int bits) {
+    {
+        int run_index = ss.run_index, run_count = 0, run_mode = 0;
+        for (int x = 0; x < w; x++) {
+            int context = ctxs[x];
+            int diff = diffs[x];
+            if (p.ac != AC_GOLOMB) {
+                if (ss.stats)
+                    put_symbol_stats(c, states + (size_t)context * kContextSize,
+                                     diff, true, *ss.stats,
+                                     (size_t)context * kContextSize);
+                else
+                    put_symbol(c, states + (size_t)context * kContextSize,
+                               diff, true);
+            } else {
+                if (context == 0) run_mode = 1;
+                if (run_mode) {
+                    if (diff) {
+                        while (run_count >= 1 << kLog2Run[run_index]) {
+                            run_count -= 1 << kLog2Run[run_index];
+                            run_index++;
+                            pb.put(1, 1);
+                        }
+                        pb.put(1 + kLog2Run[run_index], run_count);
+                        if (run_index) run_index--;
+                        run_count = 0;
+                        run_mode = 0;
+                        if (diff > 0) diff--;
+                    } else {
+                        run_count++;
+                    }
+                }
+                if (run_mode == 0)
+                    put_vlc_symbol(pb, vlc[context], diff, bits);
+            }
+        }
+        if (run_mode) {
+            while (run_count >= 1 << kLog2Run[run_index]) {
+                run_count -= 1 << kLog2Run[run_index];
+                run_index++;
+                pb.put(1, 1);
+            }
+            if (run_count) pb.put(1, 1);
+        }
+        ss.run_index = run_index;
+    }
+}
+
+// row-interleaved RGB sym coding (ffv1enc_template.c:encode_rgb_frame
+// order: row y of g, b, r, (a); run_index shared across planes)
+static bool encode_rgb_sym(const Params& p, SliceState& ss, RangeEnc& c,
+                           BitWriter& pb, const SymView* svs, int nplanes,
+                           int w, int h, int bits, size_t budget,
+                           const std::vector<uint8_t>& obuf) {
+    ss.run_index = 0;
+    for (int y = 0; y < h; y++) {
+        for (int pl = 0; pl < nplanes; pl++) {
+            if (!sym_row_budget(p, pb, w, budget, obuf)) return false;
+            int pi = (pl + 1) / 2;
+            uint8_t* states = p.ac != AC_GOLOMB ? ss.states[pi].data()
+                                                : nullptr;
+            VlcState* vlc = p.ac == AC_GOLOMB ? ss.vlc[pi].data() : nullptr;
+            encode_sym_row(p, ss, c, pb, svs[pl].ctx_row(y),
+                           svs[pl].diff_row(y), w, states, vlc, bits);
+        }
     }
     return true;
 }
@@ -1100,6 +1369,12 @@ struct Codec {
     RacTables custom_tab;
     bool have_custom = false;
     int n_threads = 1;
+    bool stats_mode = false;
+    size_t budget_override = 0;   // test hook for the v4 PCM retry path
+    int gob_count = 0;
+    std::vector<RcStats> slice_stats;
+    std::vector<OpSink> planned;
+    std::vector<BitSink> planned_bits;
     // previous decoded frame for concealment
     std::vector<std::vector<int32_t>> last_frame;
     bool key_frame_ok = false;
@@ -1226,6 +1501,62 @@ struct Codec {
         ss.rct_ry = kCoeff[best][0];
     }
 
+    // optional precomputed (ctx, diff) streams, one per coded plane
+    std::vector<const int32_t*> sym_ctx, sym_diff;
+
+    bool encode_slice_body_sym(int si, RangeEnc& c,
+                               std::vector<uint8_t>& obuf,
+                               const int32_t* const* planes, bool keyframe,
+                               size_t budget) {
+        SliceState& ss = slices[si];
+        Rect r = slice_rect(p, si);
+        if (keyframe) ss.clear(p);
+        if (p.version > 2) write_slice_header(c, p, ss, r);
+
+        BitWriter pb;
+        pb.attach(&obuf);
+        if (p.ac == AC_GOLOMB) {
+            if (p.version > 2 || si == 0) c.terminate(p.version > 2 ? 1 : 0);
+        }
+
+        auto pv = slice_views(r, planes, nullptr);
+        const int n_coded = (int)pv.size();
+        int idx = 0;
+        auto one = [&](int li, int plane_index, int cbits) {
+            size_t k = (size_t)si * n_coded + li;
+            SymView sv{sym_ctx[k], sym_diff[k], pv[li].w};
+            return encode_plane_sym(p, ss, c, pb, sv, pv[li].w, pv[li].h,
+                                    plane_index, cbits, budget, obuf);
+        };
+        bool ok;
+        if (p.colorspace == 1) {
+            // RGB: streams already RCT-transformed by phase A; rows
+            // interleave across g,b,r,(a) at bits+1
+            int rb = (p.bits > 8 ? p.bits : 8) + 1;
+            std::vector<SymView> svs;
+            for (int li = 0; li < n_coded; li++) {
+                size_t k = (size_t)si * n_coded + li;
+                svs.push_back(SymView{sym_ctx[k], sym_diff[k], pv[li].w});
+            }
+            ok = encode_rgb_sym(p, ss, c, pb, svs.data(), n_coded,
+                                pv[0].w, pv[0].h, rb, budget, obuf);
+        } else {
+            ok = one(0, 0, p.bits);
+            idx = 1;
+            if (ok && p.chroma_planes) {
+                ok = one(1, 1, p.bits) && one(2, 1, p.bits);
+                idx = 3;
+            }
+            if (ok && p.transparency) ok = one(idx, 2, p.bits);
+        }
+        if (!ok) return false;
+        if (p.ac == AC_GOLOMB)
+            pb.flush();
+        else
+            c.terminate(1);
+        return true;
+    }
+
     bool encode_slice_body(int si, RangeEnc& c, std::vector<uint8_t>& obuf,
                            const int32_t* const* planes, bool keyframe,
                            size_t budget) {
@@ -1277,13 +1608,22 @@ struct Codec {
             (16384 + (size_t)p.width * p.height * 37 * 4) / n_slices;
         if (p.version > 3)
             budget = (16384 + (size_t)p.width * p.height * 3 * 4) / n_slices;
+        if (budget_override) budget = budget_override;
 
         // slice 0 carries the keyframe bit (+ v<2 header)
         std::vector<std::vector<uint8_t>> chunks(n_slices);
         bool fail = false;
 
+        if (stats_mode && slice_stats.empty()) {
+            slice_stats.resize(slices.size());
+            for (auto& st : slice_stats)
+                st.init(p.context_counts[p.context_model]);
+        }
+        if (keyframe) gob_count++;
+
         auto encode_one = [&](int si) {
             SliceState& ss = slices[si];
+            ss.stats = stats_mode ? &slice_stats[si] : nullptr;
             ss.coding_mode = 0;
             Rect r = slice_rect(p, si);
             if (p.version > 3 && p.colorspace == 1) {
@@ -1307,8 +1647,13 @@ struct Codec {
                 } else if (p.ac == AC_RANGE_CUSTOM) {
                     c.tab = &custom_tab;
                 }
-                if (encode_slice_body(si, c, obuf, planes, keyframe,
-                                      budget)) {
+                // PCM retry codes raw samples: use the plane path then
+                bool done = (!sym_ctx.empty() && slices[si].coding_mode == 0)
+                    ? encode_slice_body_sym(si, c, obuf, planes, keyframe,
+                                            budget)
+                    : encode_slice_body(si, c, obuf, planes, keyframe,
+                                        budget);
+                if (done) {
                     chunks[si] = std::move(obuf);
                     return;
                 }
@@ -1360,6 +1705,473 @@ struct Codec {
             pos += d.size();
         }
         return pos;
+    }
+
+    // ---- op planning (range-coder modes; see tpu_coder.py) ----
+
+    // plans the ops for every slice of one frame; slice 0 includes the
+    // keyframe bit (+ v<2 header).  Uses and ADVANCES the persistent
+    // adaptive states exactly like a real encode.
+    bool plan_frame_ops(const int32_t* const* planes, int keyframe,
+                        std::vector<OpSink>& sinks) {
+        if (p.ac == AC_GOLOMB) return false;
+        const RacTables& tab = p.ac == AC_RANGE_CUSTOM ? custom_tab
+                                                       : default_tables();
+        const RacTables& def = default_tables();
+        if (keyframe) gob_count++;
+        if (stats_mode && slice_stats.empty()) {
+            slice_stats.resize(slices.size());
+            for (auto& st : slice_stats)
+                st.init(p.context_counts[p.context_model]);
+        }
+        sinks.assign(slices.size(), OpSink());
+        for (int si = 0; si < (int)slices.size(); si++) {
+            OpSink& o = sinks[si];
+            SliceState& ss = slices[si];
+            ss.stats = stats_mode ? &slice_stats[si] : nullptr;
+            ss.coding_mode = 0;
+            Rect r = slice_rect(p, si);
+            if (p.version > 3 && p.colorspace == 1) {
+                auto pv = slice_views(r, planes, nullptr);
+                choose_rct(ss, pv);
+            } else {
+                ss.rct_by = ss.rct_ry = 1;
+            }
+            if (si == 0) {
+                uint8_t key_state = 128;
+                // keyframe bit + v<2 header use the default tables
+                o.put(&key_state, keyframe ? 1 : 0, def);
+                if (keyframe && p.version < 2) {
+                    // v<2 header ops (default tables)
+                    PlanEnc pe{&o, &def};
+                    write_v01_header_ops(pe);
+                }
+            }
+            if (keyframe) ss.clear(p);
+            if (p.version > 2) {
+                // slice header ops with the slice tables
+                uint8_t st[kContextSize];
+                std::memset(st, 128, sizeof(st));
+                plan_slice_header(o, ss, r, st, tab);
+            }
+            // plane data
+            auto pv = slice_views(r, planes, nullptr);
+            bool ok = true;
+            if (p.colorspace == 0) {
+                ok = plan_plane<int16_t>(o, ss, pv[0], 0, tab);
+                if (ok && p.chroma_planes)
+                    ok = plan_plane<int16_t>(o, ss, pv[1], 1, tab) &&
+                         plan_plane<int16_t>(o, ss, pv[2], 1, tab);
+                if (ok && p.transparency)
+                    ok = plan_plane<int16_t>(o, ss, pv.back(), 2, tab);
+            } else if (p.use32bit) {
+                ok = plan_rgb<int32_t>(o, ss, pv.data(), (int)pv.size(), tab);
+            } else {
+                ok = plan_rgb<int16_t>(o, ss, pv.data(), (int)pv.size(), tab);
+            }
+            if (!ok) return false;
+            // terminator bit (version-1 termination, state 129)
+            uint8_t t129 = 129;
+            o.put(&t129, 0, tab);
+        }
+        return true;
+    }
+
+    struct PlanEnc {
+        OpSink* o;
+        const RacTables* tab;
+    };
+
+    void write_v01_header_ops(PlanEnc& pe) {
+        uint8_t st[kContextSize];
+        std::memset(st, 128, sizeof(st));
+        auto sym = [&](int v, bool sgn) {
+            plan_symbol(*pe.o, st, v, sgn, *pe.tab);
+        };
+        sym(p.version, false);
+        sym(p.ac, false);
+        if (p.ac == AC_RANGE_CUSTOM)
+            for (int i = 1; i < 256; i++)
+                sym(p.state_transition[i] - default_tables().one[i], true);
+        sym(p.colorspace, false);
+        if (p.version > 0) sym(p.bits, false);
+        pe.o->put(st, p.chroma_planes, *pe.tab);
+        sym(p.chroma_h_shift, false);
+        sym(p.chroma_v_shift, false);
+        pe.o->put(st, p.transparency, *pe.tab);
+        for (int t = 0; t < 5; t++) {
+            const int16_t* tabq = p.quant_tables[p.context_model][t];
+            uint8_t qst[kContextSize];
+            std::memset(qst, 128, sizeof(qst));
+            int last = 0;
+            for (int i = 1; i < 128; i++)
+                if (tabq[i] != tabq[i - 1]) {
+                    plan_symbol(*pe.o, qst, i - last - 1, false, *pe.tab);
+                    last = i;
+                }
+            plan_symbol(*pe.o, qst, 128 - last - 1, false, *pe.tab);
+        }
+    }
+
+    void plan_slice_header(OpSink& o, SliceState& ss, const Rect& r,
+                           uint8_t* st, const RacTables& tab) {
+        auto sym = [&](int v) { plan_symbol(o, st, v, false, tab); };
+        sym((r.x + 1) * p.num_h_slices / p.width);
+        sym((r.y + 1) * p.num_v_slices / p.height);
+        sym((r.w + 1) * p.num_h_slices / p.width - 1);
+        sym((r.h + 1) * p.num_v_slices / p.height - 1);
+        for (int j = 0; j < p.plane_count; j++) sym(ss.qt_index[j]);
+        sym(3);
+        sym(0);
+        sym(1);
+        if (p.version > 3) {
+            o.put(st, ss.coding_mode == 1, tab);
+            sym(ss.coding_mode);
+            if (ss.coding_mode != 1) {
+                sym(ss.rct_by);
+                sym(ss.rct_ry);
+            }
+        }
+    }
+
+    template <typename T>
+    bool plan_plane(OpSink& o, SliceState& ss, const PlaneView& pv,
+                    int plane_index, const RacTables& tab) {
+        LineCodec<T> lc(p, ss);
+        const int w = pv.w, h = pv.h;
+        const int ring = p.context_model ? 3 : 2;
+        RowRing<T> rb(w, ring);
+        ss.run_index = 0;
+        const int16_t(*qt)[256] = p.quant_tables[ss.qt_index[plane_index]];
+        uint8_t* states = ss.states[plane_index].data();
+        for (int y = 0; y < h; y++) {
+            o.mark_row(w);
+            T* cur = rb.row((h + 0 - y) % ring);
+            T* prev = rb.row((h + 1 - y) % ring);
+            T* prev2 = ring == 3 ? rb.row((h + 2 - y) % ring) : cur;
+            const int32_t* src = pv.src_row(y);
+            for (int x = 0; x < w; x++) cur[x] = (T)src[x];
+            cur[-1] = prev[0];
+            prev[w] = prev[w - 1];
+            for (int x = 0; x < w; x++) {
+                int context = lc.ctx5(qt, cur, prev, prev2, x);
+                int diff = cur[x] - lc.pred(cur, prev, x);
+                if (context < 0) { context = -context; diff = -diff; }
+                diff = fold(diff, p.bits);
+                plan_symbol(o, states + (size_t)context * kContextSize,
+                            diff, true, tab, ss.stats,
+                            (size_t)context * kContextSize);
+            }
+        }
+        return true;
+    }
+
+    // RGB planning: encode_rgb_t's RCT + per-row plane interleave with
+    // plan_symbol sinks.  PCM fallback (v4 budget overflow) is not
+    // planned -- pathological content stays on the host encoder.
+    template <typename T>
+    bool plan_rgb(OpSink& o, SliceState& ss, const PlaneView* pv,
+                  int nplanes, const RacTables& tab) {
+        LineCodec<T> lc(p, ss);
+        const int w = pv[0].w, h = pv[0].h;
+        const bool lbd = p.bits <= 8;
+        const int bits = p.bits;
+        const int offset = 1 << bits;
+        const int ring = p.context_model ? 3 : 2;
+        std::array<std::unique_ptr<RowRing<T>>, 4> rings;
+        for (int i = 0; i < 4; i++)
+            rings[i] = std::make_unique<RowRing<T>>(w, ring);
+        ss.run_index = 0;
+        for (int y = 0; y < h; y++) {
+            T* cur[4];
+            T* prev[4];
+            T* prev2[4];
+            for (int pl = 0; pl < 4; pl++) {
+                cur[pl] = rings[pl]->row((h + 0 - y) % ring);
+                prev[pl] = rings[pl]->row((h + 1 - y) % ring);
+                prev2[pl] = ring == 3 ? rings[pl]->row((h + 2 - y) % ring)
+                                      : cur[pl];
+            }
+            const bool swap = gb_swapped(p);
+            const int32_t* gs = pv[swap ? 1 : 0].src_row(y);
+            const int32_t* bs = pv[swap ? 0 : 1].src_row(y);
+            const int32_t* rs = pv[2].src_row(y);
+            const int32_t* as = nplanes > 3 ? pv[3].src_row(y) : nullptr;
+            for (int x = 0; x < w; x++) {
+                int g = gs[x], b = bs[x], r = rs[x];
+                b -= g;
+                r -= g;
+                g += (b * ss.rct_by + r * ss.rct_ry) >> 2;
+                b += offset;
+                r += offset;
+                cur[0][x] = (T)g;
+                cur[1][x] = (T)b;
+                cur[2][x] = (T)r;
+                if (as) cur[3][x] = (T)as[x];
+            }
+            for (int pl = 0; pl < nplanes; pl++) {
+                o.mark_row(w);
+                cur[pl][-1] = prev[pl][0];
+                prev[pl][w] = prev[pl][w - 1];
+                int plane_index = (pl + 1) / 2;
+                const int16_t(*qt)[256] =
+                    p.quant_tables[ss.qt_index[plane_index]];
+                uint8_t* states = ss.states[plane_index].data();
+                int eff_bits = lbd ? 9 : bits + 1;
+                for (int x = 0; x < w; x++) {
+                    int context =
+                        lc.ctx5(qt, cur[pl], prev[pl], prev2[pl], x);
+                    int diff = cur[pl][x] - lc.pred(cur[pl], prev[pl], x);
+                    if (context < 0) { context = -context; diff = -diff; }
+                    diff = fold(diff, eff_bits);
+                    plan_symbol(o,
+                                states + (size_t)context * kContextSize,
+                                diff, true, tab, ss.stats,
+                                (size_t)context * kContextSize);
+                }
+            }
+        }
+        return true;
+    }
+
+    // PCM replan (v4 budget-overflow fallback, ffv1enc.c:1107-1117):
+    // rebuild one slice's ops with slice_coding_mode=1 — header (with
+    // the raw-PCM flag, which clears the slice state), then every sample
+    // as fixed p=128 bits (put_fixed semantics: a throwaway state per
+    // bit, so every op is (sv=128, bit) with no adaptation).
+    bool plan_pcm_slice(int si, const int32_t* const* planes, int keyframe,
+                        std::vector<OpSink>& sinks) {
+        if (p.version < 4 || p.ac == AC_GOLOMB) return false;
+        const RacTables& tab = p.ac == AC_RANGE_CUSTOM ? custom_tab
+                                                       : default_tables();
+        const RacTables& def = default_tables();
+        OpSink o;
+        SliceState& ss = slices[si];
+        ss.coding_mode = 1;
+        Rect r = slice_rect(p, si);
+        if (si == 0) {
+            uint8_t key_state = 128;
+            o.put(&key_state, keyframe ? 1 : 0, def);
+        }
+        ss.clear(p);
+        uint8_t st[kContextSize];
+        std::memset(st, 128, sizeof(st));
+        plan_slice_header(o, ss, r, st, tab);
+        auto pv = slice_views(r, planes, nullptr);
+        auto raw_plane = [&](const PlaneView& v, int bits_) {
+            for (int y = 0; y < v.h; y++) {
+                o.mark_row(v.w);
+                const int32_t* src = v.src_row(y);
+                for (int x = 0; x < v.w; x++)
+                    for (int i = bits_ - 1; i >= 0; i--) {
+                        uint8_t fixed = 128;
+                        o.put(&fixed, (src[x] >> i) & 1, tab);
+                    }
+            }
+        };
+        if (p.colorspace == 0) {
+            for (auto& v : pv) raw_plane(v, p.bits);
+        } else {
+            // raw interleaved rows, no RCT (encode_rgb coding_mode 1)
+            const bool swap = gb_swapped(p);
+            int order[4] = {swap ? 1 : 0, swap ? 0 : 1, 2, 3};
+            for (int y = 0; y < pv[0].h; y++)
+                for (int pl = 0; pl < (int)pv.size(); pl++) {
+                    o.mark_row(pv[0].w);
+                    const int32_t* src = pv[order[pl]].src_row(y);
+                    for (int x = 0; x < pv[0].w; x++)
+                        for (int i = p.bits - 1; i >= 0; i--) {
+                            uint8_t fixed = 128;
+                            o.put(&fixed, (src[x] >> i) & 1, tab);
+                        }
+                }
+        }
+        uint8_t t129 = 129;
+        o.put(&t129, 0, tab);
+        sinks[si] = std::move(o);
+        return true;
+    }
+
+    // golomb-mode line planning: the exact encode_line run-ladder +
+    // Rice logic, emitting (value, nbits) pairs instead of writing bits
+    template <typename T>
+    void plan_line_golomb(BitSink& b, SliceState& ss, LineCodec<T>& lc,
+                          const int16_t (*qt)[256], VlcState* vlc, int w,
+                          T* cur, const T* prev, const T* prev2, int bits) {
+        int run_index = ss.run_index, run_count = 0, run_mode = 0;
+        for (int x = 0; x < w; x++) {
+            int context = lc.ctx5(qt, cur, prev, prev2, x);
+            int diff = cur[x] - lc.pred(cur, prev, x);
+            if (context < 0) { context = -context; diff = -diff; }
+            diff = fold(diff, bits);
+            if (context == 0) run_mode = 1;
+            if (run_mode) {
+                if (diff) {
+                    while (run_count >= 1 << kLog2Run[run_index]) {
+                        run_count -= 1 << kLog2Run[run_index];
+                        run_index++;
+                        b.put(1, 1);
+                    }
+                    b.put(1 + kLog2Run[run_index], run_count);
+                    if (run_index) run_index--;
+                    run_count = 0;
+                    run_mode = 0;
+                    if (diff > 0) diff--;
+                } else {
+                    run_count++;
+                }
+            }
+            if (run_mode == 0)
+                plan_vlc_symbol(b, vlc[context], diff, bits);
+        }
+        if (run_mode) {
+            while (run_count >= 1 << kLog2Run[run_index]) {
+                run_count -= 1 << kLog2Run[run_index];
+                run_index++;
+                b.put(1, 1);
+            }
+            if (run_count) b.put(1, 1);
+        }
+        ss.run_index = run_index;
+    }
+
+    template <typename T>
+    bool plan_plane_golomb(BitSink& b, SliceState& ss, const PlaneView& pv,
+                           int plane_index, int bits) {
+        LineCodec<T> lc(p, ss);
+        const int w = pv.w, h = pv.h;
+        const int ring = p.context_model ? 3 : 2;
+        RowRing<T> rb(w, ring);
+        ss.run_index = 0;
+        const int16_t(*qt)[256] = p.quant_tables[ss.qt_index[plane_index]];
+        VlcState* vlc = ss.vlc[plane_index].data();
+        for (int y = 0; y < h; y++) {
+            T* cur = rb.row((h + 0 - y) % ring);
+            T* prev = rb.row((h + 1 - y) % ring);
+            T* prev2 = ring == 3 ? rb.row((h + 2 - y) % ring) : cur;
+            const int32_t* src = pv.src_row(y);
+            for (int x = 0; x < w; x++) cur[x] = (T)src[x];
+            cur[-1] = prev[0];
+            prev[w] = prev[w - 1];
+            plan_line_golomb(b, ss, lc, qt, vlc, w, cur, prev, prev2, bits);
+        }
+        return true;
+    }
+
+    template <typename T>
+    bool plan_rgb_golomb(BitSink& b, SliceState& ss, const PlaneView* pv,
+                         int nplanes, int bits) {
+        LineCodec<T> lc(p, ss);
+        const int w = pv[0].w, h = pv[0].h;
+        const bool lbd = p.bits <= 8;
+        const int offset = 1 << bits;
+        const int ring = p.context_model ? 3 : 2;
+        std::array<std::unique_ptr<RowRing<T>>, 4> rings;
+        for (int i = 0; i < 4; i++)
+            rings[i] = std::make_unique<RowRing<T>>(w, ring);
+        ss.run_index = 0;
+        for (int y = 0; y < h; y++) {
+            T* cur[4];
+            T* prev[4];
+            T* prev2[4];
+            for (int pl = 0; pl < 4; pl++) {
+                cur[pl] = rings[pl]->row((h + 0 - y) % ring);
+                prev[pl] = rings[pl]->row((h + 1 - y) % ring);
+                prev2[pl] = ring == 3 ? rings[pl]->row((h + 2 - y) % ring)
+                                      : cur[pl];
+            }
+            const bool swap = gb_swapped(p);
+            const int32_t* gs = pv[swap ? 1 : 0].src_row(y);
+            const int32_t* bs = pv[swap ? 0 : 1].src_row(y);
+            const int32_t* rs = pv[2].src_row(y);
+            const int32_t* as = nplanes > 3 ? pv[3].src_row(y) : nullptr;
+            for (int x = 0; x < w; x++) {
+                int g = gs[x], bb = bs[x], r = rs[x];
+                bb -= g;
+                r -= g;
+                g += (bb * ss.rct_by + r * ss.rct_ry) >> 2;
+                bb += offset;
+                r += offset;
+                cur[0][x] = (T)g;
+                cur[1][x] = (T)bb;
+                cur[2][x] = (T)r;
+                if (as) cur[3][x] = (T)as[x];
+            }
+            for (int pl = 0; pl < nplanes; pl++) {
+                cur[pl][-1] = prev[pl][0];
+                prev[pl][w] = prev[pl][w - 1];
+                int plane_index = (pl + 1) / 2;
+                const int16_t(*qt)[256] =
+                    p.quant_tables[ss.qt_index[plane_index]];
+                VlcState* vlc = ss.vlc[plane_index].data();
+                int eff_bits = lbd ? 9 : bits + 1;
+                plan_line_golomb(b, ss, lc, qt, vlc, w, cur[pl], prev[pl],
+                                 prev2[pl], eff_bits);
+            }
+        }
+        return true;
+    }
+
+    bool plan_frame_ops_golomb(const int32_t* const* planes, int keyframe,
+                               std::vector<OpSink>& sinks,
+                               std::vector<BitSink>& bsinks) {
+        if (p.ac != AC_GOLOMB) return false;
+        const RacTables& def = default_tables();
+        if (keyframe) gob_count++;
+        sinks.assign(slices.size(), OpSink());
+        bsinks.assign(slices.size(), BitSink());
+        for (int si = 0; si < (int)slices.size(); si++) {
+            OpSink& o = sinks[si];
+            BitSink& b = bsinks[si];
+            SliceState& ss = slices[si];
+            ss.coding_mode = 0;
+            Rect r = slice_rect(p, si);
+            if (p.version > 3 && p.colorspace == 1) {
+                auto rpv = slice_views(r, planes, nullptr);
+                choose_rct(ss, rpv);
+            } else {
+                ss.rct_by = ss.rct_ry = 1;
+            }
+            if (si == 0) {
+                uint8_t key_state = 128;
+                o.put(&key_state, keyframe ? 1 : 0, def);
+                if (keyframe && p.version < 2) {
+                    PlanEnc pe{&o, &def};
+                    write_v01_header_ops(pe);
+                }
+            }
+            if (keyframe) ss.clear(p);
+            if (p.version > 2) {
+                uint8_t st[kContextSize];
+                std::memset(st, 128, sizeof(st));
+                plan_slice_header(o, ss, r, st, def);
+                // v>2 golomb slices terminate the header coder with the
+                // version-1 terminator (state-129 zero bit)
+                uint8_t t129 = 129;
+                o.put(&t129, 0, def);
+            }
+            auto pv = slice_views(r, planes, nullptr);
+            bool ok;
+            if (p.colorspace == 0) {
+                ok = plan_plane_golomb<int16_t>(b, ss, pv[0], 0, p.bits);
+                if (ok && p.chroma_planes)
+                    ok = plan_plane_golomb<int16_t>(b, ss, pv[1], 1,
+                                                    p.bits) &&
+                         plan_plane_golomb<int16_t>(b, ss, pv[2], 1,
+                                                    p.bits);
+                if (ok && p.transparency)
+                    ok = plan_plane_golomb<int16_t>(b, ss, pv.back(), 2,
+                                                    p.bits);
+            } else if (p.use32bit) {
+                ok = plan_rgb_golomb<int32_t>(b, ss, pv.data(),
+                                              (int)pv.size(), p.bits);
+            } else {
+                ok = plan_rgb_golomb<int16_t>(b, ss, pv.data(),
+                                              (int)pv.size(), p.bits);
+            }
+            if (!ok) return false;
+        }
+        return true;
     }
 
     // ---- decode ----
@@ -1540,6 +2352,90 @@ struct Codec {
 
 };
 
+// 2-pass optimization (pass-2 open time): state-table sort and best-initial-
+// state search (ffv1enc.c:sort_stt / find_best_state semantics)
+// ---------------------------------------------------------------------------
+
+static double cost_bits(uint64_t n0, uint64_t n1, int st) {
+    return n0 * -std::log2((256.0 - st) / 256.0) +
+           n1 * -std::log2(st / 256.0);
+}
+
+static int twopass_sort_stt(uint64_t rc_stat[256][2], uint8_t stt[256]) {
+    int changed_any = 0;
+    int changed;
+    do {
+        changed = 0;
+        for (int i = 12; i < 244; i++) {
+            for (int i2 = i + 1; i2 < 245 && i2 < i + 4; i2++) {
+                auto cost2 = [&](int oldv, int newv) {
+                    return cost_bits(rc_stat[oldv][0], rc_stat[oldv][1], newv)
+                         + cost_bits(rc_stat[256 - oldv][0],
+                                     rc_stat[256 - oldv][1], 256 - newv);
+                };
+                double size0 = cost2(i, i) + cost2(i2, i2);
+                double sizeX = cost2(i, i2) + cost2(i2, i);
+                if (size0 - sizeX > size0 * 1e-14 && i != 128 && i2 != 128) {
+                    std::swap(stt[i], stt[i2]);
+                    std::swap(rc_stat[i][0], rc_stat[i2][0]);
+                    std::swap(rc_stat[i][1], rc_stat[i2][1]);
+                    if (i != 256 - i2) {
+                        std::swap(stt[256 - i], stt[256 - i2]);
+                        std::swap(rc_stat[256 - i][0], rc_stat[256 - i2][0]);
+                        std::swap(rc_stat[256 - i][1], rc_stat[256 - i2][1]);
+                    }
+                    for (int j = 1; j < 256; j++) {
+                        if (stt[j] == i) stt[j] = (uint8_t)i2;
+                        else if (stt[j] == i2) stt[j] = (uint8_t)i;
+                        if (i != 256 - i2) {
+                            if (stt[256 - j] == 256 - i)
+                                stt[256 - j] = (uint8_t)(256 - i2);
+                            else if (stt[256 - j] == 256 - i2)
+                                stt[256 - j] = (uint8_t)(256 - i);
+                        }
+                    }
+                    changed = changed_any = 1;
+                }
+            }
+        }
+    } while (changed);
+    return changed_any;
+}
+
+static void twopass_find_best_state(uint8_t best_state[256][256],
+                                    const uint8_t one_state[256]) {
+    double l2tab[256];
+    for (int i = 1; i < 256; i++) l2tab[i] = std::log2(i / 256.0);
+    for (int i = 0; i < 256; i++) {
+        double best_len[256];
+        const double pr = i / 256.0;
+        for (int j = 0; j < 256; j++) best_len[j] = 1 << 30;
+        for (int j = std::max(i - 10, 1); j < std::min(i + 11, 256); j++) {
+            if (!one_state[j]) continue;
+            double occ[256] = {0};
+            double len = 0;
+            occ[j] = 1.0;
+            for (int k = 0; k < 256; k++) {
+                double newocc[256] = {0};
+                for (int m = 1; m < 256; m++)
+                    if (occ[m])
+                        len -= occ[m] * (pr * l2tab[m]
+                                         + (1 - pr) * l2tab[256 - m]);
+                if (len < best_len[k]) {
+                    best_len[k] = len;
+                    best_state[i][k] = (uint8_t)j;
+                }
+                for (int m = 1; m < 256; m++)
+                    if (occ[m]) {
+                        newocc[one_state[m]] += occ[m] * pr;
+                        newocc[256 - one_state[256 - m]] += occ[m] * (1 - pr);
+                    }
+                std::memcpy(occ, newocc, sizeof(occ));
+            }
+        }
+    }
+}
+
 }  // namespace f2t
 
 // ---------------------------------------------------------------------------
@@ -1613,5 +2509,120 @@ int32_t ffv1rt_decode(void* h, const uint8_t* pkt, int64_t size,
                       int32_t* const* out_planes) {
     return static_cast<f2t::Codec*>(h)->decode_frame(pkt, size, out_planes);
 }
+
+int64_t ffv1rt_encode_sym(void* h, const int32_t* const* planes,
+                          const int32_t* const* ctx_streams,
+                          const int32_t* const* diff_streams, int n_streams,
+                          int keyframe, uint8_t* out, int64_t cap) {
+    auto* ctx = static_cast<f2t::Codec*>(h);
+    ctx->sym_ctx.assign(ctx_streams, ctx_streams + n_streams);
+    ctx->sym_diff.assign(diff_streams, diff_streams + n_streams);
+    int64_t r = ctx->encode_frame(planes, keyframe, out, cap);
+    ctx->sym_ctx.clear();
+    ctx->sym_diff.clear();
+    return r;
+}
+
+int32_t ffv1rt_sort_stt(uint64_t* rc_stat, uint8_t* stt) {
+    return f2t::twopass_sort_stt(
+        reinterpret_cast<uint64_t(*)[2]>(rc_stat), stt);
+}
+
+void ffv1rt_find_best_state(const uint8_t* one_state, uint8_t* best) {
+    f2t::twopass_find_best_state(
+        reinterpret_cast<uint8_t(*)[256]>(best), one_state);
+}
+
+// Plan ops for one frame; returns max op count over slices, or -1.
+int64_t ffv1rt_plan(void* h, const int32_t* const* planes, int keyframe) {
+    auto* ctx = static_cast<f2t::Codec*>(h);
+    if (!ctx->plan_frame_ops(planes, keyframe, ctx->planned)) return -1;
+    int64_t mx = 0;
+    for (auto& o : ctx->planned) mx = std::max(mx, (int64_t)o.sv.size());
+    return mx;
+}
+
+int64_t ffv1rt_get_plan_rows(void* h, int32_t si, int64_t* marks,
+                             int32_t* widths, int64_t cap) {
+    auto* ctx = static_cast<f2t::Codec*>(h);
+    if (si < 0 || si >= (int32_t)ctx->planned.size()) return -1;
+    auto& o = ctx->planned[si];
+    int64_t n = std::min((int64_t)o.row_marks.size(), cap);
+    std::memcpy(marks, o.row_marks.data(), n * sizeof(int64_t));
+    std::memcpy(widths, o.row_widths.data(), n * sizeof(int32_t));
+    return (int64_t)o.row_marks.size();
+}
+
+int64_t ffv1rt_replan_pcm(void* h, int32_t si,
+                          const int32_t* const* planes, int keyframe) {
+    auto* ctx = static_cast<f2t::Codec*>(h);
+    if (si < 0 || si >= (int32_t)ctx->planned.size()) return -1;
+    if (!ctx->plan_pcm_slice(si, planes, keyframe, ctx->planned)) return -1;
+    return (int64_t)ctx->planned[si].sv.size();
+}
+
+int64_t ffv1rt_get_plan(void* h, int32_t si, uint8_t* sv, uint8_t* bit,
+                        int64_t cap) {
+    auto* ctx = static_cast<f2t::Codec*>(h);
+    if (si < 0 || si >= (int32_t)ctx->planned.size()) return -1;
+    auto& o = ctx->planned[si];
+    int64_t n = std::min((int64_t)o.sv.size(), cap);
+    std::memcpy(sv, o.sv.data(), n);
+    std::memcpy(bit, o.bit.data(), n);
+    return (int64_t)o.sv.size();
+}
+
+// golomb-mode planning: range-coded header ops land in the regular plan
+// (ffv1rt_get_plan), the Rice bitstream in (value, nbits) pairs
+// (ffv1rt_get_plan_bits).  Returns max(bit ops) over slices, or -1.
+int64_t ffv1rt_plan_golomb(void* h, const int32_t* const* planes,
+                           int keyframe) {
+    auto* ctx = static_cast<f2t::Codec*>(h);
+    if (!ctx->plan_frame_ops_golomb(planes, keyframe, ctx->planned,
+                                    ctx->planned_bits))
+        return -1;
+    int64_t mx = 0;
+    for (auto& b : ctx->planned_bits)
+        mx = std::max(mx, (int64_t)b.nb.size());
+    for (auto& o : ctx->planned)
+        mx = std::max(mx, (int64_t)o.sv.size());
+    return mx;
+}
+
+int64_t ffv1rt_get_plan_bits(void* h, int32_t si, uint32_t* val,
+                             uint8_t* nb, int64_t cap) {
+    auto* ctx = static_cast<f2t::Codec*>(h);
+    if (si < 0 || si >= (int32_t)ctx->planned_bits.size()) return -1;
+    auto& b = ctx->planned_bits[si];
+    int64_t n = std::min((int64_t)b.nb.size(), cap);
+    std::memcpy(val, b.val.data(), n * sizeof(uint32_t));
+    std::memcpy(nb, b.nb.data(), n);
+    return (int64_t)b.nb.size();
+}
+
+void ffv1rt_set_budget_override(void* h, int64_t budget) {
+    static_cast<f2t::Codec*>(h)->budget_override =
+        budget > 0 ? (size_t)budget : 0;
+}
+
+void ffv1rt_set_stats_mode(void* h, int32_t enable) {
+    static_cast<f2t::Codec*>(h)->stats_mode = enable != 0;
+}
+
+// Sums per-slice pass-1 tallies.  rc_stat: 256*2 u64; rc_stat2:
+// nctx*32*2 u64 for the active quant table.  Returns gob count.
+int32_t ffv1rt_get_stats(void* h, uint64_t* rc_stat, uint64_t* rc_stat2,
+                         int64_t rc_stat2_len) {
+    auto* ctx = static_cast<f2t::Codec*>(h);
+    std::memset(rc_stat, 0, 256 * 2 * sizeof(uint64_t));
+    std::memset(rc_stat2, 0, rc_stat2_len * sizeof(uint64_t));
+    for (auto& st : ctx->slice_stats) {
+        for (size_t i = 0; i < st.stat.size(); i++) rc_stat[i] += st.stat[i];
+        size_t n = std::min((size_t)rc_stat2_len, st.stat2.size());
+        for (size_t i = 0; i < n; i++) rc_stat2[i] += st.stat2[i];
+    }
+    return ctx->gob_count;
+}
+
 
 }  // extern "C"

@@ -13,6 +13,7 @@ from ffmpeg_ffv2_tpu.ffv1.params import FFV1Config, params_from_config
 from ffmpeg_ffv2_tpu_torch import _build
 from ffmpeg_ffv2_tpu_torch.ffv1 import host
 from ffmpeg_ffv2_tpu_torch.ffv1.device_coder import DeviceFFV1Encoder
+from ffmpeg_ffv2_tpu_torch.ffv1.tpu_coder import TPUCoderFFV1Encoder
 from test_torch_formats import torch_one_thread  # noqa: F401
 
 
@@ -81,14 +82,17 @@ def test_torch_encoder_split_groups(monkeypatch):
 def test_torch_encoder_runs_plain_versions_on_cpu():
     """On CPU tensors every wrapper of a path takes its plain version and
     no kernel launches (so no CUDA build is needed); between them the
-    range path (K2 or K6) and the Golomb-Rice path reach every kernel."""
+    range path (K2 or K6), the Golomb-Rice path and the hybrid lane
+    coder's encoder reach every kernel."""
     w, h = 32, 24
     reached = set()
-    for coder, emission in ((1, False), (1, True), (0, False)):
+    for coder, emission in ((1, False), (1, True), (0, False), (1, None)):
         _build.reset_counts()
         cfg = FFV1Config(level=3, coder=coder, slices=4)
-        enc = DeviceFFV1Encoder(w, h, "gray", cfg, device="cpu",
-                                emission_order=emission)
+        enc = (TPUCoderFFV1Encoder(w, h, "gray", cfg, device="cpu")
+               if emission is None else
+               DeviceFFV1Encoder(w, h, "gray", cfg, device="cpu",
+                                 emission_order=emission))
         enc.encode([np.full((h, w), 9, np.int32)], force_keyframe=True)
         for name, k in _build.KERNELS.items():
             assert k.launches == 0, name
@@ -128,16 +132,29 @@ def test_torch_encoder_scope(pix, cfg):
     ("yuv420p", FFV1Config(level=3, coder=1, slices=4),
      "initial_states", "2-pass"),
     ("yuv420p", FFV1Config(level=3, coder=1, slices=4), "bits", "depth"),
-])
+], ids=["bgr0-cfg0-None-version-4 RGB", "yuv420p-cfg1-initial_states-2-pass",
+        "yuv420p-cfg2-bits-depth"])
 def test_torch_encoder_scope_missing(pix, cfg, change, err):
     """What the port still leaves out raises NotImplementedError: v4 RGB
-    with Golomb-Rice (as the JAX encoder does), 2-pass initial states and
-    coding depths above 17."""
+    with Golomb-Rice (as the JAX encoder does) and coding depths above 17.
+    2-pass initial states are covered now: per-context initial states (one
+    quant table's set, the other's left at None) give the native codec's
+    key and inter packets."""
     p = params_from_config(cfg, pix, 64, 48)
     if change == "initial_states":
-        p = dataclasses.replace(p, initial_states=[None] * len(
-            p.context_counts))
-    elif change == "bits":
+        rng = np.random.RandomState(12)
+        init = [None] * len(p.context_counts)
+        init[p.context_model] = rng.randint(
+            1, 256, (p.context_counts[p.context_model], 32)).astype(np.uint8)
+        p = dataclasses.replace(p, initial_states=init)
+        enc = DeviceFFV1Encoder(64, 48, pix, cfg, device="cpu", params=p)
+        nat = NativeFFV1Codec(p)
+        for t in range(2):
+            planes = _frame_for(p, 64, 48, seed=t)
+            assert enc.encode(planes, force_keyframe=t == 0) == nat.encode(
+                planes, t == 0), f"frame {t}"
+        return
+    if change == "bits":
         p = dataclasses.replace(p, bits=18)
     with pytest.raises(NotImplementedError, match=err):
         DeviceFFV1Encoder(64, 48, pix, cfg, device="cpu", params=p)

@@ -27,6 +27,8 @@ from ffmpeg_ffv2_tpu_torch.ffv1 import expand as ex  # noqa: E402
 from ffmpeg_ffv2_tpu_torch.ffv1 import host  # noqa: E402
 from ffmpeg_ffv2_tpu_torch.ffv1 import rac  # noqa: E402
 from ffmpeg_ffv2_tpu_torch.ffv1 import rice  # noqa: E402
+from ffmpeg_ffv2_tpu_torch.ffv1 import tpu_coder as tc  # noqa: E402
+from ffmpeg_ffv2_tpu_torch.ffv1 import tpu_encoder as te  # noqa: E402
 from ffmpeg_ffv2_tpu_torch.ffv1 import vlc  # noqa: E402
 from ffmpeg_ffv2_tpu_torch.ffv1.native import NativeFFV1Codec  # noqa: E402
 from ffmpeg_ffv2_tpu_torch.ffv1.params import (FFV1Config,  # noqa: E402
@@ -255,6 +257,65 @@ def test_torch_gpu_deep_rgb_banks_match_native(pix, wh, level, coder,
     for name in kernels:
         k = _build.KERNELS[name]
         assert k.launches > 0 and k.plain_calls == 0, name
+
+
+def _ragged_lanes(steps, lanes, seed):
+    """Random ops; lane l ends (its two flush steps, then NOPs) at its own
+    length; lane 0 carries a long run of pending bytes."""
+    rng = np.random.RandomState(seed)
+    sv = rng.randint(1, 256, (steps, lanes)).astype(np.int32)
+    bit = rng.randint(0, 2, (steps, lanes)).astype(np.int32)
+    sv[:steps // 2, 0] = 255
+    bit[:steps // 2, 0] = np.arange(steps // 2) % 2 == 0
+    mode = np.full((steps, lanes), tc.MODE_OP, np.int32)
+    ends = rng.randint(steps // 2, steps - 2, lanes)
+    ends[-1] = steps - 2
+    for l, L in enumerate(ends):
+        mode[L:, l] = tc.MODE_NOP
+        mode[L, l] = tc.MODE_FLUSH1
+        mode[L + 1, l] = tc.MODE_FLUSH2
+    return [torch.as_tensor(a) for a in (sv, bit, mode)]
+
+
+@pytest.mark.parametrize("steps,lanes", [(700, 5), (4096, 30), (300, 1)])
+def test_torch_gpu_rac_lanes_matches_plain(steps, lanes):
+    """K7 against its plain version, every staged array whole."""
+    args = _ragged_lanes(steps, lanes, 3)
+    _build.reset_counts()
+    got = rac.rac_lanes(*(a.cuda() for a in args))
+    assert _build.KERNELS["rac_lanes"].launches == 1
+    for a, b in zip(got, rac.rac_scan_lanes(*args)):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("pix,coder,level", [
+    ("yuv420p", 1, 3), ("yuv420p", 0, 3), ("bgr0", 1, 4),
+    ("yuv420p", 2, 1)])
+def test_torch_gpu_tpu_coder_matches_native(pix, coder, level):
+    """TPUCoderFFV1Encoder at 96x64 on the card == native, through K7 and
+    no plain version; TPUFFV1Encoder (phase A on the card) likewise."""
+    w, h = 96, 64
+    cfg = FFV1Config(level=level, coder=coder, slices=4 if level > 2 else 0)
+    enc = tc.TPUCoderFFV1Encoder(w, h, pix, cfg)
+    p = enc.p
+    nat, dec = NativeFFV1Codec(p), NativeFFV1Codec(p)
+    rng = np.random.RandomState(9)
+    _build.reset_counts()
+    frames = [[rng.randint(0, 256, s).astype(np.int32) // (t + 1)
+               for s in _shapes(p, w, h)] for t in range(3)]
+    for t, planes in enumerate(frames):
+        a = enc.encode(planes, force_keyframe=t == 0)
+        assert a == nat.encode(planes, t == 0), f"frame {t}"
+        for x, y in zip(dec.decode(a), planes):
+            assert np.array_equal(x, y), f"frame {t}: decode"
+    k = _build.KERNELS["rac_lanes"]
+    assert k.launches == 3 and k.plain_calls == 0
+    if level < 4:
+        hyb = te.TPUFFV1Encoder(w, h, pix, cfg)
+        nat = NativeFFV1Codec(p)
+        for t, planes in enumerate(frames):
+            assert hyb.encode(planes, force_keyframe=t == 0) == nat.encode(
+                planes, t == 0), f"frame {t}: TPUFFV1Encoder"
 
 
 @pytest.mark.parametrize("pix,code_bits", [("gbrp12", 13), ("rgb48", 17)])

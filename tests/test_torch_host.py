@@ -99,7 +99,8 @@ def test_torch_port_imports_without_jax():
         "pkg.__name__ + '.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
-        "assert 'ffmpeg_ffv2_tpu_torch.ffv1.device_coder' in names\n"
+        "for m in ('device_coder', 'tpu_coder', 'tpu_encoder', 'twopass'):\n"
+        "    assert 'ffmpeg_ffv2_tpu_torch.ffv1.' + m in names, m\n"
         "assert not any(m.split('.')[0] in ('jax', 'ffmpeg_ffv2_tpu') "
         "for m, v in sys.modules.items() if v is not None)\n"
         "print(len(names))\n")
@@ -107,7 +108,7 @@ def test_torch_port_imports_without_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 21
+    assert int(res.stdout.strip()) >= 24
 
 
 def test_torch_chip_smoke_imports_no_jax_package():
@@ -203,12 +204,60 @@ def test_torch_crc_copy():
         assert t_crc32_ieee(data, 0x1234567) == j_crc32_ieee(data, 0x1234567)
 
 
+def _planned(enc, planes, key):
+    """A hybrid encoder's native planner output for one frame: per slice
+    the range-coded (sv, bit) ops and, for Golomb-Rice, the (value,
+    nbits) bit ops."""
+    import ctypes
+    lib, h = enc.lib, enc.native.handle
+    arrs = [np.ascontiguousarray(x, dtype=np.int32) for x in planes]
+    ptrs = (ctypes.c_void_p * len(arrs))(
+        *[x.ctypes.data_as(ctypes.c_void_p) for x in arrs])
+    mx = (lib.ffv1rt_plan_golomb if enc.golomb else lib.ffv1rt_plan)(
+        h, ptrs, int(key))
+    assert mx >= 0
+    out = []
+    for si in range(enc.p.slice_count):
+        sv, bt = np.empty(mx, np.uint8), np.empty(mx, np.uint8)
+        u8 = ctypes.POINTER(ctypes.c_uint8)
+        n = lib.ffv1rt_get_plan(h, si, sv.ctypes.data_as(u8),
+                                bt.ctypes.data_as(u8), mx)
+        out += [sv[:n], bt[:n]]
+        if enc.golomb:
+            val, nb = np.empty(mx, np.uint32), np.empty(mx, np.uint8)
+            n = lib.ffv1rt_get_plan_bits(
+                h, si, val.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+                nb.ctypes.data_as(u8), mx)
+            out += [val[:n], nb[:n]]
+    return out
+
+
 @pytest.mark.parametrize("coder", [0, 1])
 def test_torch_native_copy(coder):
     """The port's native codec copy encodes the packets of the original,
-    and decodes them back."""
+    and decodes them back; its encode from (ctx, diff) symbols, its
+    planner's (sv, bit) and bit streams and its pass-1 statistics (of
+    the encode and of the planner) equal the original's too."""
+    from ffmpeg_ffv2_tpu.ffv1 import twopass as jtp
+    from ffmpeg_ffv2_tpu.ffv1.tpu_coder import TPUCoderFFV1Encoder as JHyb
+    from ffmpeg_ffv2_tpu_torch.ffv1 import twopass as ttp
+    from ffmpeg_ffv2_tpu_torch.ffv1.tpu_coder import TPUCoderFFV1Encoder
+    from ffmpeg_ffv2_tpu_torch.ffv1.tpu_encoder import (
+        TPUFFV1Encoder as THyb)
     jp, tp = _params("yuv420p", 3, coder)
     a, b, dec = TNative(tp), JNative(jp), TNative(tp)
+    sa, sb = TNative(tp), JNative(jp)                # encode_sym sessions
+    cfg = FFV1Config(level=3, coder=coder, slices=4)
+    phase_a = THyb(64, 48, "yuv420p", tparams.FFV1Config(
+        level=3, coder=coder, slices=4), device="cpu").phase_a
+    ta = TPUCoderFFV1Encoder(64, 48, "yuv420p", tparams.FFV1Config(
+        level=3, coder=coder, slices=4), device="cpu")
+    tb = JHyb(64, 48, "yuv420p", cfg)
+    if coder:
+        a.enable_stats()
+        b.enable_stats()
+        ta.set_stats_mode(True)
+        tb.set_stats_mode(True)
     rng = np.random.RandomState(6)
     for t in range(3):
         planes = [rng.randint(0, 256, s).astype(np.int32)
@@ -219,3 +268,15 @@ def test_torch_native_copy(coder):
         assert pkt == b.encode(planes, t == 0)
         for x, y in zip(dec.decode(pkt), planes):
             assert np.array_equal(x, y)
+        ctx, diff = phase_a(planes)
+        sym = sa.encode_sym(planes, ctx, diff, t == 0)
+        assert sym == sb.encode_sym(planes, ctx, diff, t == 0) == pkt
+        for x, y in zip(_planned(ta, planes, t == 0),
+                        _planned(tb, planes, t == 0)):
+            assert x.dtype == y.dtype and np.array_equal(x, y)
+    if coder:
+        for x, y in ((a, b), (ta.native, tb.native)):
+            st, sj = ttp.collect_stats(x), jtp.collect_stats(y)
+            assert st[2] == sj[2] == 1
+            assert np.array_equal(st[0], sj[0]) and st[0].sum() > 0
+            assert np.array_equal(st[1], sj[1])
