@@ -49,18 +49,28 @@ wall seconds:
 13. the 2-pass flow: twopass.apply_pass2 on phase 10's statistics, then
    DeviceFFV1Encoder(params=p2) for 2 frames (K1-K4, with the custom
    initial states and transition table), checked against
-   NativeFFV1Codec(p2), and its extradata against write_extradata(p2).
+   NativeFFV1Codec(p2), and its extradata against write_extradata(p2);
+14. the sort op and the tools: ops.sort_rows through tools.microbench_sort
+   at the sort microbenches' shapes (layout (30, 131072) x 2, class
+   (1, 65536) x 4, unsort (1, 2^22) x {7, 10}, the unsort candidates
+   (30, 131072) x {6, 9} per slice and padded to (1, 2^22) in one row,
+   with their duplicate keys, and sort2's (30, 131072) x {2, 4}): K8 on
+   the long single rows, K9 on the rest, every output equal to the plain
+   network on every element and to torch.sort + gather where the keys are
+   duplicate-free (the keys elsewhere); then K10-K12
+   (tools.microbench_prims) and K13-K17 (tools.probes) against their plain
+   versions at the JAX tools' shapes, each kernel launched.
 
-The launch counts of a path are reset just before its frames and read
-just after.  The line before the last is a JSON object with one entry per
-kernel (and K2 again at rgb48; K6's entry carries its rgb48 numbers too):
-its times, its bound on this card (bytes
-over the memory rate or operations over the peak rate, whichever is
-larger, from this run's inputs; and for a serial kernel the longest
-dependent chain at one step per SM clock) and the time of one PyTorch call
-computing the same function where there is one.  The last line is
-{"ok": true, "device": {...}}.  Any failure raises and exits non-zero
-without those lines.  Exits non-zero at once when torch sees no CUDA
+The launch counts of a path are reset just before its frames and read just
+after (in phase 14, around each case's one call of its op). The line
+before the last is a JSON object with one entry per kernel (and K2 again
+at rgb48; K6's entry carries its rgb48 numbers too): its times, its bound
+on this card (bytes over the memory rate or operations over the peak rate,
+whichever is larger, from this run's inputs; and for a serial kernel the
+longest dependent chain at one step per SM clock) and the time of one
+PyTorch call computing the same function where there is one. The last line
+is {"ok": true, "device": {...}}. Any failure raises and exits non-zero
+without those lines. Exits non-zero at once when torch sees no CUDA
 device.
 """
 
@@ -589,6 +599,78 @@ def lanes_checks(out, enc, frame, clock_mhz):
           ops_per_lane_max=max(lens), ops_per_lane_min=min(lens))
 
 
+def sort_tools_checks(out, card) -> dict:
+    """Phase 14: the port's row sort through ``tools.microbench_sort`` at
+    the sort microbenches' shapes (K8 on one long row, K9 on batched or
+    short rows), then K10-K12 (``tools.microbench_prims``) and K13-K17
+    (``tools.probes``) at the JAX tools' shapes.  Each case calls its op
+    once with its launches counted (the path), then holds the result
+    against the plain version on every element (and the sort against
+    torch.sort + gather: whole where the keys are duplicate-free, else the
+    keys), then times kernel, plain and library.  Returns the path's
+    launch counts."""
+    from ffmpeg_ffv2_tpu_torch import _build
+    from ffmpeg_ffv2_tpu_torch.tools import microbench_prims, microbench_sort
+    from ffmpeg_ffv2_tpu_torch.tools import probes
+    path = "sort op / tools"
+    counts = {k: 0 for k in _build.KERNELS}
+    _build.reset_counts()
+    results = {}
+    for r in microbench_sort.run():
+        log(f"phase 14: {microbench_sort.line(r)} [{card}]")
+        if not (r["exact_plain"] and r["exact_library"]):
+            raise AssertionError(f"sort {r['name']}: kernel differs from "
+                                 f"its plain version or the library")
+        results.setdefault(r["kernel"], []).append(r)
+    for r in microbench_prims.run():
+        log(f"phase 14: {microbench_prims.line(r)} [{card}]")
+        if not r["exact_plain"]:
+            raise AssertionError(f"{r['name']}: kernel differs from plain")
+        results.setdefault(r["kernel"], []).append(r)
+    for r in probes.run():
+        log(f"phase 14: probe {r['name']}: {r['result']} (expected "
+            f"{r['expected']}), kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+            f"equal to plain {r['exact_plain']} [{card}]")
+        if not r["exact_plain"] or r["result"] != r["expected"]:
+            raise AssertionError(f"probe {r['name']}: {r['result']}")
+        del r["output"]
+        results.setdefault(r["kernel"], []).append(r)
+    # the entry's shape: K8 at unsort x10, K9 at layout, the largest tool
+    # case; every shape rides in the entry
+    main_case = {"sort": "unsort (1,4194304)x10",
+                 "rowsort": "layout (30,131072)x2",
+                 "roll": "roll lanes (2048,128) x64",
+                 "rowcx": "row cmpex (2048,128) x64",
+                 "transpose": "transpose (512,128) x32 (64 transposes)",
+                 "probe_big_prefetch": "prefetch 128K"}
+    for name in ("sort", "rowsort", "roll", "rowcx", "transpose",
+                 "probe_scalar_extract", "probe_scalar_in_ds",
+                 "probe_big_prefetch", "probe_roll_dynamic",
+                 "probe_taa_rows"):
+        rs = results.get(name, [])
+        counts[name] = sum(r["launches"] for r in rs)
+        if not counts[name]:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"{path} path")
+        r = next((x for x in rs if x["name"] == main_case.get(name)), rs[0])
+        # bytes: each operand read and written once; operations: the
+        # compare-exchanges, or an add / min-max per element and pass
+        bnd = bound(r["bound_bytes"], r["bound_ops"])
+        extra = {k: r[k] for k in ("compare_exchanges", "network_substages",
+                                   "ms_per_pass", "library_ms_per_pass")
+                 if k in r}
+        entry(out, name, path, max(x["max_abs_err"] for x in rs), r["ms"],
+              r["plain_ms"], r["library_ms"], bnd, shape=r["name"], **extra)
+        out[name]["shapes"] = [
+            {k: x[k] for k in ("name", "launches", "ms", "plain_ms",
+                               "library_ms", "bound_ms", "max_abs_err")}
+            for x in rs]
+    if set(counts) != set(_build.KERNELS):
+        raise AssertionError("launch counts do not cover every kernel")
+    return counts
+
+
 def probe(label, pix, w, h, cfg, frame, emission=False):
     """An encoder whose caps the frame settles, and the captured kernel
     inputs and stage times of that frame, run twice (the first warms)."""
@@ -896,13 +978,20 @@ def main() -> int:
         launches["2-pass"] = drive("2-pass", enc, frames[:2], card, 13)
         del enc
 
+    # 14. the sort op (K8, K9) and the tool kernels (K10-K17)
+    with Phase(14):
+        launches["sort op / tools"] = sort_tools_checks(kernels, card)
+
     for k in kernels.values():
         k["launches"] = launches[k["path"]][k["name"].split("_rgb48")[0]]
         k["launches_by_path"] = {
             label: launches[label][k["name"].split("_rgb48")[0]]
             for label in launches}
     order = ["place", "adapt", "adapt_rgb48", "adapt_emission", "expand",
-             "rac_render", "vlc", "ladder", "rac_lanes"]
+             "rac_render", "vlc", "ladder", "rac_lanes", "sort", "rowsort",
+             "roll", "rowcx", "transpose", "probe_scalar_extract",
+             "probe_scalar_in_ds", "probe_big_prefetch", "probe_roll_dynamic",
+             "probe_taa_rows"]
     print(json.dumps({"kernels": [kernels[n] for n in order]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

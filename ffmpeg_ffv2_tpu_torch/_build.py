@@ -190,6 +190,36 @@ KERNELS = {k.name: k for k in (
     Kernel("rac_lanes", "ffv2_rac_lanes", [P, P, P, I, I, P, P, P, P],
            "ffmpeg_ffv2_tpu_torch/csrc/rac_lanes.cu",
            "ffmpeg_ffv2_tpu/ffv1/pallas_coder.py:31"),
+    Kernel("sort", "ffv2_sort", [P, I, I, I, I, I, P, I, P, P],
+           "ffmpeg_ffv2_tpu_torch/csrc/sort.cu",
+           "ffmpeg_ffv2_tpu/ops/sort_pallas.py:90"),
+    Kernel("rowsort", "ffv2_rowsort", [P, I, I, I, I, I, P, I, P, P],
+           "ffmpeg_ffv2_tpu_torch/csrc/sort.cu",
+           "ffmpeg_ffv2_tpu/ops/sort_pallas.py:261"),
+    Kernel("roll", "ffv2_roll", [P, I, I, P, P],
+           "ffmpeg_ffv2_tpu_torch/csrc/prims.cu",
+           "tools/microbench_pallas.py:35"),
+    Kernel("rowcx", "ffv2_rowcx", [P, I, I, P, P],
+           "ffmpeg_ffv2_tpu_torch/csrc/prims.cu",
+           "tools/microbench_pallas.py:42"),
+    Kernel("transpose", "ffv2_transpose", [P, I, I, I, P, P],
+           "ffmpeg_ffv2_tpu_torch/csrc/prims.cu",
+           "tools/microbench_pallas.py:55"),
+    Kernel("probe_scalar_extract", "ffv2_probe_scalar_extract", [P, I, P, P],
+           "ffmpeg_ffv2_tpu_torch/csrc/probes.cu",
+           "tools/probe_mosaic.py:33"),
+    Kernel("probe_scalar_in_ds", "ffv2_probe_scalar_in_ds", [P, I, P, P],
+           "ffmpeg_ffv2_tpu_torch/csrc/probes.cu",
+           "tools/probe_mosaic.py:46"),
+    Kernel("probe_big_prefetch", "ffv2_probe_big_prefetch",
+           [P, I, P, I, P, P], "ffmpeg_ffv2_tpu_torch/csrc/probes.cu",
+           "tools/probe_mosaic.py:63"),
+    Kernel("probe_roll_dynamic", "ffv2_probe_roll_dynamic", [P, I, P, P],
+           "ffmpeg_ffv2_tpu_torch/csrc/probes.cu",
+           "tools/probe_mosaic.py:86"),
+    Kernel("probe_taa_rows", "ffv2_probe_taa_rows", [P, P, I, P, P],
+           "ffmpeg_ffv2_tpu_torch/csrc/probes.cu",
+           "tools/probe_mosaic.py:99"),
 )}
 
 

@@ -1,0 +1,157 @@
+// K13-K17: the capability probes of tools/probe_mosaic.py, each the CUDA
+// counterpart of one TPU kernel body there (the `kern` of
+// p1_scalar_extract, p1b_scalar_in_ds, p2_big_prefetch, p4_roll_dynamic and
+// p5_taa_rows).  On the TPU they ask whether Mosaic lowers a vector-to-
+// scalar reduction, a data-dependent row slice of scratch, a large scalar
+// prefetch table read at traced indices, a lane roll by a data-dependent
+// shift and a lane gather.  On Hopper each is a block reduction or an
+// indexed load:
+// - K13: out = v + max(v); one block reduces the whole (R, 128) array;
+// - K14: out (1, 128) = row max(v[0]) mod 4 of v, read from a shared-memory
+//   scratch copy of v;
+// - K15: block i sums tab[16 i .. 16 i + 16) from device memory (the table
+//   may exceed the 64 KB of __constant__) and writes x[i] * 0 + sum;
+// - K16: out = roll(v, (128 - max(v[0]) mod 128) mod 128) along the lanes;
+//   every block reduces row 0 itself, so blocks need no order;
+// - K17: out[r, l] = v[r, idx[l]] for idx in [0, 128).
+// mod is the floor modulo of jnp's %, sums and adds wrap as int32 does.
+// Bound: launch latency; the arrays are a few KB (K15's table up to 512
+// KB, of which 16 words a row are read).
+
+#include <climits>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int LANES = 128;
+constexpr int ROWS = 8;            // rows a block for K16 and K17
+
+__device__ __forceinline__ int floor_mod(int a, int m) {
+  const int r = a % m;
+  return r < 0 ? r + m : r;
+}
+
+__device__ __forceinline__ int warp_max(int v) {
+  for (int o = 16; o; o >>= 1) v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// max over the 128 lanes of row 0, for a block of 128 * rows threads
+__device__ int row0_max(const int* __restrict__ v, int* red) {
+  const int t = threadIdx.y * LANES + threadIdx.x;
+  if (t < LANES) {
+    const int m = warp_max(v[t]);
+    if ((t & 31) == 0) red[t >> 5] = m;
+  }
+  __syncthreads();
+  return max(max(red[0], red[1]), max(red[2], red[3]));
+}
+
+__global__ void scalar_extract_kernel(const int* __restrict__ v, int n,
+                                      int* __restrict__ out) {
+  __shared__ int red[32];
+  int m = INT_MIN;
+  for (int e = threadIdx.x; e < n; e += blockDim.x) m = max(m, v[e]);
+  m = warp_max(m);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = m;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    m = warp_max(threadIdx.x < blockDim.x / 32 ? red[threadIdx.x] : INT_MIN);
+    if (threadIdx.x == 0) red[0] = m;
+  }
+  __syncthreads();
+  m = red[0];
+  for (int e = threadIdx.x; e < n; e += blockDim.x)
+    out[e] = (int)((unsigned)v[e] + (unsigned)m);
+}
+
+__global__ void scalar_in_ds_kernel(const int* __restrict__ v, int R,
+                                    int* __restrict__ out) {
+  extern __shared__ int scr[];                      // [R][128]
+  __shared__ int red[4];
+  for (int e = threadIdx.x; e < R * LANES; e += blockDim.x) scr[e] = v[e];
+  __syncthreads();
+  const int m = floor_mod(row0_max(scr, red), 4);
+  out[threadIdx.x] = scr[m * LANES + threadIdx.x];
+}
+
+__global__ void big_prefetch_kernel(const int* __restrict__ tab,
+                                    const int* __restrict__ x,
+                                    int* __restrict__ out) {
+  const int i = blockIdx.x;
+  unsigned acc = 0;
+  for (int r = 0; r < 16; ++r) acc += (unsigned)tab[i * 16 + r];
+  const int at = i * LANES + threadIdx.x;
+  out[at] = (int)((unsigned)x[at] * 0u + acc);
+}
+
+__global__ void roll_dynamic_kernel(const int* __restrict__ v, int R,
+                                    int* __restrict__ out) {
+  __shared__ int red[4];
+  const int r = floor_mod(row0_max(v, red), LANES);
+  const int sh = floor_mod(LANES - r, LANES);
+  const long long row = (long long)blockIdx.x * ROWS + threadIdx.y;
+  const int l = threadIdx.x;
+  if (row < R)
+    out[row * LANES + l] = v[row * LANES + ((l - sh) & (LANES - 1))];
+}
+
+__global__ void taa_rows_kernel(const int* __restrict__ v,
+                                const int* __restrict__ idx, int R,
+                                int* __restrict__ out) {
+  const long long row = (long long)blockIdx.x * ROWS + threadIdx.y;
+  const int l = threadIdx.x;
+  if (row < R) out[row * LANES + l] = v[row * LANES + idx[l]];
+}
+
+}  // namespace
+
+// v, out: (R, 128) int32.
+extern "C" cudaError_t ffv2_probe_scalar_extract(const int* v, int R,
+                                                 int* out,
+                                                 cudaStream_t stream) {
+  if (R > 0) scalar_extract_kernel<<<1, 1024, 0, stream>>>(v, R * LANES, out);
+  return cudaGetLastError();
+}
+
+// v: (R, 128), R >= 4; out: (1, 128).
+extern "C" cudaError_t ffv2_probe_scalar_in_ds(const int* v, int R, int* out,
+                                               cudaStream_t stream) {
+  if (R < 4) return cudaErrorInvalidValue;
+  const size_t smem = (size_t)R * LANES * sizeof(int);
+  cudaError_t err = cudaFuncSetAttribute(
+      scalar_in_ds_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  scalar_in_ds_kernel<<<1, LANES, smem, stream>>>(v, R, out);
+  return cudaGetLastError();
+}
+
+// tab: (n_tab,) with n_tab >= 16 * G; x, out: (G, 128).
+extern "C" cudaError_t ffv2_probe_big_prefetch(const int* tab, int n_tab,
+                                               const int* x, int G, int* out,
+                                               cudaStream_t stream) {
+  if (n_tab < 16 * G) return cudaErrorInvalidValue;
+  if (G > 0) big_prefetch_kernel<<<G, LANES, 0, stream>>>(tab, x, out);
+  return cudaGetLastError();
+}
+
+// v, out: (R, 128).
+extern "C" cudaError_t ffv2_probe_roll_dynamic(const int* v, int R, int* out,
+                                               cudaStream_t stream) {
+  if (R > 0)
+    roll_dynamic_kernel<<<(R + ROWS - 1) / ROWS, dim3(LANES, ROWS), 0,
+                          stream>>>(v, R, out);
+  return cudaGetLastError();
+}
+
+// v, out: (R, 128); idx: (128,) in [0, 128).
+extern "C" cudaError_t ffv2_probe_taa_rows(const int* v, const int* idx,
+                                           int R, int* out,
+                                           cudaStream_t stream) {
+  if (R > 0)
+    taa_rows_kernel<<<(R + ROWS - 1) / ROWS, dim3(LANES, ROWS), 0, stream>>>(
+        v, idx, R, out);
+  return cudaGetLastError();
+}

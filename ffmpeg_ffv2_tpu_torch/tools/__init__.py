@@ -1,0 +1,87 @@
+"""The port's counterparts of the repository's Pallas tools: the sort-shape
+microbenchmarks (``microbench_sort``), the primitive microbenchmarks
+(``microbench_prims``) and the capability probes (``probes``).  Each runs
+its hand-written CUDA kernels on the card unless the caller passes
+``device="cpu"``, where the plain versions run and every printed line
+says so.
+
+    python -m ffmpeg_ffv2_tpu_torch.tools.microbench_sort [case substring]
+    python -m ffmpeg_ffv2_tpu_torch.tools.microbench_prims
+    python -m ffmpeg_ffv2_tpu_torch.tools.probes
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
+# no int32 rate is published; the float32 non-tensor peak is no lower
+OPS_PER_S = 67e12
+
+
+def bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
+    """The least time of the work on an H100: bytes over the memory rate
+    or operations over the peak rate, whichever is larger."""
+    b, o = nbytes / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
+    return (b, "bytes") if b >= o else (o, "operations")
+
+
+def device_ms(fn, reps: int, device) -> float:
+    """Median time of fn() over reps runs after one warm-up: CUDA events
+    on the card, the host clock on the CPU."""
+    dev = torch.device(device)
+    fn()
+    times = []
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+    else:
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def device_ms_once(fn, device) -> tuple:
+    """fn()'s result and the time of that one run (a plain version's
+    comparison run is its timed run)."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize(dev)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def device_label(device) -> str:
+    """What a printed line names its device by."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return torch.cuda.get_device_name(dev)
+    return "cpu (plain versions, no kernel)"
+
+
+def launches_of(fn, kernels) -> tuple:
+    """fn()'s result and how many times each of ``kernels`` (``_build.
+    Kernel``s) launched during it."""
+    before = [k.launches for k in kernels]
+    out = fn()
+    return out, {k.name: k.launches - b for k, b in zip(kernels, before)}

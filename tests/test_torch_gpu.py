@@ -1,7 +1,8 @@
 """The PyTorch port's CUDA kernels on the card: each kernel equals its plain
 PyTorch version, and the encoder's packets equal NativeFFV1Codec's (the
 port's own copy), for the range and the Golomb-Rice coder, deep and RGB
-formats, shape banks and the emission-order walk (K6).
+formats, shape banks and the emission-order walk (K6); the row sort (K8,
+K9) and the tool kernels (K10-K17) equal their plain versions.
 
 Needs an NVIDIA GPU and nvcc; skips itself elsewhere.  The machine with
 the card has no jax, so run this file without the repository's
@@ -34,6 +35,9 @@ from ffmpeg_ffv2_tpu_torch.ffv1.native import NativeFFV1Codec  # noqa: E402
 from ffmpeg_ffv2_tpu_torch.ffv1.params import (FFV1Config,  # noqa: E402
                                                params_from_config)
 from ffmpeg_ffv2_tpu_torch.ops import place as pl  # noqa: E402
+from ffmpeg_ffv2_tpu_torch.ops import sort  # noqa: E402
+from ffmpeg_ffv2_tpu_torch.tools import microbench_prims as mp  # noqa: E402
+from ffmpeg_ffv2_tpu_torch.tools import probes  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -358,3 +362,73 @@ def test_torch_gpu_adapt_repeat_substeps(monkeypatch, pix, code_bits):
         for a, b in zip(ad.adapt_emission(*k2, ev_words),
                         ad.adapt_emission_plain(*k2, ev_words)):
             assert torch.equal(a, b), ev_words
+
+
+@pytest.mark.parametrize("B,M,n,num_keys,kernel", [
+    (3, 2048, 3, 1, "rowsort"), (2, 4096, 4, 2, "rowsort"),
+    (3, 1 << 16, 2, 1, "rowsort"), (2, 1 << 16, 5, 2, "rowsort"),
+    (1, 1 << 16, 10, 1, "rowsort"), (1, 1 << 20, 3, 1, "sort"),
+    (1, 1 << 20, 3, 2, "sort"), (1, 1 << 19, 7, 1, "sort")])
+def test_torch_gpu_sort_matches_plain(B, M, n, num_keys, kernel):
+    """K8/K9 against the plain network on duplicate keys (negative values
+    and INT32_MAX sentinels among them), whole rows in shared memory and
+    hierarchical; and against torch.sort + gather on unique keys."""
+    rng = np.random.RandomState(M + n)
+    keys = rng.randint(-500, 500, (num_keys, B, M)).astype(np.int32)
+    keys[0][rng.rand(B, M) < 0.1] = 2 ** 31 - 1
+    pay = rng.randint(-2 ** 31, 2 ** 31 - 1, (n - num_keys, B, M),
+                      dtype=np.int64).astype(np.int32)
+    ops = [torch.as_tensor(a, device="cuda") for a in (*keys, *pay)]
+    _build.reset_counts()
+    got = sort.sort_rows(ops, num_keys)
+    assert {k: _build.KERNELS[k].launches for k in ("sort", "rowsort")} == {
+        k: int(k == kernel) for k in ("sort", "rowsort")}
+    for a, b in zip(got, sort.bitonic_plain(ops, num_keys)):
+        assert torch.equal(a, b)
+    perm = torch.stack([torch.randperm(M, device="cuda") for _ in range(B)])
+    ops[0] = (perm - M // 2).to(torch.int32)
+    got = sort.sort_rows(ops, 1)
+    key, idx = torch.sort(ops[0], dim=1, stable=True)
+    assert torch.equal(got[0], key)
+    for a, p in zip(got[1:], ops[1:]):
+        assert torch.equal(a, torch.gather(p, 1, idx))
+
+
+@pytest.mark.parametrize("prim,R,reps", [
+    ("roll", 512, 64), ("roll", 2050, 9), ("rowcx", 2048, 64),
+    ("rowcx", 128, 4), ("transpose", 512, 32), ("transpose", 64, 3)])
+def test_torch_gpu_prims_match_plain(prim, R, reps):
+    wrapper, plain, K = mp.PRIMS[prim][:3]
+    rng = np.random.RandomState(R + reps)
+    x = torch.as_tensor(rng.randint(-2 ** 31, 2 ** 31 - 1, (R, 128),
+                                    dtype=np.int64).astype(np.int32),
+                        device="cuda")
+    _build.reset_counts()
+    got = wrapper(x, reps)
+    assert K.launches == 1 and K.plain_calls == 0
+    assert torch.equal(got, plain(x, reps))
+
+
+def test_torch_gpu_probes_match_plain():
+    """K13-K17 on the JAX tool's inputs (their expected results) and on
+    random ones with negative values."""
+    for name, K, fn, plain, args, result, expected in probes.inputs("cuda"):
+        got = fn(*args)
+        assert result(got) == expected, name
+        assert torch.equal(got, plain(*args)), name
+    rng = np.random.RandomState(6)
+    v = torch.as_tensor(rng.randint(-2 ** 31, 2 ** 31 - 1, (24, 128),
+                                    dtype=np.int64).astype(np.int32),
+                        device="cuda")
+    idx = torch.as_tensor(rng.randint(0, 128, (1, 128)).astype(np.int32),
+                          device="cuda")
+    tab = v.reshape(-1)[:1000].contiguous()
+    for fn, plain, args in (
+            (probes.scalar_extract, probes.scalar_extract_plain, (v,)),
+            (probes.scalar_in_ds, probes.scalar_in_ds_plain, (v,)),
+            (probes.big_prefetch, probes.big_prefetch_plain, (tab, v[:60])),
+            (probes.roll_dynamic, probes.roll_dynamic_plain, (v,)),
+            (probes.roll_dynamic, probes.roll_dynamic_plain, (-v.abs(),)),
+            (probes.taa_rows, probes.taa_rows_plain, (v, idx))):
+        args = tuple(a.contiguous() for a in args)
+        assert torch.equal(fn(*args), plain(*args)), fn.__name__

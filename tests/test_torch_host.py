@@ -99,8 +99,10 @@ def test_torch_port_imports_without_jax():
         "pkg.__name__ + '.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
-        "for m in ('device_coder', 'tpu_coder', 'tpu_encoder', 'twopass'):\n"
-        "    assert 'ffmpeg_ffv2_tpu_torch.ffv1.' + m in names, m\n"
+        "for m in ('ffv1.device_coder', 'ffv1.tpu_coder', "
+        "'ffv1.tpu_encoder', 'ffv1.twopass', 'ops.sort', "
+        "'tools.microbench_sort', 'tools.microbench_prims', 'tools.probes'):\n"
+        "    assert 'ffmpeg_ffv2_tpu_torch.' + m in names, m\n"
         "assert not any(m.split('.')[0] in ('jax', 'ffmpeg_ffv2_tpu') "
         "for m, v in sys.modules.items() if v is not None)\n"
         "print(len(names))\n")
