@@ -57,9 +57,21 @@ wall seconds:
    with their duplicate keys, and sort2's (30, 131072) x {2, 4}): K8 on
    the long single rows, K9 on the rest, every output equal to the plain
    network on every element and to torch.sort + gather where the keys are
-   duplicate-free (the keys elsewhere); then K10-K12
-   (tools.microbench_prims) and K13-K17 (tools.probes) against their plain
-   versions at the JAX tools' shapes, each kernel launched.
+   duplicate-free (the keys elsewhere), each case's mode (index: the keys
+   and the column ride the network, then a gather; direct: the operands
+   ride), words, chunk, merge group and device kernels, and its device
+   time alone (torch.profiler, whose count of kernels must equal the
+   launcher's) beside its CUDA-event time; then K10-K12
+   (tools.microbench_prims) and K13-K17 (tools.probes, with their device
+   time alone too) against their plain versions at the JAX tools' shapes,
+   each kernel launched;
+15. Golomb-Rice at coding depth 16 (the 16-bit rice cell payload):
+   1920x1080 yuv420p16, phase 4's config with the params forced to
+   Golomb-Rice, phase 4's frames scaled to 16 bits (x << 8 | x): K1, K5 at
+   pb = 16 (on a cut) and the ladder kernel against their plain versions
+   on frame 0's inputs (entries place_pb16, vlc_pb16, ladder_pb16), then
+   2 frames checked as in phase 3, with K1, K5 and the ladder kernel
+   launched.
 
 The launch counts of a path are reset just before its frames and read just
 after (in phase 14, around each case's one call of its op). The line
@@ -358,7 +370,7 @@ def entry(out, name, path, err, ms, plain_ms, library_ms, bnd, key=None,
     from ffmpeg_ffv2_tpu_torch import _build
     k = _build.KERNELS[name]
     key = key or name
-    out[key] = dict(name=key, route="cuda", source=k.source,
+    out[key] = dict(name=key, kernel=name, route="cuda", source=k.source,
                     replaces=k.replaces, path=path, max_abs_err=err, ms=ms,
                     plain_ms=plain_ms, library_ms=library_ms, **bnd, **extra)
     log(f"kernel {key}: equal to plain (tolerance: exact, torch.equal), "
@@ -378,22 +390,23 @@ def valid_cells(ch1c, vbit: int = 13) -> int:
     return int(((ch1c >> vbit) & 1).sum())
 
 
-def live_cells(ch1c) -> tuple:
-    """Rice cells: (cells with the valid flag, of them the ones not
-    silent)."""
-    valid = (ch1c >> 13) & 1
-    return int(valid.sum()), int((valid & (1 - ((ch1c >> 12) & 1))).sum())
+def live_cells(ch1c, pb: int = 12) -> tuple:
+    """Rice cells of payload width ``pb``: (cells with the valid flag, of
+    them the ones not silent)."""
+    valid = (ch1c >> (pb + 1)) & 1
+    return int(valid.sum()), int((valid & (1 - ((ch1c >> pb) & 1))).sum())
 
 
-def place_checks(out, k1, rice_k1):
-    """K1 on the range cells and on the rice cells; library call: one
-    scatter_ of both channels.  Bound: each element read (dest and two
-    channels) and both channels written up to the last row in use."""
+def place_checks(out, k1, path, key=None, also=(), **extra):
+    """K1 on the cells ``k1`` (and on each input of ``also``) against its
+    plain version; library call: one scatter_ of both channels.  Bound:
+    each element read (dest and two channels) and both channels written
+    up to the last row in use."""
     import torch
     from ffmpeg_ffv2_tpu_torch.ops import place as pl
     dest, ch1, orig, cellrows = k1
     err = max(max_abs_err(pl.place(*a), pl.scatter_cells(*a))
-              for a in (k1, rice_k1))
+              for a in (k1, *also))
     cells = cellrows * 128
     rows_used = int(torch.where(dest < cells, dest, -1).max()) // 128 + 1
     idx = torch.where((dest >= 0) & (dest < cells), dest, cells).long()
@@ -401,14 +414,12 @@ def place_checks(out, k1, rice_k1):
     vals2 = torch.stack([ch1, orig])
     out2 = torch.empty((2, cells + 1), dtype=torch.int32, device=dest.device)
     n = dest.shape[0]
-    entry(out, "place", "range", err, cuda_ms(lambda: pl.place(*k1), 5),
+    entry(out, "place", path, err, cuda_ms(lambda: pl.place(*k1), 5),
           cuda_ms(lambda: pl.scatter_cells(*k1), 5),
           cuda_ms(lambda: out2.scatter_(1, idx2, vals2), 5),
-          bound(n * 12 + rows_used * 128 * 8, n),
-          ms_rice=cuda_ms(lambda: pl.place(*rice_k1), 5),
-          shape=f"N={n} cells={cells} ({rows_used} rows in use) (range); "
-                f"rice N="
-                f"{rice_k1[0].shape[0]} cells={rice_k1[3] * 128}")
+          bound(n * 12 + rows_used * 128 * 8, n), key=key,
+          shape=f"N={n} cells={cells} ({rows_used} rows in use) ({path})",
+          **extra)
 
 
 def walk_check(out, inputs, clock_mhz, key, path, emission: bool):
@@ -501,12 +512,14 @@ def range_checks(out, inputs, clock_mhz):
               f"ms_cut on the cut, ms on {steps} steps")
 
 
-def rice_checks(out, inputs, clock_mhz):
-    """K5 and the ladder kernel against their plain versions on rice frame
-    0's inputs."""
+def rice_checks(out, inputs, clock_mhz, bits=8, suffix="", path="rice"):
+    """K5 (coding depth ``bits``) and the ladder kernel against their plain
+    versions on rice frame 0's inputs; their entries are ``vlc`` and
+    ``ladder`` with ``suffix``."""
     import torch
     from ffmpeg_ffv2_tpu_torch.ffv1 import rice
     from ffmpeg_ffv2_tpu_torch.ffv1 import vlc
+    pb = rice.rice_pb(bits)
 
     k5 = inputs["k5"]
     ch1c, caps, bases, pred, s0 = k5
@@ -514,10 +527,10 @@ def rice_checks(out, inputs, clock_mhz):
     bases_h, caps_h = bases.tolist(), caps.tolist()
     rows = torch.cat([torch.arange(bases_h[t], bases_h[t] + caps_h[t],
                                    device=caps.device) for t in cut])
-    code_k, ends_k = vlc.vlc_adapt(*k5, 8)
-    code_c, ends_c = vlc.vlc_adapt(ch1c, caps_cut, bases, pred, s0, 8)
+    code_k, ends_k = vlc.vlc_adapt(*k5, bits)
+    code_c, ends_c = vlc.vlc_adapt(ch1c, caps_cut, bases, pred, s0, bits)
     (code_p, ends_p), plain_ms = cuda_ms_once(
-        lambda: vlc.vlc_adapt_plain(*k5, 8, tiles=cut))
+        lambda: vlc.vlc_adapt_plain(*k5, bits, tiles=cut))
     err = max_abs_err(
         [code_k[rows], ends_k[cut], code_c[rows], ends_c[cut]],
         [code_p[rows], ends_p[cut], code_p[rows], ends_p[cut]])
@@ -525,17 +538,18 @@ def rice_checks(out, inputs, clock_mhz):
     # blocks and the tile words of the tiles in use
     n_rows = sum(c for c in caps_h if c > 0)
     tiles = used_tiles(caps)
-    valid, live = live_cells(ch1c)
-    entry(out, "vlc", "rice", err, cuda_ms(lambda: vlc.vlc_adapt(*k5, 8), 5),
-          plain_ms, None,
+    valid, live = live_cells(ch1c, pb)
+    entry(out, "vlc", path, err,
+          cuda_ms(lambda: vlc.vlc_adapt(*k5, bits), 5), plain_ms, None,
           bound(valid * 8 + tiles * ((5 + 4) * 128 * 4 + 12), live * 40,
                 chain_rows(caps_h, pred.tolist()), clock_mhz),
+          key="vlc" + suffix,
           ms_cut=cuda_ms(lambda: vlc.vlc_adapt(ch1c, caps_cut, bases, pred,
-                                               s0, 8), 5),
+                                               s0, bits), 5),
           cut=f"tiles {cut} ({rows.numel()} of {n_rows} rows); plain_ms "
               "and ms_cut on the cut, ms on every tile",
           split_tiles=sum(1 for t in pred.tolist() if t >= 0),
-          valid_cells=valid, live_cells=live)
+          valid_cells=valid, live_cells=live, payload_bits=pb)
 
     # the ladder: kernel and plain loop on frame 0's events, each lane
     # walked as far as its event count; bound: per event its count and
@@ -544,14 +558,14 @@ def rice_checks(out, inputs, clock_mhz):
     n_ev = kl[4]
     L, E = kl[0].shape
     live_ev = torch.arange(E, device=n_ev.device)[None, :] < n_ev[:, None]
-    err = max_abs_err([rice.run_index_scan(*kl)[live_ev]],
-                      [rice.run_index_scan_plain(*kl)[live_ev]])
+    got = rice.run_index_scan(*kl)
+    ref, plain_ms = cuda_ms_once(lambda: rice.run_index_scan_plain(*kl))
+    err = max_abs_err([got[live_ev]], [ref[live_ev]])
     events = int(n_ev.sum())
-    entry(out, "ladder", "rice", err,
-          cuda_ms(lambda: rice.run_index_scan(*kl), 5),
-          cuda_ms(lambda: rice.run_index_scan_plain(*kl), 1), None,
+    entry(out, "ladder", path, err,
+          cuda_ms(lambda: rice.run_index_scan(*kl), 5), plain_ms, None,
           bound(events * (4 + 3 + 4) + L * 4, events * 10, int(n_ev.max()),
-                clock_mhz),
+                clock_mhz), key="ladder" + suffix,
           shape=f"{L} slices, ev_cap {E} slots",
           events=events, max_events=int(n_ev.max()))
 
@@ -628,8 +642,11 @@ def sort_tools_checks(out, card) -> dict:
             raise AssertionError(f"{r['name']}: kernel differs from plain")
         results.setdefault(r["kernel"], []).append(r)
     for r in probes.run():
+        prof = ("not measured" if r["profiled_ms"] is None
+                else f"{r['profiled_ms']:.4f} ms")
         log(f"phase 14: probe {r['name']}: {r['result']} (expected "
-            f"{r['expected']}), kernel {r['ms']:.4f} ms, plain "
+            f"{r['expected']}), kernel {r['ms']:.4f} ms (device alone "
+            f"{prof}), plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
             f"equal to plain {r['exact_plain']} [{card}]")
         if not r["exact_plain"] or r["result"] != r["expected"]:
@@ -657,26 +674,55 @@ def sort_tools_checks(out, card) -> dict:
         # bytes: each operand read and written once; operations: the
         # compare-exchanges, or an add / min-max per element and pass
         bnd = bound(r["bound_bytes"], r["bound_ops"])
-        extra = {k: r[k] for k in ("compare_exchanges", "network_substages",
-                                   "ms_per_pass", "library_ms_per_pass")
-                 if k in r}
+        extra = {k: r[k] for k in (
+            "compare_exchanges", "network_substages", "ms_per_pass",
+            "library_ms_per_pass", "mode", "W", "Lc", "R", "kernels",
+            "profiled_ms", "profiled_kernels") if k in r}
         entry(out, name, path, max(x["max_abs_err"] for x in rs), r["ms"],
               r["plain_ms"], r["library_ms"], bnd, shape=r["name"], **extra)
         out[name]["shapes"] = [
-            {k: x[k] for k in ("name", "launches", "ms", "plain_ms",
-                               "library_ms", "bound_ms", "max_abs_err")}
+            {k: x[k] for k in ("name", "launches", "ms", "profiled_ms",
+                               "plain_ms", "library_ms", "bound_ms",
+                               "max_abs_err", "mode", "W", "Lc", "R",
+                               "kernels", "profiled_kernels") if k in x}
             for x in rs]
     if set(counts) != set(_build.KERNELS):
         raise AssertionError("launch counts do not cover every kernel")
     return counts
 
 
-def probe(label, pix, w, h, cfg, frame, emission=False):
+def deep_rice_checks(out, frames, cfg, clock_mhz, card) -> dict:
+    """Phase 15: ``frames`` (8-bit yuv420p) scaled to 16 bits (x << 8 |
+    x) on Golomb-Rice at ``cfg`` with the params forced to it (the
+    config takes the range coder past 8 bits): K1, K5 at pb = 16 (on a
+    cut) and the ladder kernel against their plain versions on frame 0's
+    inputs, then the frames through encode().  Returns the path's launch
+    counts."""
+    import dataclasses
+    from ffmpeg_ffv2_tpu_torch.ffv1.params import (CODER_GOLOMB,
+                                                   params_from_config)
+    h, w = frames[0][0].shape
+    deep = [[x << 8 | x for x in fr] for fr in frames]
+    p16 = dataclasses.replace(params_from_config(cfg, "yuv420p16", w, h),
+                              ac=CODER_GOLOMB)
+    enc, inputs = probe("phase 15: rice 16-bit", "yuv420p16", w, h, cfg,
+                        deep[0], params=p16)
+    if enc.rice_pb != 16:
+        raise AssertionError(f"yuv420p16 rice: payload {enc.rice_pb}")
+    place_checks(out, inputs["k1"], "rice16", key="place_pb16")
+    rice_checks(out, inputs, clock_mhz, bits=16, suffix="_pb16",
+                path="rice16")
+    del enc, inputs
+    return drive("rice16", device_encoder("yuv420p16", w, h, cfg,
+                                          params=p16), deep, card, 15)
+
+
+def probe(label, pix, w, h, cfg, frame, emission=False, params=None):
     """An encoder whose caps the frame settles, and the captured kernel
     inputs and stage times of that frame, run twice (the first warms)."""
     from ffmpeg_ffv2_tpu_torch.ffv1.device_coder import DeviceFFV1Encoder
     enc = DeviceFFV1Encoder(w, h, pix, cfg, device="cuda",
-                            emission_order=emission)
+                            emission_order=emission, params=params)
     enc.encode(frame, force_keyframe=True)
     capture = capture_rice if enc.golomb else capture_range
     capture(enc, frame)
@@ -772,6 +818,7 @@ def main() -> int:
     from ffmpeg_ffv2_tpu_torch import _build
     from ffmpeg_ffv2_tpu_torch.ffv1 import native
     from ffmpeg_ffv2_tpu_torch.ffv1.params import FFV1Config
+    from ffmpeg_ffv2_tpu_torch.ops.place import place
 
     # 0. device
     def smi(query):
@@ -834,9 +881,12 @@ def main() -> int:
     with Phase(4):
         _, inputs = probe("phase 4: rice", "yuv420p", W, H, rice_cfg,
                           frames[0])
-        place_checks(kernels, range_k1, inputs["k1"])
+        rk1 = inputs["k1"]
+        place_checks(kernels, range_k1, "range", also=(rk1,),
+                     ms_rice=cuda_ms(lambda: place(*rk1), 5),
+                     rice=f"N={rk1[0].shape[0]} cells={rk1[3] * 128}")
         rice_checks(kernels, inputs, clock_mhz)
-        del inputs, range_k1
+        del inputs, range_k1, rk1
     with Phase(5):
         launches["rice"] = drive(
             "rice", device_encoder("yuv420p", W, H, rice_cfg), frames, card,
@@ -982,14 +1032,19 @@ def main() -> int:
     with Phase(14):
         launches["sort op / tools"] = sort_tools_checks(kernels, card)
 
+    # 15. Golomb-Rice at coding depth 16: phase 4's frames in 16 bits
+    with Phase(15):
+        launches["rice16"] = deep_rice_checks(kernels, frames[:2], rice_cfg,
+                                              clock_mhz, card)
+
     for k in kernels.values():
-        k["launches"] = launches[k["path"]][k["name"].split("_rgb48")[0]]
-        k["launches_by_path"] = {
-            label: launches[label][k["name"].split("_rgb48")[0]]
-            for label in launches}
-    order = ["place", "adapt", "adapt_rgb48", "adapt_emission", "expand",
-             "rac_render", "vlc", "ladder", "rac_lanes", "sort", "rowsort",
-             "roll", "rowcx", "transpose", "probe_scalar_extract",
+        k["launches"] = launches[k["path"]][k["kernel"]]
+        k["launches_by_path"] = {label: launches[label][k["kernel"]]
+                                 for label in launches}
+    order = ["place", "place_pb16", "adapt", "adapt_rgb48",
+             "adapt_emission", "expand", "rac_render", "vlc", "vlc_pb16",
+             "ladder", "ladder_pb16", "rac_lanes", "sort",
+             "rowsort", "roll", "rowcx", "transpose", "probe_scalar_extract",
              "probe_scalar_in_ds", "probe_big_prefetch", "probe_roll_dynamic",
              "probe_taa_rows"]
     print(json.dumps({"kernels": [kernels[n] for n in order]}), flush=True)

@@ -180,7 +180,7 @@ KERNELS = {k.name: k for k in (
            "ffmpeg_ffv2_tpu_torch/csrc/rac_render.cu",
            "ffmpeg_ffv2_tpu/ffv1/pallas_coder.py:109 + "
            "ffmpeg_ffv2_tpu/ffv1/render_pallas.py:62,163"),
-    Kernel("vlc", "ffv2_vlc", [P, P, P, P, P, P, I, I, I, P, P, P],
+    Kernel("vlc", "ffv2_vlc", [P, P, P, P, P, P, I, I, I, I, P, P, P],
            "ffmpeg_ffv2_tpu_torch/csrc/vlc.cu",
            "ffmpeg_ffv2_tpu/ffv1/device_rice.py:448"),
     Kernel("ladder", "ffv2_ladder", [P, P, P, I, I, P, P],
@@ -190,10 +190,12 @@ KERNELS = {k.name: k for k in (
     Kernel("rac_lanes", "ffv2_rac_lanes", [P, P, P, I, I, P, P, P, P],
            "ffmpeg_ffv2_tpu_torch/csrc/rac_lanes.cu",
            "ffmpeg_ffv2_tpu/ffv1/pallas_coder.py:31"),
-    Kernel("sort", "ffv2_sort", [P, I, I, I, I, I, P, I, P, P],
+    Kernel("sort", "ffv2_sort",
+           [P, P, I, I, I, I, I, I, P, I, P, P, P, P],
            "ffmpeg_ffv2_tpu_torch/csrc/sort.cu",
            "ffmpeg_ffv2_tpu/ops/sort_pallas.py:90"),
-    Kernel("rowsort", "ffv2_rowsort", [P, I, I, I, I, I, P, I, P, P],
+    Kernel("rowsort", "ffv2_rowsort",
+           [P, P, I, I, I, I, I, I, P, I, P, P, P, P],
            "ffmpeg_ffv2_tpu_torch/csrc/sort.cu",
            "ffmpeg_ffv2_tpu/ops/sort_pallas.py:261"),
     Kernel("roll", "ffv2_roll", [P, I, I, P, P],

@@ -21,8 +21,9 @@
 // across the block's 128 lanes; BATCH rows are loaded before they are
 // walked, so the chain waits on memory once per BATCH rows.  There is no
 // table gather: k = bitlength((error_sum - 1) / count), the closed form of
-// device_rice.py:501-505.  Cell payload: diff + 2048 in bits 0..11, the
-// silent flag in bit 12, the valid flag in bit 13 (coding depths <= 12).
+// device_rice.py:501-505.  Cell payload (pb, a launch argument, 12 for
+// coding depths <= 12 and 16 for 13..16): diff + 2^(pb - 1) in bits
+// 0..pb-1, the silent flag in bit pb, the valid flag in bit pb + 1.
 
 #include "common.cuh"
 
@@ -32,10 +33,11 @@ constexpr int BATCH = 16;
 
 // One put_vlc_symbol + update_vlc_state (device_rice.vlc_code_word and
 // vlc_update); returns len << 18 | val, or 0 for a row that is not live.
-__device__ __forceinline__ int vlc_step(int row, int bits, int& drift,
-                                        int& es, int& bias, int& count) {
-  if (!((row >> 13) & 1) || ((row >> 12) & 1)) return 0;
-  const int v0 = (row & 0xFFF) - 2048;
+__device__ __forceinline__ int vlc_step(int row, int bits, int pb,
+                                        int& drift, int& es, int& bias,
+                                        int& count) {
+  if (!((row >> (pb + 1)) & 1) || ((row >> pb) & 1)) return 0;
+  const int v0 = (row & ((1 << pb) - 1)) - (1 << (pb - 1));
   const int half = 1 << (bits - 1);
   const int d = (v0 - bias) & ((1 << bits) - 1);
   const int v = d - ((d & half) << 1);
@@ -76,7 +78,7 @@ __global__ void __launch_bounds__(128)
 vlc_kernel(const int* __restrict__ ch1, const int* __restrict__ caps,
            const int* __restrict__ bases, const int* __restrict__ pred,
            const int* __restrict__ succ, const int* __restrict__ s0,
-           int cellrows, int bits, int* __restrict__ code,
+           int cellrows, int bits, int pb, int* __restrict__ code,
            int* __restrict__ ends) {
   const int root = blockIdx.x;
   const int lane = threadIdx.x;
@@ -111,7 +113,7 @@ vlc_kernel(const int* __restrict__ ch1, const int* __restrict__ caps,
       for (int j = 0; j < BATCH; ++j)
         if (r0 + j < cap)
           out[(size_t)(r0 + j) * 128] =
-              vlc_step(rows[j], bits, drift, es, bias, count);
+              vlc_step(rows[j], bits, pb, drift, es, bias, count);
     }
     int* end = ends + (size_t)tile * 4 * 128 + lane;
     end[0] = drift;
@@ -126,10 +128,11 @@ vlc_kernel(const int* __restrict__ ch1, const int* __restrict__ caps,
 extern "C" cudaError_t ffv2_vlc(const int* ch1, const int* caps,
                                 const int* bases, const int* pred,
                                 const int* succ, const int* s0, int tiles,
-                                int cellrows, int bits, int* code, int* ends,
-                                cudaStream_t stream) {
+                                int cellrows, int bits, int pb, int* code,
+                                int* ends, cudaStream_t stream) {
+  if (pb != 12 && pb != 16) return cudaErrorInvalidValue;
   if (tiles > 0)
     vlc_kernel<<<tiles, 128, 0, stream>>>(ch1, caps, bases, pred, succ, s0,
-                                          cellrows, bits, code, ends);
+                                          cellrows, bits, pb, code, ends);
   return cudaGetLastError();
 }

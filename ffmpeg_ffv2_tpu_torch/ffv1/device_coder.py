@@ -3,7 +3,8 @@
 Counterpart of ``ffmpeg_ffv2_tpu/ffv1/device_coder.py``: the range coder
 on YUV, gray and RGB formats at coding depths up to 17 (rgb48), with the
 fixed RCT of versions <= 3 and the per-slice RCT search of version 4, and
-the Golomb-Rice coder (8-bit YUV, gray and RGB by the format), on uniform
+the Golomb-Rice coder (YUV, gray and RGB; a 12-bit cell payload up to
+coding depth 12, a 16-bit one for 13..16), on uniform
 and non-uniform slice geometries (shape banks).  The plain torch stages
 ``layout_plan``, ``build_s0_blocks``, ``writeback_canonical`` and the
 unsorts (``_s_unsort_impl``, ``_s_rice_unsort_impl``), and the session
@@ -44,7 +45,7 @@ from .params import FFV1Config, FFV1Params, params_from_config, CODER_GOLOMB
 from .phase_a import (interleave_lines, lut_for, phase_a, phase_a_planes,
                       phase_a_rgb, phase_a_rgb_planes, pick_rct, rct_costs)
 from .rac import rac_render
-from .rice import (PAYLOAD_BITS, VLC_INIT, assemble_bits, build_rice_streams,
+from .rice import (VLC_INIT, assemble_bits, build_rice_streams, rice_pb,
                    build_vlc_s0, ladder_fields, no_mark, rice_elements,
                    writeback_vlc)
 from .slice_state import SliceState
@@ -296,7 +297,8 @@ class DeviceFFV1Encoder:
     and the default table, coder=-2) on YUV, gray and RGB formats at every
     depth up to 16 bits per sample (RGB codes at bits + 1: rgb48 at 17,
     with int32 samples), the v4 per-slice RCT search, and the Golomb-Rice
-    coder (coder=0, 8-bit YUV/gray/RGB up to version 3); one keyframe
+    coder (coder=0, YUV/gray/RGB up to version 3, coding depths up to
+    16); one keyframe
     followed by inter frames carries the context states from frame to
     frame.  Non-uniform slice geometries split into shape banks, one
     sub-encoder per slice shape, assembled in global slice order.
@@ -494,10 +496,10 @@ class DeviceFFV1Encoder:
         drift, error_sum, bias, count per chain row, plus a spare row),
         the slice headers and the adaptive event and bitstream sizes."""
         p = self.p
-        if self.code_bits > 12:
-            raise NotImplementedError(
-                "torch device rice: the 12-bit cell payload covers coding "
-                "depths <= 12 (Golomb-Rice is 8-bit by the format)")
+        # the rice cell's payload width: 12 bits for coding depths up to
+        # 12, 16 for 13..16 (silent flag at pb, layout valid flag at pb +
+        # 1); coding depth 17 (rgb48) raises NotImplementedError
+        self.rice_pb = rice_pb(self.code_bits)
         self.vcanon_key = torch.as_tensor(
             np.tile(VLC_INIT, (self.n_chain_rows + 1, 1)), device=self.device)
         self.vcanon = self.vcanon_key
@@ -716,11 +718,12 @@ class DeviceFFV1Encoder:
                                              self.p, self.qt, self.code_bits,
                                              self.five)
             return (interleave_lines(ctxs),
-                    build_rice_streams(ctxs, diffs, interleave=True))
+                    build_rice_streams(ctxs, diffs, interleave=True,
+                                       pb=self.rice_pb))
         ctxs, diffs = phase_a_planes(planes, self.crop_plan, self.qt,
                                      self.p.bits, self.five)
         return (torch.cat([c.reshape(self.S, -1) for c in ctxs], dim=1),
-                build_rice_streams(ctxs, diffs))
+                build_rice_streams(ctxs, diffs, pb=self.rice_pb))
 
     def rice_front(self, ctx, payload, vcanon, keyframe: bool,
                    tiles_cap: int, cellrows_cap: int, mark=no_mark):
@@ -729,7 +732,7 @@ class DeviceFFV1Encoder:
         in stream order, vcanon after the frame, [rows, tiles, slots]).
         ``mark`` is called after each stage (``rice.no_mark``)."""
         plan = self.layout(ctx, payload, tiles_cap, cellrows_cap,
-                           PAYLOAD_BITS + 1)
+                           self.rice_pb + 1)
         mark("layout")
         k1 = (plan["dest"], plan["ch1"], plan["orig"], cellrows_cap)
         ch1c, ch2c = place(*k1)

@@ -37,6 +37,18 @@ VLC_INIT = np.array([0, 4, 0, 1], np.int32)  # drift, error_sum, bias, count
 _K_LADDER = _build.KERNELS["ladder"]
 
 
+def rice_pb(bits: int) -> int:
+    """The rice cell's payload width for a coding depth: the 12-bit diff
+    field (``PAYLOAD_BITS``) up to 12 bits, 16 bits for 13..16.  Past 16
+    (rgb48 codes at 17) the folded difference does not fit the field, so
+    the depth is refused."""
+    if bits > 16:
+        raise NotImplementedError(
+            f"Golomb-Rice at coding depth {bits}: the 16-bit cell payload "
+            "covers coding depths up to 16")
+    return PAYLOAD_BITS if bits <= 12 else 16
+
+
 def plan_runs_plane(ctx, diff):
     """Run-mode planning for one plane, all slices at once.
 
@@ -79,10 +91,12 @@ def plan_runs_plane(ctx, diff):
                 flush=flush, flush_count=flush_count, diff_adj=diff_adj)
 
 
-def build_rice_streams(ctx_planes, diff_planes, interleave: bool = False):
+def build_rice_streams(ctx_planes, diff_planes, interleave: bool = False,
+                       pb: int = PAYLOAD_BITS):
     """Per-plane (S, h, w) |context| / folded-diff grids -> stream-order
-    (S, npix) tensors: payload ((diff_adj + 2048) | silent << 12, the vlc
-    walk's cell word before the layout adds the valid flag at bit 13), lad
+    (S, npix) tensors: payload ((diff_adj + 2^(pb - 1)) | silent << pb, the
+    vlc walk's cell word before the layout adds the valid flag at bit
+    pb + 1; pb is ``rice_pb`` of the coding depth), lad
     (the pixel carries a ladder event: run end or line flush), cnt (its
     ladder count), flush, plane.
 
@@ -91,7 +105,6 @@ def build_rice_streams(ctx_planes, diff_planes, interleave: bool = False):
     runs one run-index ladder over the whole stream, reset once per slice
     (ffv1enc_template.c:138), so every position carries plane 0.  Runs are
     planned per plane either way: a line end flushes the run."""
-    pb = PAYLOAD_BITS
     pays, lads, cnts, flushes, planes = [], [], [], [], []
     for li, (ctx, diff) in enumerate(zip(ctx_planes, diff_planes)):
         pr = plan_runs_plane(ctx, diff)

@@ -6,8 +6,10 @@ and of the TPU kernel ``device_rice.py:vlc_adapt_pallas`` (``_vlc_kernel``).
 and takes the plain row scan ``vlc_adapt_plain`` on CPU tensors.
 
 Cells come from the same chain-grouping layout as the range coder's
-(``device_coder.layout_plan`` with ``payload_bits=13``): bits 0..11 hold
-diff + 2048, bit 12 the silent flag, bit 13 the valid flag.  Each live
+(``device_coder.layout_plan`` with ``payload_bits=pb + 1``): bits
+0..pb-1 hold diff + 2^(pb - 1), bit pb the silent flag, bit pb + 1 the
+valid flag, with pb = ``rice.rice_pb(bits)`` (12 for coding depths up to
+12, 16 for 13..16).  Each live
 cell (valid, not silent) gets one ``len << 18 | val`` code word, and its
 lane's four states (drift, error_sum, bias, count) advance.
 """
@@ -18,7 +20,7 @@ import torch
 
 from .. import _build
 from .adapt import successors
-from .rice import PAYLOAD_BITS, vlc_code_word, vlc_update
+from .rice import rice_pb, vlc_code_word, vlc_update
 
 I32 = torch.int32
 _K = _build.KERNELS["vlc"]
@@ -36,7 +38,7 @@ def vlc_adapt_plain(ch1_cells, tile_caps, tile_bases, tile_pred, s0_blocks,
     with the continuation flag loads.  ``tiles`` restricts the walk to the
     listed tile indices (ascending, closed under tile_pred)."""
     dev = ch1_cells.device
-    pb = PAYLOAD_BITS
+    pb = rice_pb(bits)
     caps = tile_caps.tolist()
     bases = tile_bases.tolist()
     preds = tile_pred.tolist()
@@ -68,10 +70,6 @@ def vlc_adapt_plain(ch1_cells, tile_caps, tile_bases, tile_pred, s0_blocks,
 def vlc_adapt(ch1_cells, tile_caps, tile_bases, tile_pred, s0_blocks,
               bits: int):
     """K5 wrapper: (code (CELLROWS, 128), ends (TILES, 4, 128)) int32."""
-    if bits > 12:
-        raise NotImplementedError(
-            "vlc_adapt: the 12-bit cell payload covers coding depths <= 12 "
-            "(Golomb-Rice is 8-bit by the format)")
     dev = ch1_cells.device
     cellrows = ch1_cells.shape[0]
     tiles = tile_caps.shape[0]
@@ -88,6 +86,7 @@ def vlc_adapt(ch1_cells, tile_caps, tile_bases, tile_pred, s0_blocks,
     ends = torch.zeros((tiles, 4, 128), dtype=I32, device=dev)
     _K.launch(ch1_cells.data_ptr(), tile_caps.data_ptr(),
               tile_bases.data_ptr(), tile_pred.data_ptr(), succ.data_ptr(),
-              s0_blocks.data_ptr(), tiles, cellrows, bits, code.data_ptr(),
-              ends.data_ptr(), _build.stream_handle(ch1_cells))
+              s0_blocks.data_ptr(), tiles, cellrows, bits, rice_pb(bits),
+              code.data_ptr(), ends.data_ptr(),
+              _build.stream_handle(ch1_cells))
     return code, ends

@@ -19,6 +19,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 # no int32 rate is published; the float32 non-tensor peak is no lower
 OPS_PER_S = 67e12
+PROFILE_TRIES = 3
 
 
 def bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
@@ -69,6 +70,54 @@ def device_ms_once(fn, device) -> tuple:
     b.record()
     b.synchronize()
     return out, a.elapsed_time(b)
+
+
+def profiled_ms(fn, reps: int, device, kernels: int) -> tuple:
+    """The device time alone of one fn() call (the spans of its kernels
+    and copies on the card, ``torch.profiler`` over ``reps`` calls after a
+    warm-up) and the kernels the profiler saw a call; (None, None) off
+    the card.  ``kernels`` is the count of kernels fn() launches: the
+    profiler drops a call's device events now and then, so the profile is
+    taken again while it saw another count, and after PROFILE_TRIES such
+    profiles the call fails (AssertionError) rather than report a time
+    short of kernels."""
+    if torch.device(device).type != "cuda":
+        return None, None
+    seen = []
+    for _ in range(PROFILE_TRIES):
+        prof = device_profile(fn, reps, device)
+        n = round(reps * sum(c for name, (_, c) in prof.items()
+                             if not name.startswith(("Memcpy", "Memset"))))
+        if n == reps * kernels:
+            return sum(ms for ms, _ in prof.values()), kernels
+        seen.append(n / reps)
+    raise AssertionError(f"the profiler saw {seen} kernels a call in "
+                         f"{PROFILE_TRIES} profiles, not the {kernels} "
+                         "launched")
+
+
+def device_profile(fn, reps: int, device) -> dict:
+    """{name: [ms, count]} a fn() call of each kernel or copy on the card,
+    from ``torch.profiler`` over ``reps`` calls after a warm-up; empty
+    off the card or where the profiler saw no device activity."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return {}
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize(dev)
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            acc = out.setdefault(e.name, [0.0, 0.0])
+            acc[0] += e.time_range.elapsed_us() / reps / 1e3
+            acc[1] += 1 / reps
+    return out
 
 
 def device_label(device) -> str:

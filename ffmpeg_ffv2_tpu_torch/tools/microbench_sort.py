@@ -7,16 +7,24 @@ microbench_unsort.py`` (candidate D, per-slice rows of slice-local keys
 with duplicates and 12% INT32_MAX sentinels, and candidate B, the same
 records as one global row, padded to 2^22 with INT32_MAX keys as the op
 requires) and ``tools/microbench_sort2.py:93-96`` (the batched 30 x 128K
-shape, random 30-bit keys).  Per case: the op's time (operand stacking
-and the kernel launches), the plain version's (one run, which is also its
-comparison run), the library's (``torch.sort(stable=True)`` of the key,
-then ``torch.gather`` of each payload), the bound (every operand read
-and written once), exactness against the plain version on every element,
-and against the library: whole where each row's keys are duplicate-free,
-else the keys only (the network is not stable).
+shape, random 30-bit keys).  Per case: what the kernels run
+(``ops.sort.geometry``: index or direct mode, the words ``W`` an element
+carries, the chunk log2 ``Lc``, the merge group ``R``, and the device
+kernels of one call: local + merged + gather), the op's time (CUDA
+events: its host work and the launches), its device time alone and the
+kernels the profiler saw a call (``torch.profiler``), the plain
+version's time (one run, which is also its comparison run), the
+library's (``torch.sort(stable=True)`` of the key, then ``torch.gather``
+of each payload), the bound (every operand read and written once),
+exactness against the plain version on every element, and against the
+library: whole where each row's keys are duplicate-free, else the keys
+only (the network is not stable).
 
     python -m ffmpeg_ffv2_tpu_torch.tools.microbench_sort [substring] \
-        [--device cpu]
+        [--device cpu] [--profile]
+
+``--profile`` also prints each case's device time by kernel (one line a
+kernel name: ms and launches a call).
 """
 
 from __future__ import annotations
@@ -29,9 +37,10 @@ import torch
 
 from ..ops import sort
 from . import (bound_ms, device_label, device_ms, device_ms_once,
-               launches_of)
+               device_profile, launches_of, profiled_ms)
 
 INT32_MAX = 2 ** 31 - 1
+NUM_KEYS = 1                    # every case sorts by operand 0 alone
 S, CAP = 30, 1 << 17            # 1080p / 30 slices, cells a slice
 
 # (name, B, M, operands, key kind)
@@ -96,12 +105,18 @@ def library_sort(operands):
 
 def run_case(name, B, M, n, kind, device="cuda", reps=5, seed=1) -> dict:
     """One case: the op once (its launches counted), then the comparisons
-    and the timings."""
+    and the timings.  The profiler's kernel count is held to
+    ``geometry``'s (``profiled_ms`` raises where it never agrees)."""
     ops = [torch.as_tensor(o, device=device)
            for o in make_operands(kind, B, M, n, seed)]
     kern = sort.body_for(B, M, n)
-    got, launches = launches_of(lambda: sort.sort_rows(ops), (kern,))
-    ref, plain_ms = device_ms_once(lambda: sort.bitonic_plain(ops), device)
+    limits = (sort.card_limits(device) if torch.device(device).type ==
+              "cuda" else sort.H100_LIMITS)
+    geo = sort.geometry(n, NUM_KEYS, B, M, limits)
+    got, launches = launches_of(lambda: sort.sort_rows(ops, NUM_KEYS),
+                                (kern,))
+    ref, plain_ms = device_ms_once(
+        lambda: sort.bitonic_plain(ops, NUM_KEYS), device)
     err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(got, ref))
     exact_plain = all(torch.equal(a, b) for a, b in zip(got, ref))
     del ref
@@ -112,17 +127,21 @@ def run_case(name, B, M, n, kind, device="cuda", reps=5, seed=1) -> dict:
     else:
         exact_library = torch.equal(got[0], lib[0])
     del got, lib
-    ms = device_ms(lambda: sort.sort_rows(ops), reps, device)
+    ms = device_ms(lambda: sort.sort_rows(ops, NUM_KEYS), reps, device)
+    dev_ms, dev_kernels = profiled_ms(
+        lambda: sort.sort_rows(ops, NUM_KEYS), reps, device, geo["kernels"])
     library_ms = device_ms(lambda: library_sort(ops), reps, device)
     nbytes = 2 * n * B * M * 4
     cx = B * sort.compare_exchanges(M)
     bnd, by = bound_ms(nbytes, cx)
     L = M.bit_length() - 1
     return dict(name=name, kernel=kern.name, B=B, M=M, operands=n,
-                keys=kind, unique_keys=unique, launches=launches[kern.name],
+                num_keys=NUM_KEYS, keys=kind, unique_keys=unique,
+                launches=launches[kern.name],
                 ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bnd, bound_by=by, bound_bytes=nbytes, bound_ops=cx,
                 compare_exchanges=cx, network_substages=L * (L + 1) // 2,
+                **geo, profiled_ms=dev_ms, profiled_kernels=dev_kernels,
                 max_abs_err=err, exact_plain=exact_plain,
                 exact_library=exact_library,
                 library_compared="all operands" if unique else "keys only",
@@ -136,8 +155,14 @@ def run(cases=CASES, device="cuda", reps=5) -> list:
 
 def line(r: dict) -> str:
     el = r["B"] * r["M"]
-    return (f"{r['name']:50s} [{r['device']}] {r['kernel']}: "
-            f"{r['ms']:9.3f} ms ({el / r['ms'] / 1e3:8.1f} Mel/s), plain "
+    prof = ("not measured" if r["profiled_ms"] is None else
+            f"{r['profiled_ms']:.4f} ms in {r['profiled_kernels']:g} "
+            f"kernels")
+    return (f"{r['name']:50s} [{r['device']}] {r['kernel']} {r['mode']} "
+            f"W={r['W']} Lc={r['Lc']} R={r['R']} kernels {r['local']} "
+            f"local + {r['merged']} merged + {r['gather']} gather: "
+            f"{r['ms']:9.3f} ms ({el / r['ms'] / 1e3:8.1f} Mel/s), device "
+            f"alone {prof}, plain "
             f"{r['plain_ms']:9.2f} ms, library {r['library_ms']:8.3f} ms, "
             f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}), launches "
             f"{r['launches']}, exact plain={r['exact_plain']} library="
@@ -150,6 +175,8 @@ def main(argv=None) -> int:
                     help="run only the cases whose name holds this")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (the plain versions)")
+    ap.add_argument("--profile", action="store_true",
+                    help="print each case's device time by kernel")
     args = ap.parse_args(argv)
     ok = True
     for c in CASES:
@@ -157,6 +184,14 @@ def main(argv=None) -> int:
             r = run_case(*c, device=args.device)
             print(line(r), flush=True)
             ok &= r["exact_plain"] and r["exact_library"]
+            if args.profile:
+                _, B, M, n, kind = c
+                ops = [torch.as_tensor(o, device=args.device)
+                       for o in make_operands(kind, B, M, n)]
+                prof = device_profile(lambda: sort.sort_rows(ops, NUM_KEYS),
+                                      5, args.device)
+                for name, (ms, cnt) in prof.items():
+                    print(f"    {ms:9.4f} ms {cnt:5.1f} x {name[:110]}")
     return 0 if ok else 1
 
 

@@ -20,7 +20,8 @@ import numpy as np
 import torch
 
 from .. import _build
-from . import bound_ms, device_label, device_ms, device_ms_once, launches_of
+from . import (bound_ms, device_label, device_ms, device_ms_once,
+               launches_of, profiled_ms)
 
 LANES = 128
 _K13 = _build.KERNELS["probe_scalar_extract"]
@@ -165,7 +166,9 @@ def _bytes(args, out) -> int:
 
 def run(device="cuda", timing_reps=20) -> list:
     """Every probe: its result, the kernel against its plain version on the
-    whole output, the launches of the probe's one call, and the times."""
+    whole output, the launches of the probe's one call, and the times
+    (CUDA events around the call, and its device time alone from
+    ``torch.profiler``)."""
     out = []
     for name, K, fn, plain, args, result, expected in inputs(device):
         got, launches = launches_of(lambda: fn(*args), (K,))
@@ -178,6 +181,8 @@ def run(device="cuda", timing_reps=20) -> list:
             max_abs_err=int((got.long() - ref.long()).abs().max()),
             exact_plain=torch.equal(got, ref),
             ms=device_ms(lambda: fn(*args), timing_reps, device),
+            profiled_ms=profiled_ms(lambda: fn(*args), timing_reps,
+                                    device, 1)[0],
             plain_ms=plain_ms,
             library_ms=device_ms(lambda: plain(*args), timing_reps, device),
             bound_ms=bnd, bound_by=by, bound_bytes=nbytes, bound_ops=ops,

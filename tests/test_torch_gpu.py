@@ -11,6 +11,7 @@ conftest.py (which imports jax):
     python -m pytest --noconftest -q tests/test_torch_gpu.py
 """
 
+import dataclasses
 import os
 import sys
 
@@ -32,8 +33,8 @@ from ffmpeg_ffv2_tpu_torch.ffv1 import tpu_coder as tc  # noqa: E402
 from ffmpeg_ffv2_tpu_torch.ffv1 import tpu_encoder as te  # noqa: E402
 from ffmpeg_ffv2_tpu_torch.ffv1 import vlc  # noqa: E402
 from ffmpeg_ffv2_tpu_torch.ffv1.native import NativeFFV1Codec  # noqa: E402
-from ffmpeg_ffv2_tpu_torch.ffv1.params import (FFV1Config,  # noqa: E402
-                                               params_from_config)
+from ffmpeg_ffv2_tpu_torch.ffv1.params import (  # noqa: E402
+    CODER_GOLOMB, FFV1Config, params_from_config)
 from ffmpeg_ffv2_tpu_torch.ops import place as pl  # noqa: E402
 from ffmpeg_ffv2_tpu_torch.ops import sort  # noqa: E402
 from ffmpeg_ffv2_tpu_torch.tools import microbench_prims as mp  # noqa: E402
@@ -169,21 +170,24 @@ def test_torch_gpu_rac_render_long_fill_run():
         assert torch.equal(a[0].cpu(), b[0])
 
 
-def test_torch_gpu_vlc_matches_plain(monkeypatch):
-    """K5 against its plain row scan on a small split-group frame, from
-    random start states (zero carries included: the continuation flag of a
+def _vlc_against_plain(monkeypatch, pix, params=None):
+    """K5 against its plain row scan on a small split-group frame of
+    ``pix`` (Golomb-Rice, ``params`` forcing it past 8 bits), from random
+    start states (zero carries included: the continuation flag of a
     successor whose predecessor tile is emptied)."""
     monkeypatch.setattr(host, "GCAP", 64)
     w, h = 128, 96
     cfg = FFV1Config(level=3, coder=0, slices=4)
-    p = params_from_config(cfg, "yuv420p", w, h)
-    enc = dc.DeviceFFV1Encoder(w, h, "yuv420p", cfg, device="cuda")
+    p = params or params_from_config(cfg, pix, w, h)
+    enc = dc.DeviceFFV1Encoder(w, h, pix, cfg, device="cuda", params=p)
     planes = _frame(p, w, h, 0, np.random.RandomState(5), True)
+    if p.bits > 8:             # the 8-bit frame scaled to the full range
+        planes = [x << (p.bits - 8) | x for x in planes]
     enc.encode(planes, force_keyframe=True)             # settles the caps
     dev = [torch.as_tensor(x, device="cuda") for x in planes]
     ctx, streams = enc.phase_a_rice(dev)
     plan = enc.layout(ctx, streams["payload"], enc.tiles_cap,
-                      enc.cellrows_cap, rice.PAYLOAD_BITS + 1)
+                      enc.cellrows_cap, enc.rice_pb + 1)
     assert (plan["tile_pred"] >= 0).any()
     ch1c, _ = pl.place(plan["dest"], plan["ch1"], plan["orig"],
                        enc.cellrows_cap)
@@ -201,8 +205,34 @@ def test_torch_gpu_vlc_matches_plain(monkeypatch):
             caps = caps.clone()
             caps[plan["tile_pred"][plan["tile_pred"] >= 0][0]] = 0
         k5 = (ch1c, caps, plan["tile_bases"], plan["tile_pred"], s0)
-        for a, b in zip(vlc.vlc_adapt(*k5, 8), vlc.vlc_adapt_plain(*k5, 8)):
+        _build.reset_counts()
+        got = vlc.vlc_adapt(*k5, p.bits)
+        assert _build.KERNELS["vlc"].launches == 1
+        for a, b in zip(got, vlc.vlc_adapt_plain(*k5, p.bits)):
             assert torch.equal(a, b)
+
+
+def test_torch_gpu_vlc_matches_plain(monkeypatch):
+    _vlc_against_plain(monkeypatch, "yuv420p")
+
+
+def test_torch_gpu_vlc_pb16_matches_plain(monkeypatch):
+    """K5 with the 16-bit cell payload (pb = 16): yuv420p16 on
+    Golomb-Rice; then the encoder's packets equal the native codec's."""
+    w, h = 128, 96
+    cfg = FFV1Config(level=3, coder=0, slices=4)
+    p = dataclasses.replace(params_from_config(cfg, "yuv420p16", w, h),
+                            ac=CODER_GOLOMB)
+    _vlc_against_plain(monkeypatch, "yuv420p16", p)
+    enc = dc.DeviceFFV1Encoder(w, h, "yuv420p16", cfg, device="cuda",
+                               params=p)
+    assert enc.rice_pb == 16
+    nat = NativeFFV1Codec(p)
+    rng = np.random.RandomState(8)
+    for t in range(3):
+        planes = _frame(p, w, h, t, rng, t == 1)
+        assert enc.encode(planes, force_keyframe=t == 0) == nat.encode(
+            planes, t == 0), t
 
 
 def test_torch_gpu_ladder_matches_plain():
@@ -368,17 +398,35 @@ def test_torch_gpu_adapt_repeat_substeps(monkeypatch, pix, code_bits):
     (3, 2048, 3, 1, "rowsort"), (2, 4096, 4, 2, "rowsort"),
     (3, 1 << 16, 2, 1, "rowsort"), (2, 1 << 16, 5, 2, "rowsort"),
     (1, 1 << 16, 10, 1, "rowsort"), (1, 1 << 20, 3, 1, "sort"),
-    (1, 1 << 20, 3, 2, "sort"), (1, 1 << 19, 7, 1, "sort")])
+    (1, 1 << 20, 3, 2, "sort"), (1, 1 << 19, 7, 1, "sort"),
+    # index mode, one key (K8) and two keys (K9)
+    (1, 1 << 20, 10, 1, "sort"), (2, 1 << 16, 5, 2, "rowsort"),
+    # direct mode: n = 2, and n = 3 with two keys
+    (1, 1 << 21, 2, 1, "sort"), (2, 1 << 17, 3, 2, "rowsort"),
+    # Lc == L in index mode: one block a row (enough rows for the SMs);
+    # and few rows, where the chunk shrinks to fill the SMs
+    (160, 1 << 14, 6, 1, "rowsort"), (136, 1 << 14, 4, 2, "rowsort"),
+    (3, 1 << 14, 4, 2, "rowsort"),
+    # one operand: chunks of 2^14 (the largest) and of 2^13
+    (200, 1 << 15, 1, 1, "rowsort"), (1, 1 << 20, 1, 1, "rowsort"),
+    # 17 operands: the pointer table has no fixed cap
+    (1, 1 << 18, 17, 2, "sort"), (3, 4096, 17, 1, "rowsort")])
 def test_torch_gpu_sort_matches_plain(B, M, n, num_keys, kernel):
     """K8/K9 against the plain network on duplicate keys (negative values
-    and INT32_MAX sentinels among them), whole rows in shared memory and
-    hierarchical; and against torch.sort + gather on unique keys."""
+    and INT32_MAX sentinels among them), in both modes (index: the keys
+    and the column ride; direct: the operands), whole rows in shared
+    memory and hierarchical with merged cross passes; and against
+    torch.sort + gather on unique keys.  One launcher call a sort."""
     rng = np.random.RandomState(M + n)
     keys = rng.randint(-500, 500, (num_keys, B, M)).astype(np.int32)
     keys[0][rng.rand(B, M) < 0.1] = 2 ** 31 - 1
     pay = rng.randint(-2 ** 31, 2 ** 31 - 1, (n - num_keys, B, M),
                       dtype=np.int64).astype(np.int32)
     ops = [torch.as_tensor(a, device="cuda") for a in (*keys, *pay)]
+    geo = sort.geometry(n, num_keys, B, M, sort.card_limits("cuda"))
+    assert geo["mode"] == ("index" if n > num_keys + 1 else "direct")
+    if B >= 136 and M == 1 << 14:
+        assert geo["Lc"] == 14 and geo["kernels"] == 1 + (n > num_keys + 1)
     _build.reset_counts()
     got = sort.sort_rows(ops, num_keys)
     assert {k: _build.KERNELS[k].launches for k in ("sort", "rowsort")} == {

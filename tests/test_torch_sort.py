@@ -43,6 +43,31 @@ def test_torch_sort_plan_expands_to_the_network(L):
         assert sort.substages(*sort.plan(L, Lc)) == full, Lc
 
 
+@pytest.mark.parametrize("L", range(1, 21))
+def test_torch_sort_plan_merged_expands_to_the_network(L):
+    """plan_merged keeps plan's local phases and cuts each k's cross
+    sub-stages j = k .. Lc into ceil(m / R) groups of at most R, in order;
+    its sub-stages are the unchunked network's, for every Lc and R."""
+    full = [(k, j) for k in range(L) for j in range(k, -1, -1)]
+    for Lc in range(1, L + 1):
+        ref, ks, js = sort.plan(L, Lc)
+        for R in range(1, 6):
+            phases, mks, mjs = sort.plan_merged(L, Lc, R)
+            assert phases.dtype == np.int32 and phases.shape[1] == 4
+            assert np.array_equal(mks, ks) and np.array_equal(mjs, js)
+            assert sort.substages(phases, mks, mjs) == full, (Lc, R)
+            local = phases[phases[:, 0] == sort.LOCAL]
+            assert np.array_equal(local[:, 1:3], ref[ref[:, 0] ==
+                                                     sort.LOCAL][:, 1:])
+            merged = phases[phases[:, 0] == sort.MERGED]
+            assert ((merged[:, 3] >= 1) & (merged[:, 3] <= R)).all()
+            assert (merged[:, 2] - merged[:, 3] + 1 >= Lc).all()
+            assert len(merged) == sum(-(-(k - Lc + 1) // R)
+                                      for k in range(Lc, L))
+    with pytest.raises(ValueError):
+        sort.plan_merged(L, 1, 0)
+
+
 def _pallas_case(B, M, n_ops, num_keys, seed):
     """tests/test_sort_pallas.py:_case's operands (unique keys, an
     INT32_MAX padded tail; for 2 keys a duplicated key0 and unique
@@ -122,6 +147,72 @@ def test_torch_bitonic_plain_chunking_invariant(num_keys):
             assert torch.equal(a, b), c
 
 
+def _indexed_cases():
+    """(name, operands, num_keys): the duplicate-key cases and the Pallas
+    cases, for one and two keys, from n = num_keys + 1 (the kernels'
+    direct mode) up to 12 operands."""
+    for nk in (1, 2):
+        for n in (nk + 1, nk + 2, 5, 12):
+            yield (f"dup nk={nk} n={n}", _dup_ops(2, 2048, n, nk, 31 + n),
+                   nk)
+            yield (f"pallas nk={nk} n={n}",
+                   _pallas_case(1, 4096, n, nk, 41 + n), nk)
+    yield "dup 1 op", _dup_ops(3, 1024, 1, 1, 5), 1
+
+
+@pytest.mark.parametrize("case", list(_indexed_cases()),
+                         ids=lambda c: c[0])
+def test_torch_bitonic_plain_indexed_matches_plain(case):
+    """Keys and an int32 column through the network, then a gather of every
+    payload, equal the network on all operands element for element,
+    duplicate keys (and their INT32_MAX sentinels) included; chunked as
+    the kernels chunk too."""
+    _, ops, nk = case
+    ops = [torch.as_tensor(o) for o in ops]
+    want = sort.bitonic_plain(ops, nk)
+    for chunk in (None, 9):
+        got = sort.bitonic_plain_indexed(ops, nk, chunk_log2=chunk)
+        assert len(got) == len(ops)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), chunk
+
+
+@pytest.mark.parametrize("num_keys", [1, 2])
+def test_torch_bitonic_plain_merged_order(num_keys):
+    """The network run in plan_merged's order (chunks and merge groups
+    the kernels use) equals the unchunked network."""
+    ops = [torch.as_tensor(o) for o in _dup_ops(2, 8192, 4, num_keys, 17)]
+    whole = sort.bitonic_plain(ops, num_keys)
+    for c, R in ((8, 1), (8, 4), (9, 5), (10, 2), (3, 3), (13, 4)):
+        got = sort.bitonic_plain(ops, num_keys, chunk_log2=c, merge=R)
+        for a, b in zip(got, whole):
+            assert torch.equal(a, b), (c, R)
+
+
+def test_torch_sort_geometry():
+    """What the kernels run at the tools' shapes on an H100: index mode
+    carries the keys and the column (W = num_keys + 1) past one payload,
+    direct mode the operands; the chunk follows W; one call's kernels."""
+    def geo(n, nk, B, M):
+        g = sort.geometry(n, nk, B, M)
+        return (g["mode"], g["W"], g["Lc"], g["local"], g["merged"],
+                g["gather"], g["kernels"])
+
+    assert geo(10, 1, 1, 1 << 22) == ("index", 2, 14, 9, 12, 1, 22)
+    assert geo(7, 1, 1, 1 << 22) == geo(10, 1, 1, 1 << 22)
+    assert geo(9, 1, 30, 1 << 17) == ("index", 2, 14, 4, 3, 1, 8)
+    assert geo(2, 1, 30, 1 << 17) == ("direct", 2, 14, 4, 3, 0, 7)
+    assert geo(3, 2, 30, 1 << 17) == ("direct", 3, 14, 4, 3, 0, 7)
+    assert geo(5, 2, 30, 1 << 17) == ("index", 3, 14, 4, 3, 1, 8)
+    assert geo(1, 1, 200, 1 << 15) == ("direct", 1, 14, 2, 1, 0, 3)
+    assert geo(17, 2, 200, 1 << 14) == ("index", 3, 14, 1, 0, 1, 2)
+    # one row of 2^16 holds 4 chunks of 2^14: the chunk shrinks to 2^10
+    # (64 blocks; no smaller)
+    assert geo(4, 1, 1, 1 << 16) == ("index", 2, 10, 7, 8, 1, 16)
+    # merging took x 10's cross passes from 36 to 12
+    assert (sort.plan(22, 14)[0][:, 0] == sort.CROSS).sum() == 36
+
+
 def test_torch_sort_rows_cpu_contract(monkeypatch):
     """On CPU tensors sort_rows takes the plain version (counted on the
     body the JAX branch rule picks) and raises where the JAX op asserts."""
@@ -186,3 +277,6 @@ def test_torch_microbench_sort_cpu(kind):
     assert r["library_compared"] == ("keys only" if kind == "slice"
                                      else "all operands")
     assert "cpu" in mbs.line(r)
+    assert (r["mode"], r["W"], r["Lc"], r["R"], r["kernels"]) == (
+        "index", 2, 10, sort.MERGE_R, 4)
+    assert r["profiled_ms"] is None and "not measured" in mbs.line(r)

@@ -137,3 +137,33 @@ def test_torch_tools_cpu_runs():
     with pytest.raises(ValueError):
         probes.big_prefetch(torch.zeros(60, dtype=torch.int32),
                             torch.zeros((4, 128), dtype=torch.int32))
+
+
+def test_torch_profiled_ms_holds_the_kernel_count(monkeypatch):
+    """``tools.profiled_ms`` takes the profile again where the profiler
+    saw fewer kernels than the call launches (copies not counted), and
+    fails after PROFILE_TRIES such profiles; off the card it measures
+    nothing."""
+    import ffmpeg_ffv2_tpu_torch.tools as tools
+    full = {"Memcpy HtoD": [0.001, 1.0], "local": [0.5, 3.0],
+            "gather": [0.25, 1.0]}
+    short = {"Memcpy HtoD": [0.001, 1.0], "local": [0.4, 2.4]}
+    seen = []
+
+    def fake(profiles):
+        def device_profile(fn, reps, device):
+            seen.append(device)
+            return profiles[len(seen) - 1]
+        return device_profile
+
+    monkeypatch.setattr(tools, "device_profile", fake([short, full]))
+    ms, n = tools.profiled_ms(None, 5, "cuda", 4)
+    assert ms == pytest.approx(0.751) and n == 4
+    assert len(seen) == 2
+    seen.clear()
+    monkeypatch.setattr(tools, "device_profile",
+                        fake([short] * tools.PROFILE_TRIES))
+    with pytest.raises(AssertionError, match="not the 4 launched"):
+        tools.profiled_ms(None, 5, "cuda", 4)
+    assert len(seen) == tools.PROFILE_TRIES
+    assert tools.profiled_ms(None, 5, "cpu", 4) == (None, None)
