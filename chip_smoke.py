@@ -10,18 +10,22 @@ wall seconds:
 
 0. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
 1. the build of the CUDA kernels from csrc/ (one nvcc per source, all
-   started together) and of the native C++ FFV1 codec, the oracle (g++);
+   started together), of the native C++ FFV1 codec, the oracle (g++), and
+   of tools/latency.cu, whose chains give the SM cycles a link of K4's
+   coder step and of K2's table lookup on this card;
 2. range, 1920x1080 yuv420p, FFV1Config(level=3, coder=1, slices=30): K1-K4
    each against its plain PyTorch version on the card, on the inputs frame
-   0 gives it (K2 and K4 plain versions on a stated cut), with CUDA-event
-   times of both, plus the time of each stage of frame 0;
-3. range: 4 frames (1 key, 3 inter) through encode(): every packet must
+   0 gives it (K2 and K4 plain versions on a stated cut: K4's first 3080
+   steps, across seven stages of its 512-op ring), with CUDA-event times of
+   both, K4's ns a step and K2's ns a row of the longest chain, plus the
+   time of each stage of frame 0;
+3. range: 8 frames (1 key, 7 inter) through encode(): every packet must
    equal the native codec's and decode back to the input exactly, K1-K4
    must have launched and no plain version may have run;
 4. Golomb-Rice, the same frames with coder=0: K5 (vlc) against its plain
    version (on a cut) and the ladder kernel against its plain loop (on the
    frame's events), K1 again on the rice cells, and the stage times;
-5. Golomb-Rice: 4 frames through encode(), checked as in phase 3, with K1,
+5. Golomb-Rice: 8 frames through encode(), checked as in phase 3, with K1,
    K5 and the ladder kernel launched and no plain version run;
 6. rgb48 1920x1080 (16-bit RGB film scans), FFV1Config(level=3, coder=1,
    slices=30, slicecrc=1), coding depth 17: K2 with its R = 7 repeat
@@ -79,7 +83,10 @@ before the last is a JSON object with one entry per kernel (and K2 again
 at rgb48; K6's entry carries its rgb48 numbers too): its times, its bound
 on this card (bytes over the memory rate or operations over the peak rate,
 whichever is larger, from this run's inputs; and for a serial kernel the
-longest dependent chain at one step per SM clock) and the time of one
+longest dependent chain at one step per SM clock, and for K2, K4 and K6
+the work's longest chain of dependent links (K4: the longest slice's
+steps; K2, K6: the lookups a slot's hits need) at the cycles a link
+measured in phase 1) and the time of one
 PyTorch call computing the same function where there is one. The last line
 is {"ok": true, "device": {...}}. Any failure raises and exits non-zero
 without those lines. Exits non-zero at once when torch sees no CUDA
@@ -96,15 +103,13 @@ import time
 
 import numpy as np
 
-W, H, N_FRAMES = 1920, 1080, 4
+W, H, N_FRAMES = 1920, 1080, 8
 N_NEW = 3                   # frames of each of phases 6-9 (1 key, 2 inter)
 SD = (720, 486)             # phase 9's frame size
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 # no int32 rate is published; the float32 non-tensor peak (67 TFLOP/s) is
 # no lower than the int32 rate, so ops over it are a lower bound on time
 OPS_PER_S = 67e12
-
-
 def log(*a):
     print(*a, flush=True)
 
@@ -228,13 +233,17 @@ def max_abs_err(got, ref) -> float:
 
 
 def bound(nbytes: int, ops: int, chain_steps: int | None = None,
-          clock_mhz: float | None = None) -> dict:
+          clock_mhz: float | None = None, chain_links: int | None = None,
+          link_cycles: float | None = None) -> dict:
     """The least time of the work on this card: bytes (each input read
     once, each output written once) over the memory rate, or operations
     over the peak rate, whichever is larger; for a serial kernel also its
-    longest dependent chain at one step per SM clock cycle.  The callers
-    count what this run's data needs (valid cells, tiles in use, events,
-    op words), never the padded capacities."""
+    longest dependent chain at one step per SM clock cycle and, where
+    ``chain_links`` is given, the work's longest chain of dependent links
+    at ``link_cycles``, the cycles a link that ``tools/latency.py``
+    measured in this run.  The callers count what this run's data needs
+    (valid cells, tiles in use, events, op words, the lookups the hits
+    need), never the padded capacities."""
     b_ms = nbytes / HBM_BYTES_PER_S * 1e3
     o_ms = ops / OPS_PER_S * 1e3
     out = dict(bound_ms=max(b_ms, o_ms),
@@ -243,6 +252,11 @@ def bound(nbytes: int, ops: int, chain_steps: int | None = None,
     if chain_steps is not None:
         out["chain_steps"] = int(chain_steps)
         out["chain_bound_ms"] = chain_steps / (clock_mhz * 1e3)
+    if chain_links is not None:
+        out["chain_links"] = int(chain_links)
+        out["link_cycles"] = link_cycles
+        out["chain_latency_bound_ms"] = (chain_links * link_cycles
+                                         / (clock_mhz * 1e3))
     return out
 
 
@@ -379,6 +393,10 @@ def entry(out, name, path, err, ms, plain_ms, library_ms, bnd, key=None,
         f"({bnd['bound_by']})"
         + (f", chain bound {bnd['chain_bound_ms']:.4f} ms"
            if "chain_bound_ms" in bnd else "")
+        + (f", latency bound {bnd['chain_latency_bound_ms']:.4f} ms "
+           f"({bnd['chain_links']} dependent links at "
+           f"{bnd['link_cycles']:.2f} measured cycles a link)"
+           if "chain_latency_bound_ms" in bnd else "")
         + "".join(f", {a} {b}" for a, b in extra.items()))
 
 
@@ -422,16 +440,59 @@ def place_checks(out, k1, path, key=None, also=(), **extra):
           **extra)
 
 
-def walk_check(out, inputs, clock_mhz, key, path, emission: bool):
+def walk_links(ch1c, caps, bases, pred, s0, code_bits: int) -> int:
+    """The most table lookups that one slot state of one lane takes one
+    after the other in K2's walk: a lookup for each row whose cell hits
+    the slot, and for slots 10 and 31 one for each repeat sub-step the
+    cell's exponent reaches (``adapt_plain``'s v10, v31); a tile adds to
+    its predecessor's count in the lanes whose continuation flag is set,
+    and an empty tile ends the chain (its state is zeroed)."""
+    import torch
+    from ffmpeg_ffv2_tpu_torch.ffv1 import host
+    from ffmpeg_ffv2_tpu_torch.ffv1.symbols import exponent, slot_bit_grid
+    mask, bias, vbit = host.payload_field(code_bits)
+    R = max(0, code_bits - 10)
+    caps_h, bases_h, pred_h = caps.tolist(), bases.tolist(), pred.tolist()
+    T, dev = len(caps_h), ch1c.device
+    tile_of = torch.full((ch1c.shape[0],), T, dtype=torch.long, device=dev)
+    for t, (c, b) in enumerate(zip(caps_h, bases_h)):
+        if c > 0:
+            tile_of[b:b + c] = t
+    counts = torch.zeros((T + 1, 128, 32), dtype=torch.int32, device=dev)
+    for lo in range(0, ch1c.shape[0], 2048):
+        r = ch1c[lo:lo + 2048]
+        v = (r & mask) - bias
+        ok = ((r >> vbit) & 1) == 1
+        hits = (slot_bit_grid(v)[0] & ok[..., None]).to(torch.int32)
+        if R:
+            e = torch.where(ok, exponent(v.abs()), 0)
+            hits[..., 10] += torch.clamp(e - 9, 0, R)
+            hits[..., 31] += torch.clamp(e - 10, 0, R)
+        counts.index_add_(0, tile_of[lo:lo + 2048], hits)
+    total = counts[:T].clone()
+    for t, p in enumerate(pred_h):      # predecessors come first
+        if caps_h[t] <= 0:
+            total[t] = 0
+        elif p >= 0:
+            cont = (s0[t, 32] > 0)[:, None]
+            total[t] += torch.where(cont, total[p], 0)
+    return int(total.max()) if T else 0
+
+
+def walk_check(out, inputs, clock_mhz, cycles, key, path, emission: bool):
     """K2 (or K6) on every tile of a frame's cells, and against its plain
     row scan on a cut of tiles closed under tile_pred (the kernel again on
     the cut, every other tile emptied).  Bound: each valid cell read and
     its output words written, the start and end blocks and the tile words
     of the tiles in use, the table; chain: the longest successor chain's
-    rows.  Returns the count of valid cells with e > 9 in the cut."""
+    rows, and its latency bound the longest chain of lookups the hits
+    need (``walk_links``) at the measured cycles of a lookup (``cycles``,
+    ``tools/latency.py``).  Returns the count of valid cells with e > 9 in
+    the cut."""
     import torch
     from ffmpeg_ffv2_tpu_torch.ffv1 import adapt as ad
     from ffmpeg_ffv2_tpu_torch.ffv1 import host
+    from ffmpeg_ffv2_tpu_torch.tools import latency
     k = inputs["walk"]
     ch1c, caps, bases, pred, s0, table, code_bits = k[:7]
     rest = k[7:]                                  # K6: ev_words
@@ -455,13 +516,20 @@ def walk_check(out, inputs, clock_mhz, key, path, emission: bool):
     n_rows = sum(c for c in caps_h if c > 0)
     tiles = used_tiles(caps)
     words = out_k.shape[1]
-    entry(out, "adapt_emission" if emission else "adapt", path, err,
-          cuda_ms(lambda: kern(*k), 5), plain_ms, None,
+    ms = cuda_ms(lambda: kern(*k), 5)
+    rows_chain = chain_rows(caps_h, pred.tolist())
+    name = "adapt_emission" if emission else "adapt"
+    links = walk_links(ch1c, caps, bases, pred, s0, code_bits)
+    log(f"kernel {key or name}: {ms * 1e6 / rows_chain:.1f} ns a chain row "
+        f"({ms:.4f} ms over the longest chain's {rows_chain} rows; the "
+        f"longest chain of lookups a slot's hits need: {links})")
+    entry(out, name, path, err, ms, plain_ms, None,
           bound(valid * (4 + 4 * words)
                 + tiles * ((33 + 32) * 128 * 4 + 12) + 512,
                 valid * (32 + 2 * max(0, code_bits - 10)),
-                chain_rows(caps_h, pred.tolist()), clock_mhz),
+                rows_chain, clock_mhz, links, cycles[latency.LOOKUP]),
           key=key, ms_cut=cuda_ms(lambda: kern(*kc), 5),
+          ns_a_chain_row=ms * 1e6 / rows_chain,
           cut=f"tiles {cut} ({rows.numel()} of {n_rows} rows); plain_ms "
               "and ms_cut on the cut, ms on every tile",
           code_bits=code_bits, out_words=words,
@@ -471,13 +539,15 @@ def walk_check(out, inputs, clock_mhz, key, path, emission: bool):
     return big_cut
 
 
-def range_checks(out, inputs, clock_mhz):
-    """K2-K4 against their plain versions on range frame 0's inputs."""
+def range_checks(out, inputs, clock_mhz, cycles):
+    """K2-K4 against their plain versions on range frame 0's inputs;
+    ``cycles``: the chains' measured cycles a link (``tools/latency.py``)."""
     import torch
     from ffmpeg_ffv2_tpu_torch.ffv1 import expand as ex
     from ffmpeg_ffv2_tpu_torch.ffv1 import rac
+    from ffmpeg_ffv2_tpu_torch.tools import latency
 
-    walk_check(out, inputs, clock_mhz, "adapt", "range", False)
+    walk_check(out, inputs, clock_mhz, cycles, "adapt", "range", False)
 
     # K3 expand: full main-path shapes; bound: the inputs read, the op
     # words the slices hold written (not the op_cap capacity)
@@ -493,21 +563,26 @@ def range_checks(out, inputs, clock_mhz):
           shape=f"S={diff.shape[0]} npix={diff.shape[1]} op_cap={op_cap}")
 
     # K4 rac_render: kernel on the frame's op streams; kernel and plain on
-    # the first 2048 op steps of every slice ending in the tail ops
+    # the first 3080 op steps of every slice (six stages of the kernel's
+    # 512-op ring and 8 steps of a seventh) ending in the tail ops
     opw, steps, buf_cap = inputs["k4"]
-    n = 2048
+    n = 3 * 1024 + 8
     opw_cut = opw[:, :n].clone()
     opw_cut[:, -3:] = torch.tensor([(1 << 9) | 129, 2 << 9, 3 << 9],
                                    dtype=torch.int32, device=opw.device)
     err = max_abs_err(rac.rac_render(opw_cut, n, 8192),
                       rac.rac_render_plain(opw_cut, n, 8192))
     S = opw.shape[0]
-    entry(out, "rac_render", "range", err,
-          cuda_ms(lambda: rac.rac_render(opw, steps, buf_cap), 5),
+    ms = cuda_ms(lambda: rac.rac_render(opw, steps, buf_cap), 5)
+    live = int(inputs["n_ops"].max())
+    log(f"kernel rac_render: {ms * 1e6 / live:.2f} ns a step ({ms:.4f} ms "
+        f"over the longest slice's {live} live steps of {steps})")
+    entry(out, "rac_render", "range", err, ms,
           cuda_ms(lambda: rac.rac_render_plain(opw_cut, n, 8192), 1), None,
-          bound(n_ops * 4 + inputs["rendered"] + S * 4, n_ops,
-                int(inputs["n_ops"].max()), clock_mhz),
+          bound(n_ops * 4 + inputs["rendered"] + S * 4, n_ops, live,
+                clock_mhz, live, cycles[latency.K4_STEP]),
           ms_cut=cuda_ms(lambda: rac.rac_render(opw_cut, n, 8192), 5),
+          ns_a_step=ms * 1e6 / live,
           cut=f"first {n} op steps of each of {S} slices; plain_ms and "
               f"ms_cut on the cut, ms on {steps} steps")
 
@@ -819,6 +894,7 @@ def main() -> int:
     from ffmpeg_ffv2_tpu_torch.ffv1 import native
     from ffmpeg_ffv2_tpu_torch.ffv1.params import FFV1Config
     from ffmpeg_ffv2_tpu_torch.ops.place import place
+    from ffmpeg_ffv2_tpu_torch.tools import latency
 
     # 0. device
     def smi(query):
@@ -835,7 +911,8 @@ def main() -> int:
         f"{torch.version.cuda}, python {sys.version.split()[0]}, max SM "
         f"clock {clock_mhz} MHz")
 
-    # 1. build: the native oracle (g++) beside the kernels (nvcc)
+    # 1. build: the native oracle (g++) and the latency chains (nvcc)
+    # beside the kernels (nvcc); then the chains' cycles a link
     with Phase(1):
         t0 = time.perf_counter()
         nat_err = []
@@ -843,6 +920,7 @@ def main() -> int:
         def build_native():
             try:
                 native.build()
+                latency.build()
             except Exception as e:        # re-raised below, after the join
                 nat_err.append(e)
 
@@ -861,6 +939,10 @@ def main() -> int:
             for line in f:
                 if "registers" in line or "spill" in line:
                     log("  ptxas:", line.strip())
+        cycles = latency.measure()
+        log("phase 1: SM cycles a link of the serial kernels' chains "
+            "(tools/latency.cu, one warp): " + ", ".join(
+                f"{k} {v:.2f}" for k, v in cycles.items()))
 
     frames = synth_1080p_frames(N_FRAMES, W, H)
     kernels, launches = {}, {}
@@ -871,7 +953,7 @@ def main() -> int:
     with Phase(2):
         _, inputs = probe("phase 2: range", "yuv420p", W, H, range_cfg,
                           frames[0])
-        range_checks(kernels, inputs, clock_mhz)
+        range_checks(kernels, inputs, clock_mhz, cycles)
         range_k1 = inputs["k1"]
         del inputs
     with Phase(3):
@@ -897,13 +979,13 @@ def main() -> int:
         rgb48 = synth_rgb48_frames(N_NEW, W, H)
         cfg = FFV1Config(level=3, coder=1, slices=30, slicecrc=1)
         enc, inputs = probe("phase 6: rgb48", "rgb48", W, H, cfg, rgb48[0])
-        big = walk_check(kernels, inputs, clock_mhz, "adapt_rgb48", "rgb48",
-                         False)
+        big = walk_check(kernels, inputs, clock_mhz, cycles, "adapt_rgb48",
+                         "rgb48", False)
         k = inputs["walk"]
         from ffmpeg_ffv2_tpu_torch.ffv1 import host
         ev_in = dict(walk=k + (host.n_ev_words(enc.code_bits),))
-        walk_check(kernels, ev_in, clock_mhz, "adapt_emission_rgb48",
-                   "rgb48", True)
+        walk_check(kernels, ev_in, clock_mhz, cycles,
+                   "adapt_emission_rgb48", "rgb48", True)
         e = kernels["adapt_rgb48"]
         log(f"phase 6: rgb48: {e['cells_e_over_9']} of {e['valid_cells']} "
             f"valid cells have e > 9 ({big} in the cut), so the repeat "
@@ -922,7 +1004,8 @@ def main() -> int:
         cfg = FFV1Config(level=4, coder=1, slices=30, slicecrc=1)
         enc, inputs = probe("phase 7: bgr0 v4", "bgr0", W, H, cfg, rgb[0],
                             emission=True)
-        walk_check(kernels, inputs, clock_mhz, None, "bgr0 v4", True)
+        walk_check(kernels, inputs, clock_mhz, cycles, None, "bgr0 v4",
+                   True)
         # K6 on phase 6's rgb48 cells (a path that runs K2) rides in K6's
         # entry, which reports the launches of its own path
         kernels["adapt_emission"]["at_rgb48"] = kernels.pop(

@@ -15,59 +15,43 @@
 // 32-48 out per cell).  At coding depths 11..17 each row adds R =
 // code_bits - 10 dependent lookups on slots 10 and 31 (two chains of R, in
 // two threads).
-// Design: one warp per (root tile, lane); thread t holds permuted slot row
-// t (slot 4*(t&7) + (t>>3), host.SLOT_AT_ROW), so the 32 states of the lane
-// stay in registers.  The 512-byte transition table sits in shared memory.
+// Design: two warps per (root tile, lane), a chain warp and a store warp;
+// thread t of the chain warp holds permuted slot row t (slot 4*(t&7) +
+// (t>>3), host.SLOT_AT_ROW), so the 32 states of the lane stay in
+// registers.  The transition table sits in shared memory, with a third
+// 256-byte page that maps each state to itself, so a slot that a row does
+// not hit looks up its own state and the chain has no select.
 // The carry is removed: a root tile (tile_pred < 0) walks its lane on
 // through the successor tiles (succ, the inverse of tile_pred, built by the
 // wrapper), keeping the state in registers where the lane's continuation
 // flag (s0[tile][32][lane]) is set -- no state passes between blocks.  Warps
-// of non-root tiles exit at once.  Each warp reads 32 rows of its lane with
-// one load per thread and broadcasts them by shuffles, so the chain waits
-// on memory once per 32 rows.
-// K2 output: the 8 packed sv words of a cell are put together by shuffles
-// (device_coder.pack_sv_words); the repeat sub-steps' pre-update pairs
-// sv10 | sv31 << 8 pack two to a word after them (warp OR reductions).
-// K6 output: each thread places its slot's pre-update byte at the slot's
-// emission index kk (adapt_pallas.py:117-130), the slot-10 and slot-31
-// threads add their repeat bytes at k = 10 + j and e + 2 + j, and word m of
-// the cell is the warp OR of the bytes that land in it, for m < ev_words.
-// As in the TPU kernel, bytes past ev_words words are dropped and the
-// slot-31 repeat bytes land by adding.
+// of non-root tiles exit at once.
+// The rows go in batches of 32, in three parts, so that the chain warp
+// holds nothing but the lookups:
+// 1. off the chain: thread t loads row t of the batch and builds the row's
+//    hit and bit masks over all 32 slots at once; a 32 x 32 bit transpose
+//    (five shuffle rounds) gives each thread the masks of its slot over
+//    the 32 rows, and warp votes the slot-10 and slot-31 masks of the R
+//    repeat sub-steps.  The next batch's masks are built, and the batch
+//    after it loaded, before this batch's chain.
+// 2. the chain: 32 (1 + R) dependent shared-memory lookups; the
+//    pre-update byte of each lookup goes to one of the lane's two buffers
+//    in shared memory, laid out as the cells' output words, off the chain.
+// 3. the store warp writes the batch out from that buffer while the chain
+//    warp walks the next batch into the other (the two meet at a named
+//    barrier once a batch), so the chain never waits on the stores, whose
+//    4-byte words lie 512 bytes apart (cells x words x 128 lanes).
+// K2 output: whole words of the batch's cells (8 packed sv words,
+// device_coder.pack_sv_words, and the repeat sub-steps' pre-update pairs
+// sv10 | sv31 << 8, two to a word, after them).
+// K6 output: the emission-order packing (store_batch) on the store warp.
 
 #include "common.cuh"
 
 namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
-
-// Validity and coded bit of this thread's slot for one pixel diff v
-// (device_coder.slot_bit_grid; first hits, with the e > 9 caps of slots 10
-// and 31).
-__device__ __forceinline__ void slot_hit(int slot, int v, int* valid,
-                                         int* bit) {
-  const int a = v < 0 ? -v : v;
-  const int e = exponent_of(a);
-  const int eE = min(e + 1, 10);
-  const int eM = min(e, 10);
-  if (slot == 0) {
-    *valid = 1;
-    *bit = v == 0;
-  } else if (v == 0) {
-    *valid = 0;
-    *bit = 0;
-  } else if (slot <= 10) {  // exponent ones then the terminating zero
-    *valid = slot <= eE;
-    *bit = slot <= e;
-  } else if (slot < 22) {  // sign
-    *valid = slot == 11 + eM;
-    *bit = v < 0;
-  } else {  // mantissa, high bit first
-    *valid = slot <= 21 + eM;
-    const int msh = (slot == 31 && e > 9) ? e - 1 : slot - 22;
-    *bit = (a >> max(msh, 0)) & 1;
-  }
-}
+constexpr int LANES = 2;   // lanes a block, two warps each
 
 // Emission index of this slot's first hit in the pixel's rac-op stream:
 // slot 0 -> 0; exponent slot j -> j; sign -> 2e + 2; mantissa slot 22 + i
@@ -78,18 +62,193 @@ __device__ __forceinline__ int first_hit_k(int slot, int e) {
   return (slot == 31 && e > 9) ? e + 2 : 2 * e + 1 - (slot - 22);
 }
 
-// R: repeat sub-steps per row (code_bits - 10, or 0).  NW: the most
-// emission-order words a cell can have at this depth (n_ev_words).
+// A batch of 32 rows for this thread's slot: bit j of v is whether row j
+// hits the slot, of b its coded bit; rv/rb the same for the repeat
+// sub-steps (slots 10 and 31; 0 elsewhere).
+template <int R>
+struct Pages {
+  unsigned v, b;
+  unsigned rv[R > 0 ? R : 1], rb[R > 0 ? R : 1];
+};
+
+// The 32 x 32 bit matrix whose row t thread t holds, transposed: thread t
+// gets column t (five butterfly rounds, each swapping the off-diagonal
+// blocks of half the size).
+__device__ __forceinline__ unsigned transpose32(unsigned x, int t) {
+  unsigned m = 0x0000FFFFu;
+#pragma unroll
+  for (int j = 16; j; j >>= 1, m ^= m << j) {
+    const unsigned y = __shfl_xor_sync(FULL, x, j);
+    x = (t & j) ? (x & ~m) | ((y & ~m) >> j) : (x & m) | ((y & m) << j);
+  }
+  return x;
+}
+
+// Part 1: the pages of a batch, off the chain.  Thread t takes row t (its
+// cell payload `row`, 0 past the tile: no valid flag, no hit) and builds
+// the row's hit and bit masks over the 32 slots at once
+// (device_coder.slot_bit_grid: first hits, with the e > 9 caps of slots
+// 10 and 31); with eM = min(e, 10) (e = -1 for a zero diff):
+//   slot 0 is hit always, its bit v == 0;
+//   exponent slot j (1..10) for j <= e + 1, its bit e >= j;
+//   sign slot 11 + eM, its bit v < 0;
+//   mantissa slot 22 + i for i < eM, its bit bit i of |v| (slot 31 takes
+//   bit e - 1 when e > 9).
+// A bit transpose turns them into masks over the rows, and a shuffle gives
+// thread t those of its slot.  The repeat hits jj = 1..R of slots 10 and
+// 31 (e > 9) are votes over the rows.
+template <int R>
+__device__ __forceinline__ void pages_of(int row, int t, int slot, bool k10,
+                                         bool k31, int mask, int bias,
+                                         int vbit, Pages<R>& p) {
+  const int v = (row & mask) - bias;
+  const bool ok = (row >> vbit) & 1;
+  const int a = v < 0 ? -v : v;
+  const int e = exponent_of(a);
+  const int eM = min(e, 10);
+  const unsigned ones = (1u << max(eM, 0)) - 1;   // eM ones
+  unsigned hit = 1u | (((1u << min(e + 1, 10)) - 1) << 1);
+  if (v != 0) hit |= (1u << (11 + eM)) | (ones << 22);
+  const int msh31 = e > 9 ? e - 1 : 9;
+  const unsigned bit = (unsigned)(v == 0) | (ones << 1) |
+                       (v < 0 ? 0x7FFu << 11 : 0u) |
+                       ((unsigned)(a & 0x1FF) << 22) |
+                       ((unsigned)((a >> msh31) & 1) << 31);
+  p.v = __shfl_sync(FULL, transpose32(ok ? hit : 0u, t), slot);
+  p.b = __shfl_sync(FULL, transpose32(bit, t), slot);
+#pragma unroll
+  for (int jj = 1; jj <= R; ++jj) {
+    const unsigned v10 = __ballot_sync(FULL, ok && e >= 9 + jj);
+    const unsigned b10 = __ballot_sync(FULL, e >= jj + 10);
+    const unsigned v31 = __ballot_sync(FULL, ok && e >= 10 + jj);
+    const unsigned b31 =
+        __ballot_sync(FULL, (a >> max(e - 1 - jj, 0)) & 1);
+    p.rv[jj - 1] = k10 ? v10 : k31 ? v31 : 0u;
+    p.rb[jj - 1] = k10 ? b10 : k31 ? b31 : 0u;
+  }
+}
+
+// The table offset of a lookup: bit 0 -> 0, bit 1 -> 256, no hit -> 512
+// (the identity page).
+__device__ __forceinline__ int page(unsigned v, unsigned b, int j) {
+  return (v >> j) & 1 ? (int)((b >> j) & 1) << 8 : 512;
+}
+
+// Part 2: the chain over a batch, 32 (1 + R) dependent shared-memory
+// lookups.  The pre-update byte of each row (0 where the slot is not hit)
+// goes to the warp's buffer at `cell` (stride `row_bytes` a row), and the
+// slot-10 and slot-31 threads put those of their sub-steps at `rep`; the
+// stores are off the chain.
+template <int R>
+__device__ __forceinline__ void chain(const Pages<R>& p,
+                                      const unsigned char* tab, int& s,
+                                      unsigned char* cell, unsigned char* rep,
+                                      bool krep, int row_bytes) {
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    cell[j * row_bytes] = (p.v >> j) & 1 ? s : 0;
+    s = tab[page(p.v, p.b, j) + s];
+#pragma unroll
+    for (int jj = 0; jj < R; ++jj) {
+      if (krep)
+        rep[j * row_bytes + 4 * (jj >> 1) + 2 * (jj & 1)] =
+            (p.rv[jj] >> j) & 1 ? s : 0;
+      s = tab[page(p.rv[jj], p.rb[jj], j) + s];
+    }
+  }
+}
+
+// Part 3 for one batch, by the lane's store warp: the batch's bytes in
+// the buffer `b8` (32 rows of 4 * OW bytes) out to the cells of rows r0 ..
+// r0 + nr - 1 of the tile at `base`.  K2: whole words, one store each.
+// K6: per row, each thread reads its slot's pre-update byte back and
+// places it at the slot's emission index kk (adapt_pallas.py:117-130), the
+// slot-10 and slot-31 threads add their repeat bytes at k = 10 + j and e +
+// 2 + j, and word m of the cell is the warp OR of the bytes that land in
+// it, for m < ev_words.  As in the TPU kernel, bytes past ev_words words
+// are dropped and the slot-31 repeat bytes land by adding.
 template <int R, bool kEmission>
-__global__ void __launch_bounds__(128)
+__device__ __forceinline__ void store_batch(
+    const unsigned char* b8, const int* rows, int r0, int nr, int base,
+    int t, int slot, bool k10, bool k31, int my_byte, int rep_byte,
+    int mask, int bias, int out_words, int lane, int* __restrict__ out) {
+  constexpr int NW = (12 + R) / 2;
+  constexpr int OW = 8 + (R + 1) / 2;
+  if (!kEmission) {
+    const unsigned* buf = reinterpret_cast<const unsigned*>(b8);
+    int* dst = out + (size_t)(base + r0) * OW * 128 + lane;
+    for (int i = t; i < nr * OW; i += 32) dst[(size_t)i * 128] = (int)buf[i];
+    return;
+  }
+  const int row_cur = t < nr ? rows[(size_t)(r0 + t) * 128] : 0;
+#pragma unroll 1
+  for (int j = 0; j < nr; ++j) {
+    const int row = __shfl_sync(FULL, row_cur, j);
+    const int v = (row & mask) - bias;
+    const int a = v < 0 ? -v : v;
+    const int e = exponent_of(a);
+    const unsigned char* cell = b8 + j * 4 * OW;
+    const unsigned pre_b = cell[my_byte];
+    unsigned orv[NW], addv[NW];
+    const int kk = first_hit_k(slot, e);
+#pragma unroll
+    for (int m = 0; m < NW; ++m) {
+      orv[m] = (kk >> 2) == m ? pre_b << ((kk & 3) * 8) : 0u;
+      addv[m] = 0;
+    }
+#pragma unroll
+    for (int jj = 1; jj <= R; ++jj) {
+      const unsigned rb =
+          cell[rep_byte + 4 * ((jj - 1) >> 1) + 2 * ((jj - 1) & 1)];
+      if (k10) {
+        const int k10i = 10 + jj;
+#pragma unroll
+        for (int m = 0; m < NW; ++m)
+          if ((k10i >> 2) == m) orv[m] |= rb << ((k10i & 3) * 8);
+      } else if (k31) {
+        const int k31i = e + 2 + jj;
+#pragma unroll
+        for (int m = 0; m < NW; ++m)
+          if ((k31i >> 2) == m) addv[m] += rb << ((k31i & 3) * 8);
+      }
+    }
+    const size_t cw = (size_t)(base + r0 + j) * out_words;
+#pragma unroll
+    for (int m = 0; m < NW; ++m) {
+      if (m < out_words) {
+        const unsigned word = __reduce_or_sync(FULL, orv[m]) +
+                              __shfl_sync(FULL, addv[m], 31);
+        if (t == m) out[(cw + m) * 128 + lane] = (int)word;
+      }
+    }
+  }
+}
+
+// The two warps of a lane meet here once a batch, at named barrier 1 +
+// pair (constant ids, so that ptxas reserves no more barriers than that).
+__device__ __forceinline__ void pair_sync(int pair) {
+  static_assert(LANES == 2, "one barrier id a lane of the block");
+  if (pair == 0)
+    asm volatile("bar.sync 1, 64;" ::: "memory");
+  else
+    asm volatile("bar.sync 2, 64;" ::: "memory");
+}
+
+// R: repeat sub-steps per row (code_bits - 10, or 0).  OW: the words of a
+// cell in the shared buffer (K2's output: 8 + ceil(R / 2)).
+template <int R, bool kEmission>
+__global__ void __launch_bounds__(64 * LANES)
 adapt_kernel(const int* __restrict__ ch1, const int* __restrict__ caps,
              const int* __restrict__ bases, const int* __restrict__ pred,
              const int* __restrict__ succ, const int* __restrict__ s0,
              const int* __restrict__ table, int tiles, int cellrows,
              int mask, int bias, int vbit, int out_words,
              int* __restrict__ out, int* __restrict__ ends) {
-  constexpr int NW = (12 + R) / 2;
-  __shared__ unsigned char tab[512];
+  constexpr int OW = 8 + (R + 1) / 2;
+  __shared__ unsigned char tab[768];
+  // two buffers a lane: the chain fills one while the store warp empties
+  // the other
+  __shared__ unsigned obuf[LANES][2][32 * OW];
   for (int i = threadIdx.x; i < 128; i += blockDim.x) {
     const unsigned w = (unsigned)table[i];
     tab[4 * i] = w & 0xFF;
@@ -97,17 +256,28 @@ adapt_kernel(const int* __restrict__ ch1, const int* __restrict__ caps,
     tab[4 * i + 2] = (w >> 16) & 0xFF;
     tab[4 * i + 3] = w >> 24;
   }
+  for (int i = threadIdx.x; i < 256; i += blockDim.x) tab[512 + i] = i;
+  // the high pair of the last repeat word stays 0 at odd R
+  for (int i = threadIdx.x; i < LANES * 2 * 32 * OW; i += blockDim.x)
+    (&obuf[0][0][0])[i] = 0;
   __syncthreads();
 
-  const long long warp =
-      (blockIdx.x * (long long)blockDim.x + threadIdx.x) >> 5;
   const int t = threadIdx.x & 31;
-  const int root = (int)(warp >> 7);
-  const int lane = (int)(warp & 127);
+  const int pair = threadIdx.x >> 6;
+  const bool chain_warp = ((threadIdx.x >> 5) & 1) == 0;
+  const long long tl = (long long)blockIdx.x * LANES + pair;
+  const int root = (int)(tl >> 7);
+  const int lane = (int)(tl & 127);
   if (root >= tiles || pred[root] >= 0) return;
   const int slot = 4 * (t & 7) + (t >> 3);
+  const bool k10 = slot == 10, k31 = slot == 31;
+  // this thread's byte of a cell row in the buffer: word t & 7, byte t >> 3
+  const int my_byte = (t & 7) * 4 + (t >> 3);
+  // the repeat pair byte of sub-step jj + 1: word 8 + jj / 2, byte
+  // (jj & 1) * 2, + 1 for slot 31
+  const int rep_byte = 32 + k31;
 
-  int s = 0;
+  int s = 0, batch = 0;
   for (int tile = root; tile >= 0; tile = succ[tile]) {
     const int base = bases[tile];
     int cap = caps[tile];
@@ -118,92 +288,34 @@ adapt_kernel(const int* __restrict__ ch1, const int* __restrict__ caps,
       s = 0;
       continue;
     }
+    // rows past the tile read as 0: no valid flag, no hit
+    const int* rows = ch1 + (size_t)base * 128 + lane;
+    if (!chain_warp) {
+      for (int r0 = 0; r0 < cap; r0 += 32, ++batch) {
+        pair_sync(pair);
+        store_batch<R, kEmission>(
+            reinterpret_cast<const unsigned char*>(obuf[pair][batch & 1]),
+            rows, r0, min(32, cap - r0), base, t, slot, k10, k31, my_byte,
+            rep_byte, mask, bias, out_words, lane, out);
+      }
+      continue;
+    }
     const int* blk = s0 + (size_t)tile * 33 * 128;
     if (tile == root || blk[32 * 128 + lane] <= 0) s = blk[t * 128 + lane];
-    for (int r0 = 0; r0 < cap; r0 += 32) {
-      const int nr = min(32, cap - r0);
-      const int mine =
-          t < nr ? ch1[(size_t)(base + r0 + t) * 128 + lane] : 0;
-      for (int j = 0; j < nr; ++j) {
-        const int row = __shfl_sync(FULL, mine, j);
-        const int v = (row & mask) - bias;
-        const int ok = (row >> vbit) & 1;
-        int valid, bit;
-        slot_hit(slot, v, &valid, &bit);
-        valid &= ok;
-        const int pre = valid ? s : 0;
-        if (valid) s = tab[(bit << 8) | s];
-        // repeat hits of slots 10/31 (e > 9): sub-step jj is hit jj + 1;
-        // only the threads of slot 10 (t = 18) and slot 31 (t = 31) move
-        const int a = v < 0 ? -v : v;
-        const int e = exponent_of(a);
-        int rep[R > 0 ? R : 1];
-#pragma unroll
-        for (int jj = 1; jj <= R; ++jj) {
-          int vj = 0, bj = 0;
-          if (slot == 10) {
-            vj = ok && e >= 9 + jj;
-            bj = e >= jj + 10;
-          } else if (slot == 31) {
-            vj = ok && e >= 10 + jj;
-            bj = (a >> max(e - 1 - jj, 0)) & 1;
-          }
-          rep[jj - 1] = vj ? s : 0;
-          if (vj) s = tab[(bj << 8) | s];
-        }
-        const size_t cell = (size_t)(base + r0 + j) * out_words;
-        if (!kEmission) {
-          const unsigned b0 = __shfl_sync(FULL, pre, t & 7);
-          const unsigned b1 = __shfl_sync(FULL, pre, (t & 7) + 8);
-          const unsigned b2 = __shfl_sync(FULL, pre, (t & 7) + 16);
-          const unsigned b3 = __shfl_sync(FULL, pre, (t & 7) + 24);
-          if (t < 8)
-            out[(cell + t) * 128 + lane] =
-                (int)(b0 | (b1 << 8) | (b2 << 16) | (b3 << 24));
-#pragma unroll
-          for (int w = 0; w < (R + 1) / 2; ++w) {
-            // pairs 2w and 2w + 1 (sub-steps 2w + 1, 2w + 2)
-            const unsigned hi = 2 * w + 1 < R ? (unsigned)rep[2 * w + 1] : 0;
-            unsigned part = 0;
-            if (slot == 10) part = (unsigned)rep[2 * w] | (hi << 16);
-            if (slot == 31) part = ((unsigned)rep[2 * w] << 8) | (hi << 24);
-            const unsigned word = __reduce_or_sync(FULL, part);
-            if (t == 8 + w) out[(cell + 8 + w) * 128 + lane] = (int)word;
-          }
-        } else {
-          unsigned orv[NW], addv[NW];
-          const int kk = first_hit_k(slot, e);
-#pragma unroll
-          for (int m = 0; m < NW; ++m) {
-            orv[m] = (kk >> 2) == m ? (unsigned)pre << ((kk & 3) * 8) : 0u;
-            addv[m] = 0;
-          }
-#pragma unroll
-          for (int jj = 1; jj <= R; ++jj) {
-            if (slot == 10) {
-              const int k10 = 10 + jj;
-#pragma unroll
-              for (int m = 0; m < NW; ++m)
-                if ((k10 >> 2) == m)
-                  orv[m] |= (unsigned)rep[jj - 1] << ((k10 & 3) * 8);
-            } else if (slot == 31) {
-              const int k31 = e + 2 + jj;
-#pragma unroll
-              for (int m = 0; m < NW; ++m)
-                if ((k31 >> 2) == m)
-                  addv[m] += (unsigned)rep[jj - 1] << ((k31 & 3) * 8);
-            }
-          }
-#pragma unroll
-          for (int m = 0; m < NW; ++m) {
-            if (m < out_words) {
-              const unsigned word = __reduce_or_sync(FULL, orv[m]) +
-                                    __shfl_sync(FULL, addv[m], 31);
-              if (t == m) out[(cell + m) * 128 + lane] = (int)word;
-            }
-          }
-        }
-      }
+    int nxt = t + 32 < cap ? rows[(size_t)(t + 32) * 128] : 0;
+    Pages<R> pc;
+    pages_of<R>(t < cap ? rows[(size_t)t * 128] : 0, t, slot, k10, k31, mask,
+                bias, vbit, pc);
+    for (int r0 = 0; r0 < cap; r0 += 32, ++batch) {
+      Pages<R> pn;
+      pages_of<R>(nxt, t, slot, k10, k31, mask, bias, vbit, pn);
+      nxt = r0 + 64 + t < cap ? rows[(size_t)(r0 + 64 + t) * 128] : 0;
+      unsigned char* b8 =
+          reinterpret_cast<unsigned char*>(obuf[pair][batch & 1]);
+      chain<R>(pc, tab, s, b8 + my_byte, b8 + rep_byte, R > 0 && (k10 || k31),
+               4 * OW);
+      pc = pn;
+      pair_sync(pair);
     }
     ends[((size_t)tile * 32 + t) * 128 + lane] = s;
   }
@@ -230,11 +342,11 @@ cudaError_t launch(const int* ch1, const int* caps, const int* bases,
   if (tiles <= 0) return cudaGetLastError();
   int mask, bias, vbit;
   payload_field(code_bits, &mask, &bias, &vbit);
-  // one warp per (tile, lane): 128 lanes x 32 threads per tile
-  const unsigned blocks = (unsigned)((long long)tiles * 128 * 32 / 128);
+  // two warps per (tile, lane): 128 lanes per tile
+  const unsigned blocks = (unsigned)((long long)tiles * 128 / LANES);
 #define FFV2_ADAPT_CASE(R)                                                 \
   case R:                                                                  \
-    adapt_kernel<R, kEmission><<<blocks, 128, 0, stream>>>(                \
+    adapt_kernel<R, kEmission><<<blocks, 64 * LANES, 0, stream>>>(        \
         ch1, caps, bases, pred, succ, s0, table, tiles, cellrows, mask,    \
         bias, vbit, out_words, out, ends);                                 \
     break;

@@ -34,13 +34,13 @@ import numpy as np
 import torch
 
 from ..coder.rac import RangeEncoder
-from ..core.crc import crc32_trailer
 from ..ops.place import place
 from . import headers as H
 from . import host
 from .adapt import (adapt, adapt_emission, cell_diff,
                     repack_emission_order)
 from .expand import expand
+from .native import crc32_trailer
 from .params import FFV1Config, FFV1Params, params_from_config, CODER_GOLOMB
 from .phase_a import (interleave_lines, lut_for, phase_a, phase_a_planes,
                       phase_a_rgb, phase_a_rgb_planes, pick_rct, rct_costs)

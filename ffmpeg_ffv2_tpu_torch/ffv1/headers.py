@@ -12,7 +12,7 @@ import numpy as np
 
 from ..coder.rac import RangeEncoder, DEFAULT_ONE_STATE
 from ..coder.symbols import put_symbol, new_states, CONTEXT_SIZE
-from ..core.crc import crc32_trailer
+from .native import crc32_trailer
 from .params import FFV1Params, CODER_RANGE_CUSTOM
 
 

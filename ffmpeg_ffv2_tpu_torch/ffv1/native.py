@@ -1,7 +1,9 @@
 """Copy of ``ffmpeg_ffv2_tpu/ffv1/native.py``: the ``NativeFFV1Codec``
 ctypes wrapper (encode, decode, the encode from precomputed symbols and
 pass-1 statistics) and the signatures of the runtime's planner and 2-pass
-entry points.
+entry points; and, the port's own, ``crc32`` and ``crc32_trailer``, the
+runtime's slice CRC, which the port's encoders put in their trailers
+(``core/crc.py`` keeps the plain Python loop).
 
 The C++ FFV1 codec (``native/ffv1_runtime.cpp``, a copy of the JAX
 package's runtime) is the port's byte-exactness oracle: the same bitstream
@@ -152,8 +154,24 @@ def get_lib():
             ctypes.POINTER(ctypes.c_void_p), ctypes.c_int]
         lib.ffv1rt_set_budget_override.argtypes = [
             ctypes.c_void_p, ctypes.c_int64]
+        lib.ffv1rt_crc32.restype = ctypes.c_uint32
+        lib.ffv1rt_crc32.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
+                                     ctypes.c_uint32]
         _lib = lib
         return _lib
+
+
+def crc32(data: bytes, crc: int = 0) -> int:
+    """CRC-32/IEEE of ``data`` from ``crc`` in the runtime's table loop
+    (``ffv1rt_crc32``): the value of ``core.crc.crc32_ieee``."""
+    data = bytes(data)
+    return get_lib().ffv1rt_crc32(data, len(data), crc & 0xFFFFFFFF)
+
+
+def crc32_trailer(data: bytes) -> bytes:
+    """4-byte little-endian CRC trailer, ``core.crc.crc32_trailer`` in
+    the runtime's table loop; crc32_ieee(data + trailer) == 0."""
+    return crc32(data).to_bytes(4, "little")
 
 
 def params_to_c(p: FFV1Params) -> FFV1ParamsC:

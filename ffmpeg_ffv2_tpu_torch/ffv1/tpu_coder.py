@@ -33,10 +33,9 @@ import ctypes
 import numpy as np
 import torch
 
-from ..core.crc import crc32_trailer
 from . import headers as H
 from .expand import MODE_NOP, MODE_OP, MODE_FLUSH1, MODE_FLUSH2
-from .native import NativeFFV1Codec, get_lib
+from .native import NativeFFV1Codec, crc32_trailer, get_lib
 from .params import FFV1Config, params_from_config, CODER_GOLOMB
 from .rac import rac_lanes
 

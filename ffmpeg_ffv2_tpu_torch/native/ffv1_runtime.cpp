@@ -12,6 +12,9 @@
 // (ffv1rt_set_stats_mode, ffv1rt_get_stats) and the 2-pass searches
 // (ffv1rt_sort_stt, ffv1rt_find_best_state).  tests/test_torch_host.py
 // holds this copy's packets, plans and statistics against the original's.
+// One entry point is the port's own: ffv1rt_crc32, the table CRC behind
+// ffv1/native.py:crc32_trailer (the slice and extradata trailers of the
+// port's encoders).
 //
 // The original's description: a C++17 host runtime for the FFV1 codec, a
 // complete FFV1 frame encoder/decoder (versions 0-4, range + Golomb-Rice
@@ -2622,6 +2625,11 @@ int32_t ffv1rt_get_stats(void* h, uint64_t* rc_stat, uint64_t* rc_stat2,
         for (size_t i = 0; i < n; i++) rc_stat2[i] += st.stat2[i];
     }
     return ctx->gob_count;
+}
+
+// CRC-32/IEEE of n bytes from crc (libavutil's AV_CRC_32_IEEE table form).
+uint32_t ffv1rt_crc32(const uint8_t* p, size_t n, uint32_t crc) {
+    return f2t::g_crc.run(p, n, crc);
 }
 
 

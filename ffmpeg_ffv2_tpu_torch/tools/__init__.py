@@ -8,6 +8,12 @@ says so.
     python -m ffmpeg_ffv2_tpu_torch.tools.microbench_sort [case substring]
     python -m ffmpeg_ffv2_tpu_torch.tools.microbench_prims
     python -m ffmpeg_ffv2_tpu_torch.tools.probes
+
+``kernel_times.py`` (run by its path, with ``--root`` naming the checkout
+whose kernels it times) gives the CUDA-event times of the range path's
+serial kernels K4, K2 and K6 at the main path's shapes; ``latency.py``
+measures the latencies of the dependent chains that bound them
+(``latency.cu``, for ``chip_smoke.py``'s chain bounds).
 """
 
 from __future__ import annotations

@@ -170,6 +170,113 @@ def test_torch_gpu_rac_render_long_fill_run():
         assert torch.equal(a[0].cpu(), b[0])
 
 
+def _op_streams(lengths, op_cap, seed, tail=0):
+    """Random rac op words (S, op_cap): slice s codes lengths[s] - 2 ops
+    (bit and sv 1..255 at random) and its two flush ops, then NOPs; the
+    last ``tail`` columns hold random op words that no step may read."""
+    rng = np.random.RandomState(seed)
+    ops = np.zeros((len(lengths), op_cap), np.int32)
+    for s_, n in enumerate(lengths):
+        ops[s_, :n - 2] = ((1 << 9) | (rng.randint(0, 2, n - 2) << 8)
+                           | rng.randint(1, 256, n - 2))
+        ops[s_, n - 2:n] = (2 << 9, 3 << 9)
+    if tail:
+        ops[:, op_cap - tail:] = ((1 << 9) | rng.randint(0, 512, (
+            len(lengths), tail)))
+    return torch.as_tensor(ops)
+
+
+def _render_equal(ops, steps, buf_cap):
+    a_by, a_ln = rac.rac_render(ops.cuda(), steps, buf_cap)
+    b_by, b_ln = rac.rac_render_plain(ops, steps, buf_cap)
+    assert torch.equal(a_ln.cpu(), b_ln)
+    assert torch.equal(a_by.cpu(), b_by)
+    return b_ln
+
+
+@pytest.mark.parametrize("lengths,op_cap,tail,steps", [
+    # slices 10x and more apart; steps 6 stages (of 512 ops) + 5
+    ((3077, 300, 40, 2900, 1500), 3077, 0, 3077),
+    # one op; and one slice of two flush ops
+    ((3, 2), 8, 0, 1),
+    ((3, 2), 8, 0, 3),
+    # op_stride past steps, random ops beyond them; a row stride that
+    # is not a multiple of 4 ops
+    ((2000, 900, 17), 2600, 500, 2100),
+    ((1100, 4099, 230), 4103, 0, 4099)])
+def test_torch_gpu_rac_render_ragged(lengths, op_cap, tail, steps):
+    """K4 against rac_render_plain on random op streams of ragged slices,
+    with a buf_cap that holds every row and one that cuts the longer
+    rows (their lengths still counted past it)."""
+    ops = _op_streams(lengths, op_cap, sum(lengths), tail)
+    full = _render_equal(ops, steps, 1 << 13)
+    assert int(full.max()) < 1 << 13
+    cut = max(int(full.max()) // 3, 1)
+    ln = _render_equal(ops, steps, cut)
+    assert int(ln.max()) > cut or int(full.max()) <= 1
+
+
+def test_torch_gpu_rac_render_fill_across_stages():
+    """A pending fill run that starts in one stage of the op ring (512
+    ops) and ends in the next: NOPs, then from step 1000 the carry pattern
+    (bit 1, sv 255), (bit 0, sv 255) for 300 steps from the coder's
+    initial state, then random ops."""
+    steps = 2600
+    ops = _op_streams((steps, steps - 700), steps, 3)
+    ops[0, :1000] = 0
+    ops[0, 1000:1300:2] = (1 << 9) | (1 << 8) | 255
+    ops[0, 1001:1300:2] = (1 << 9) | 255
+    opT = ops[:1].T
+    _, fcount, _ = rac.rac_scan_lanes(opT & 0xFF, (opT >> 8) & 1,
+                                      (opT >> 9) & 3)
+    at = int(fcount[:, 0].argmax())
+    assert int(fcount.max()) > 100 and at > 1024
+    for buf_cap in (1 << 13, 200):
+        _render_equal(ops, steps, buf_cap)
+
+
+def _walk_inputs(code_bits, seed):
+    """Synthetic K2/K6 inputs: a split chain of 7 tiles (0 -> 1 -> ... ->
+    6) whose tile 3 has cap 0, and two lone root tiles; caps mostly not
+    multiples of 32; cell diffs with exponents 0..code_bits - 1 and some
+    zeros, one cell in 8 not valid; random start states, continuation
+    flags, and transition table."""
+    rng = np.random.RandomState(seed)
+    caps = np.array([70, 33, 95, 0, 64, 1, 45, 31, 100], np.int32)
+    pred = np.array([-1, 0, 1, 2, 3, 4, 5, -1, -1], np.int32)
+    bases = np.concatenate([[0], np.cumsum(caps)[:-1]]).astype(np.int32)
+    cellrows = int(caps.sum()) + 16
+    mask, bias, vbit = host.payload_field(code_bits)
+    e = rng.randint(0, code_bits, (cellrows, 128))
+    mag = (1 << e) | (rng.randint(0, 1 << 30, e.shape) & ((1 << e) - 1))
+    v = np.where(rng.rand(*e.shape) < 0.5, -mag, mag)
+    v = np.where(rng.rand(*e.shape) < 0.1, 0, v)
+    v = np.clip(v, -bias, mask - bias)
+    ok = rng.rand(*e.shape) < 0.875
+    ch1 = ((v + bias) & mask) | (ok.astype(np.int64) << vbit)
+    s0 = rng.randint(0, 256, (len(caps), 33, 128))
+    s0[:, 32] = rng.randint(-1, 2, (len(caps), 128))
+    table = rng.randint(0, 256, 512).astype(np.uint8).view(np.int32)
+    as_t = (lambda x: torch.as_tensor(np.ascontiguousarray(x, np.int32),
+                                      device="cuda"))
+    return (as_t(ch1), as_t(caps), as_t(bases), as_t(pred), as_t(s0),
+            as_t(table), code_bits)
+
+
+@pytest.mark.parametrize("code_bits", range(10, 18))
+def test_torch_gpu_adapt_split_chain(code_bits):
+    """K2 and K6 (ev_words full and 3) against their plain versions at R =
+    code_bits - 10 = 0..7 on a split chain of 7 tiles with a cap-0 tile
+    inside it and caps that are not multiples of 32."""
+    k2 = _walk_inputs(code_bits, code_bits)
+    for a, b in zip(ad.adapt(*k2), ad.adapt_plain(*k2)):
+        assert torch.equal(a, b)
+    for ev_words in (host.n_ev_words(code_bits), 3):
+        for a, b in zip(ad.adapt_emission(*k2, ev_words),
+                        ad.adapt_emission_plain(*k2, ev_words)):
+            assert torch.equal(a, b), ev_words
+
+
 def _vlc_against_plain(monkeypatch, pix, params=None):
     """K5 against its plain row scan on a small split-group frame of
     ``pix`` (Golomb-Rice, ``params`` forcing it past 8 bits), from random
@@ -352,13 +459,15 @@ def test_torch_gpu_tpu_coder_matches_native(pix, coder, level):
                 planes, t == 0), f"frame {t}: TPUFFV1Encoder"
 
 
-@pytest.mark.parametrize("pix,code_bits", [("gbrp12", 13), ("rgb48", 17)])
+@pytest.mark.parametrize("pix,code_bits", [
+    ("yuv444p", 8), ("gbrp10", 11), ("yuv444p12", 12), ("gbrp12", 13),
+    ("yuv444p14", 14), ("gbrp14", 15), ("yuv444p16", 16), ("rgb48", 17)])
 def test_torch_gpu_adapt_repeat_substeps(monkeypatch, pix, code_bits):
-    """K2 with R = code_bits - 10 repeat sub-steps and K6 against their
-    plain versions on a small split-group RGB frame (a smooth ramp, whose
-    large context groups split at GCAP 64, with a band of full-range
-    noise: e up to code_bits - 1), from random start states; K6 with
-    ev_words full and capped."""
+    """K2 with R = code_bits - 10 repeat sub-steps (R = 0..7) and K6
+    against their plain versions on a small split-group frame of three
+    full planes (a smooth ramp, whose large context groups split at GCAP
+    64, with a band of full-range noise: e up to code_bits - 1), from
+    random start states; K6 with ev_words full and capped."""
     monkeypatch.setattr(host, "GCAP", 64)
     w, h = 96, 64
     cfg = FFV1Config(level=3, coder=1, slices=4)
@@ -378,7 +487,9 @@ def test_torch_gpu_adapt_repeat_substeps(monkeypatch, pix, code_bits):
     assert (plan["tile_pred"] >= 0).any()
     ch1c, _ = pl.place(plan["dest"], plan["ch1"], plan["orig"],
                        enc.cellrows_cap)
-    assert int((ad.cell_diff(ch1c, code_bits).abs() >= 1 << 10).sum()) > 0
+    if code_bits > 10:
+        assert int((ad.cell_diff(ch1c, code_bits).abs()
+                    >= 1 << 10).sum()) > 0
     canon = torch.as_tensor(rng.randint(1, 256, enc.canonical.shape)
                             .astype(np.uint8), device="cuda")
     s0 = dc.build_s0_blocks(plan, canon, enc.tiles_cap)
