@@ -416,15 +416,21 @@ def live_cells(ch1c, pb: int = 12) -> tuple:
 
 
 def place_checks(out, k1, path, key=None, also=(), **extra):
-    """K1 on the cells ``k1`` (and on each input of ``also``) against its
-    plain version; library call: one scatter_ of both channels.  Bound:
-    each element read (dest and two channels) and both channels written
-    up to the last row in use."""
+    """K1 on the plan and cell rows ``k1`` (and on each input of
+    ``also``) against its plain version, scatter_cells of the plan's
+    dest; library call: one scatter_ of both channels.  Bound: each
+    element read (dest and two channels) and both channels written up to
+    the last row in use."""
     import torch
     from ffmpeg_ffv2_tpu_torch.ops import place as pl
-    dest, ch1, orig, cellrows = k1
-    err = max(max_abs_err(pl.place(*a), pl.scatter_cells(*a))
-              for a in (k1, *also))
+
+    def plain(a):
+        p, rows = a
+        return pl.scatter_cells(p["dest"], p["ch1"], p["orig"], rows)
+
+    plan, cellrows = k1
+    dest, ch1, orig = plan["dest"], plan["ch1"], plan["orig"]
+    err = max(max_abs_err(pl.place(*a), plain(a)) for a in (k1, *also))
     cells = cellrows * 128
     rows_used = int(torch.where(dest < cells, dest, -1).max()) // 128 + 1
     idx = torch.where((dest >= 0) & (dest < cells), dest, cells).long()
@@ -433,7 +439,7 @@ def place_checks(out, k1, path, key=None, also=(), **extra):
     out2 = torch.empty((2, cells + 1), dtype=torch.int32, device=dest.device)
     n = dest.shape[0]
     entry(out, "place", path, err, cuda_ms(lambda: pl.place(*k1), 5),
-          cuda_ms(lambda: pl.scatter_cells(*k1), 5),
+          cuda_ms(lambda: plain(k1), 5),
           cuda_ms(lambda: out2.scatter_(1, idx2, vals2), 5),
           bound(n * 12 + rows_used * 128 * 8, n), key=key,
           shape=f"N={n} cells={cells} ({rows_used} rows in use) ({path})",
@@ -550,17 +556,21 @@ def range_checks(out, inputs, clock_mhz, cycles):
     walk_check(out, inputs, clock_mhz, cycles, "adapt", "range", False)
 
     # K3 expand: full main-path shapes; bound: the inputs read, the op
-    # words the slices hold written (not the op_cap capacity)
+    # words the slices hold written (not the op_cap capacity, whose NOP
+    # fill the kernel writes too)
     k3 = inputs["k3"]
     words, diff, svp, btp, hlen, op_cap = k3
     err = max_abs_err(ex.expand(*k3), ex.expand_plain(*k3))
     n_ops = int(inputs["n_ops"].sum())
+    S = diff.shape[0]
     entry(out, "expand", "range", err, cuda_ms(lambda: ex.expand(*k3), 5),
           cuda_ms(lambda: ex.expand_plain(*k3), 3), None,
           bound(4 * (words.numel() + diff.numel() + svp.numel()
-                     + btp.numel() + hlen.numel() + n_ops
-                     + diff.shape[0]), n_ops),
-          shape=f"S={diff.shape[0]} npix={diff.shape[1]} op_cap={op_cap}")
+                     + btp.numel() + hlen.numel() + n_ops + S), n_ops),
+          shape=f"S={S} npix={diff.shape[1]} W={words.shape[0]} "
+                f"op_cap={op_cap}",
+          writes=f"{S * op_cap} op words (the bound counts the {n_ops} "
+                 "of the slices' ops; the rest is the NOP fill to op_cap)")
 
     # K4 rac_render: kernel on the frame's op streams; kernel and plain on
     # the first 3080 op steps of every slice (six stages of the kernel's
@@ -966,7 +976,8 @@ def main() -> int:
         rk1 = inputs["k1"]
         place_checks(kernels, range_k1, "range", also=(rk1,),
                      ms_rice=cuda_ms(lambda: place(*rk1), 5),
-                     rice=f"N={rk1[0].shape[0]} cells={rk1[3] * 128}")
+                     rice=f"N={rk1[0]['dest'].shape[0]} "
+                          f"cells={rk1[1] * 128}")
         rice_checks(kernels, inputs, clock_mhz)
         del inputs, range_k1, rk1
     with Phase(5):

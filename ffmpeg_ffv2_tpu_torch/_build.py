@@ -36,7 +36,6 @@ LIB_NAME = "libffv2_torch_kernels.so"
 
 P = ctypes.c_void_p
 I = ctypes.c_int
-LL = ctypes.c_longlong
 
 _lock = threading.Lock()
 _lib = None
@@ -162,7 +161,8 @@ class Kernel:
 
 
 KERNELS = {k.name: k for k in (
-    Kernel("place", "ffv2_place_cells", [P, P, P, LL, LL, P, P, P],
+    Kernel("place", "ffv2_place_cells",
+           [P, P, P, I, P, P, P, I, P, P, P, I, I, P, P, P, P, P],
            "ffmpeg_ffv2_tpu_torch/csrc/place.cu",
            "ffmpeg_ffv2_tpu/ops/place_pallas.py:63"),
     Kernel("adapt", "ffv2_adapt", [P, P, P, P, P, P, P, I, I, I, P, P, P],
@@ -173,7 +173,7 @@ KERNELS = {k.name: k for k in (
            "ffmpeg_ffv2_tpu_torch/csrc/adapt.cu",
            "ffmpeg_ffv2_tpu/ffv1/adapt_pallas.py:36"),
     Kernel("expand", "ffv2_expand",
-           [P, I, P, P, P, P, P, P, I, I, I, I, P, P],
+           [P, I, P, P, P, P, I, I, I, I, P, P, P, P],
            "ffmpeg_ffv2_tpu_torch/csrc/expand.cu",
            "ffmpeg_ffv2_tpu/ffv1/expand_pallas.py:130"),
     Kernel("rac_render", "ffv2_rac_render", [P, I, I, I, P, I, P, P],

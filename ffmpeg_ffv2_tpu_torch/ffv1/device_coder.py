@@ -71,8 +71,9 @@ def _set_drop(dst, idx, val):
 def layout_plan(row_local, diff, rows_per_slice: int, slots_cap: int,
                 tiles_cap: int, payload_bits: int = 0, wide: int = 0):
     """Group-sort + lane/tile layout (device_coder.py:426 layout_plan, the
-    range coder's diff field or a rice payload).  Every key of the
-    returned dict equals JAX's.
+    range coder's diff field or a rice payload).  Every key of JAX's
+    plan equals JAX's; the port adds K1's slot geometry
+    (``ops.place.TABLE_KEYS``).
 
     row_local/diff: int32 (n_slices, npix) per-slice coding-order streams;
     row_local is the slice-local chain row (plane-class offset + context).
@@ -209,8 +210,15 @@ def layout_plan(row_local, diff, rows_per_slice: int, slots_cap: int,
     else:
         ch1 = (diff_s + 2048) | ((~is_sent).to(I32) << 13)
     orig = torch.where(is_sent, INT32_MAX, ar(S)[:, None] * npix + idx_s)
+    # K1's slot geometry (not in JAX's plan): a real slot (T, l) holds
+    # the elements of group lane_rows[T * 128 + l] from rank
+    # tile_rank0[T] on, at cells (cell_bases[T] + j) * 128 + l,
+    # j < cell_caps[T]
     return dict(ch1=ch1.reshape(-1).to(I32), orig=orig.reshape(-1).to(I32),
                 dest=dest.reshape(-1).to(I32),
+                group_first=sent_at + 1, group_size=size_f,
+                tile_rank0=torch.where(isbt, k_of_T * gcap, 0).to(I32),
+                cell_bases=tile_bases, cell_caps=tile_caps,
                 tile_caps=tile_caps, tile_bases=tile_bases,
                 tile_pred=tile_pred, lane_rows=lane_tab >> 2,
                 lane_cont=(lane_tab >> 1) & 1, lane_last=lane_tab & 1,
@@ -618,7 +626,8 @@ class DeviceFFV1Encoder:
                            self.rows_per_slice, tiles_cap * 128, tiles_cap,
                            payload_bits, self.wide)
         # under a cap overflow the frame is redone larger; keep every tile
-        # inside the cells regardless
+        # of the walk inside the cells regardless (K1 keeps the unclamped
+        # cell_bases/cell_caps that dest was computed from)
         lim = cellrows_cap - 1024
         plan["tile_bases"] = torch.clamp(plan["tile_bases"], max=lim)
         plan["tile_caps"] = torch.minimum(plan["tile_caps"],
@@ -650,7 +659,7 @@ class DeviceFFV1Encoder:
         (``rice.no_mark``)."""
         plan = self.layout(ctx, diff, tiles_cap, cellrows_cap)
         mark("layout")
-        k1 = (plan["dest"], plan["ch1"], plan["orig"], cellrows_cap)
+        k1 = (plan, cellrows_cap)
         ch1c, ch2c = place(*k1)
         mark("K1 place", k1)
         if keyframe:
@@ -734,7 +743,7 @@ class DeviceFFV1Encoder:
         plan = self.layout(ctx, payload, tiles_cap, cellrows_cap,
                            self.rice_pb + 1)
         mark("layout")
-        k1 = (plan["dest"], plan["ch1"], plan["orig"], cellrows_cap)
+        k1 = (plan, cellrows_cap)
         ch1c, ch2c = place(*k1)
         mark("K1 place", k1)
         if keyframe:

@@ -22,6 +22,7 @@ from .symbols import event_count, exponent
 
 MODE_NOP, MODE_OP, MODE_FLUSH1, MODE_FLUSH2 = 0, 1, 2, 3
 _K = _build.KERNELS["expand"]
+CHUNK = 1024        # pixels a block of the kernel (csrc/expand.cu CHUNK)
 
 
 def op_bases(diff, hpad: int):
@@ -82,7 +83,8 @@ def expand_plain(words, diff, svp, btp, hlen, op_cap: int):
 
 
 def expand(words, diff, svp, btp, hlen, op_cap: int):
-    """K3 wrapper: (opw (S, op_cap) int32, n_ops (S,) int32)."""
+    """K3 wrapper: (opw (S, op_cap) int32, n_ops (S,) int32).  The kernel
+    writes every word of opw and n_ops itself."""
     W, S, npix = words.shape
     dev = diff.device
     hpad = svp.shape[1]
@@ -93,12 +95,12 @@ def expand(words, diff, svp, btp, hlen, op_cap: int):
     _K.check("hlen", hlen, (S,), dev)
     if _K.plain_for(dev):
         return expand_plain(words, diff, svp, btp, hlen, op_cap)
-    base, total = op_bases(diff, hpad)
-    base = base.contiguous()
-    total = total.contiguous()
-    opw = torch.zeros((S, op_cap), dtype=torch.int32, device=dev)
-    _K.launch(words.data_ptr(), W, diff.data_ptr(), base.data_ptr(),
-              svp.data_ptr(), btp.data_ptr(), hlen.data_ptr(),
-              total.data_ptr(), S, npix, hpad, op_cap, opw.data_ptr(),
+    # n_ops, then the kernel's per-chunk op counts
+    n_ops = torch.empty(S * (1 + max(1, -(-npix // CHUNK))),
+                        dtype=torch.int32, device=dev)
+    opw = torch.empty((S, op_cap), dtype=torch.int32, device=dev)
+    _K.launch(words.data_ptr(), W, diff.data_ptr(), svp.data_ptr(),
+              btp.data_ptr(), hlen.data_ptr(), S, npix, hpad, op_cap,
+              n_ops.data_ptr() + 4 * S, opw.data_ptr(), n_ops.data_ptr(),
               _build.stream_handle(diff))
-    return opw, total + 3
+    return opw, n_ops[:S]

@@ -11,7 +11,8 @@ says so.
 
 ``kernel_times.py`` (run by its path, with ``--root`` naming the checkout
 whose kernels it times) gives the CUDA-event times of the range path's
-serial kernels K4, K2 and K6 at the main path's shapes; ``latency.py``
+kernels K4, K2, K6, K3 and K1 (and of K1 on the Golomb-Rice path) at the
+main path's shapes; ``latency.py``
 measures the latencies of the dependent chains that bound them
 (``latency.cu``, for ``chip_smoke.py``'s chain bounds).
 """

@@ -1,6 +1,7 @@
-"""CUDA-event times of the range path's serial kernels, K4 (rac_render),
-K2 (adapt) and K6 (adapt_emission), at the main path's shapes, for the
-checkout at ``--root``:
+"""CUDA-event times of the range path's kernels K4 (rac_render), K2
+(adapt), K6 (adapt_emission), K3 (expand) and K1 (place), and of K1 on
+the Golomb-Rice path, at the main path's shapes, for the checkout at
+``--root``:
 
     python3 ffmpeg_ffv2_tpu_torch/tools/kernel_times.py [--root DIR]
 
@@ -9,13 +10,19 @@ repository, whose ``ffmpeg_ffv2_tpu_torch`` and ``chip_smoke.py`` are
 imported, so that two versions of the kernels are timed by the same code
 on one card: unpack the other version under a git-ignored directory and
 run the script for each root in turns.  It captures frame 0 of 1080p
-yuv420p (``FFV1Config(level=3, coder=1, slices=30)``) and of 1080p rgb48
-(``slicecrc=1``, coding depth 17, R = 7) through that checkout's
-``chip_smoke.probe`` and times each kernel on the captured inputs
-(median of ``REPS`` runs after a warm-up).  Prints one JSON line per
-configuration: the card (``nvidia-smi`` name and power limit), the root,
-ms, ns a step (K4: the longest slice's live steps) and ns a chain row (K2,
-K6: the longest tile chain's rows).  Needs a CUDA card.
+yuv420p (``FFV1Config(level=3, coder=1, slices=30)``, and ``coder=0``
+for the rice case) and of 1080p rgb48 (``slicecrc=1``, coding depth 17,
+R = 7) through that checkout's ``chip_smoke.probe`` and times each
+kernel's wrapper on the captured inputs (median of ``REPS`` runs after a
+warm-up).  For K1 and K3 it also prints the device time of each kernel
+and torch op that one wrapper call runs (``torch.profiler``, ms a call by
+name), and the layout stage and K1 together (the encoder's own ``front``
+or ``rice_front`` on frame 0, stopped by its ``mark`` hook after K1:
+the median and quartiles of ``LAYOUT_REPS`` runs, and the device time
+alone of one run, the sum of its kernels' spans).  Prints one JSON line per configuration: the card
+(``nvidia-smi`` name and power limit), the root, ms, ns a step (K4: the
+longest slice's live steps) and ns a chain row (K2, K6: the longest tile
+chain's rows).  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ import sys
 
 
 REPS = 9                    # timed runs a kernel, after a warm-up
+LAYOUT_REPS = 101           # timed runs of the layout stage and K1
 
 
 def main() -> int:
@@ -45,9 +53,12 @@ def main() -> int:
     import chip_smoke as cs
     from ffmpeg_ffv2_tpu_torch import _build
     from ffmpeg_ffv2_tpu_torch.ffv1 import adapt as ad
+    from ffmpeg_ffv2_tpu_torch.ffv1 import expand as ex
     from ffmpeg_ffv2_tpu_torch.ffv1 import host
     from ffmpeg_ffv2_tpu_torch.ffv1 import rac
     from ffmpeg_ffv2_tpu_torch.ffv1.params import FFV1Config
+    from ffmpeg_ffv2_tpu_torch.ops import place as pl
+    from ffmpeg_ffv2_tpu_torch.tools import device_profile
     if not os.path.abspath(_build.__file__).startswith(root):
         raise RuntimeError(f"imported {_build.__file__}, not from {root}")
     card = subprocess.run(
@@ -55,8 +66,58 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     _build.load()
-    cases = [("yuv420p", cs.synth_1080p_frames(1)[0],
-              FFV1Config(level=3, coder=1, slices=30)),
+
+    def split(fn):
+        """{kernel or op: device ms a call} of one wrapper call."""
+        return {name: round(ms, 5) for name, (ms, _) in
+                sorted(device_profile(fn, REPS, "cuda").items())}
+
+    class _AtK1(Exception):
+        pass
+
+    def stop_at_k1(name, inputs=None):
+        if name == "K1 place":
+            raise _AtK1
+
+    def layout_k1(enc, frame):
+        """The encoder's own front stage on frame 0, stopped by its mark
+        hook right after K1."""
+        dev = [torch.as_tensor(x, dtype=torch.int32, device="cuda")
+               for x in frame]
+        if enc.golomb:
+            ctx, streams = enc.phase_a_rice(dev)
+            args = (ctx, streams["payload"], enc.vcanon, True,
+                    enc.tiles_cap, enc.cellrows_cap, stop_at_k1)
+            front = enc.rice_front
+        else:
+            ctx, diff, _ = enc.range_streams(dev, True)
+            args = (ctx, diff, enc.canonical_key, True, enc.tiles_cap,
+                    enc.cellrows_cap, enc.unsort_words, stop_at_k1)
+            front = enc.front
+
+        def run():
+            try:
+                front(*args)
+            except _AtK1:
+                pass
+        run()
+        ms = []
+        for _ in range(LAYOUT_REPS):
+            ms.append(cs.cuda_ms_once(run)[1])
+        ms.sort()
+        n = LAYOUT_REPS // 4
+        return dict(layout_k1_ms=ms[LAYOUT_REPS // 2],
+                    layout_k1_quartiles_ms=[ms[n], ms[-1 - n]],
+                    layout_k1_device_ms=sum(split(run).values()))
+
+    def k1_fields(enc, inputs, frame):
+        k1 = inputs["k1"]
+        return dict(k1_ms=cs.cuda_ms(lambda: pl.place(*k1), REPS),
+                    k1_split=split(lambda: pl.place(*k1)),
+                    **layout_k1(enc, frame))
+
+    yuv = cs.synth_1080p_frames(1)[0]
+    cases = [("yuv420p", yuv, FFV1Config(level=3, coder=1, slices=30)),
              ("rgb48", cs.synth_rgb48_frames(1)[0],
               FFV1Config(level=3, coder=1, slices=30, slicecrc=1))]
     for pix, frame, cfg in cases:
@@ -67,16 +128,27 @@ def main() -> int:
         rows = cs.chain_rows(caps.tolist(), pred.tolist())
         live = int(inputs["n_ops"].max())
         ev = k + (host.n_ev_words(enc.code_bits),)
+        k3 = inputs["k3"]
         t4 = cs.cuda_ms(lambda: rac.rac_render(*inputs["k4"]), REPS)
         t2 = cs.cuda_ms(lambda: ad.adapt(*k), REPS)
         t6 = cs.cuda_ms(lambda: ad.adapt_emission(*ev), REPS)
+        t3 = cs.cuda_ms(lambda: ex.expand(*k3), REPS)
         print(json.dumps(dict(
-            card=card, root=root, pix=pix, code_bits=enc.code_bits,
+            card=card, root=root, pix=pix, coder="range",
+            code_bits=enc.code_bits,
             k4_ms=t4, k4_steps=inputs["k4"][1], k4_live_steps=live,
             k4_ns_a_step=t4 * 1e6 / live, k2_ms=t2, k6_ms=t6,
             chain_rows=rows, k2_ns_a_row=t2 * 1e6 / rows,
-            k6_ns_a_row=t6 * 1e6 / rows)), flush=True)
-        del enc, inputs
+            k6_ns_a_row=t6 * 1e6 / rows, k3_ms=t3,
+            k3_W=int(k3[0].shape[0]), k3_op_cap=int(k3[5]),
+            k3_split=split(lambda: ex.expand(*k3)),
+            **k1_fields(enc, inputs, frame))), flush=True)
+        del enc, inputs, k, ev, k3
+    cfg = FFV1Config(level=3, coder=0, slices=30)
+    enc, inputs = cs.probe("kernel_times rice", "yuv420p", cs.W, cs.H, cfg,
+                           yuv)
+    print(json.dumps(dict(card=card, root=root, pix="yuv420p", coder="rice",
+                          **k1_fields(enc, inputs, yuv))), flush=True)
     return 0
 
 

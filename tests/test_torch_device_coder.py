@@ -19,11 +19,12 @@ from ffmpeg_ffv2_tpu.ffv1.tpu_coder import rac_scan_lanes as jax_rac_scan
 from ffmpeg_ffv2_tpu_torch.ffv1 import device_coder as tdc
 from ffmpeg_ffv2_tpu_torch.ffv1 import host
 from test_torch_formats import torch_one_thread  # noqa: F401
+from test_torch_place_tables import lane_walk
 from ffmpeg_ffv2_tpu_torch.ffv1.adapt import adapt
 from ffmpeg_ffv2_tpu_torch.ffv1.expand import expand
 from ffmpeg_ffv2_tpu_torch.ffv1.rac import (rac_render, rac_scan_lanes,
                                             render_bytes)
-from ffmpeg_ffv2_tpu_torch.ops.place import place, scatter_cells
+from ffmpeg_ffv2_tpu_torch.ops.place import TABLE_KEYS, place, scatter_cells
 
 W, H = 64, 48
 CFG = FFV1Config(level=3, coder=1, slices=4)
@@ -111,7 +112,7 @@ def test_torch_layout_plan(stages):
                           stages["jenc"].rows_per_slice, tiles_cap * 128,
                           tiles_cap)
     ref = stages["raw_plan"]
-    assert set(got) == set(ref)
+    assert set(got) == set(ref) | set(TABLE_KEYS)
     for k in ref:
         assert got[k].dtype == torch.int32, k
         assert np.array_equal(np_(got[k]), np_(ref[k])), k
@@ -120,11 +121,17 @@ def test_torch_layout_plan(stages):
 
 
 def test_torch_scatter_cells(stages):
+    """scatter_cells on JAX's plan, and place (its CPU path) and the lane
+    walk from K1's slot tables on the port's plan, equal JAX's cells."""
     plan = _tplan(stages)
-    cellrows_cap = stages["cellrows_cap"]
-    for fn in (scatter_cells, place):
-        ch1c, ch2c = fn(plan["dest"], plan["ch1"], plan["orig"],
-                        cellrows_cap)
+    cellrows_cap, tiles_cap = stages["cellrows_cap"], stages["tiles_cap"]
+    port = tdc.layout_plan(t_(stages["row_local"]), t_(stages["diff"]),
+                           stages["jenc"].rows_per_slice, tiles_cap * 128,
+                           tiles_cap)
+    for ch1c, ch2c in (scatter_cells(plan["dest"], plan["ch1"],
+                                     plan["orig"], cellrows_cap),
+                       place(port, cellrows_cap),
+                       lane_walk(port, cellrows_cap)):
         assert np.array_equal(np_(ch1c), np_(stages["ch1c"]))
         assert np.array_equal(np_(ch2c), np_(stages["ch2c"]))
 

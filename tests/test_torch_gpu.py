@@ -114,9 +114,9 @@ def test_torch_gpu_kernels_match_plain(monkeypatch):
     plan = enc.layout(ctx, diff, enc.tiles_cap, enc.cellrows_cap)
     assert (plan["tile_pred"] >= 0).any()
 
-    k1 = (plan["dest"], plan["ch1"], plan["orig"], enc.cellrows_cap)
-    ch1c, ch2c = pl.place(*k1)
-    for a, b in zip((ch1c, ch2c), pl.scatter_cells(*k1)):
+    ch1c, ch2c = pl.place(plan, enc.cellrows_cap)
+    for a, b in zip((ch1c, ch2c), pl.scatter_cells(
+            plan["dest"], plan["ch1"], plan["orig"], enc.cellrows_cap)):
         assert torch.equal(a, b)
 
     rng = np.random.RandomState(2)
@@ -147,6 +147,106 @@ def test_torch_gpu_kernels_match_plain(monkeypatch):
             n = min(int(a_ln[s]), buf_cap)
             assert torch.equal(a_by[s, :n], b_by[s, :n])
             assert not a_by[s, n:].any()
+
+
+def _poison(n):
+    """Free two blocks of n int32 words holding -7 into the caching
+    allocator, so that the outputs the next call allocates at that size
+    show any word its kernel leaves unwritten."""
+    blocks = [torch.full((n,), -7, dtype=torch.int32, device="cuda")
+              for _ in range(2)]
+    del blocks
+
+
+def _expand_inputs(W, npix, seed):
+    """K3 inputs of 4 slices: coding-depth-17 diffs (|d| up to 2^17 - 1,
+    so up to 35 ops a pixel) with zeros, an all-zero slice (1 op a
+    pixel), small diffs; random sv words; hlen 0, hpad, 5 and 1."""
+    rng = np.random.RandomState(seed)
+    S, hpad = 4, 16
+    e = rng.randint(0, 17, (S, npix))
+    mag = (1 << e) | (rng.randint(0, 1 << 30, e.shape) & ((1 << e) - 1))
+    diff = np.where(rng.rand(S, npix) < 0.5, -mag, mag)
+    diff = np.where(rng.rand(S, npix) < 0.2, 0, diff)
+    diff[0, :3] = (1 << 17) - 1, -((1 << 17) - 1), 0
+    diff[1] = 0
+    diff[3] = rng.randint(-3, 4, npix)
+    words = rng.randint(-2 ** 31, 2 ** 31, (W, S, npix), dtype=np.int64)
+    svp = rng.randint(0, 256, (S, hpad))
+    btp = rng.randint(0, 2, (S, hpad))
+    hlen = np.array([0, hpad, 5, 1])
+    return [torch.as_tensor(x.astype(np.int32), device="cuda")
+            for x in (words, diff, svp, btp, hlen)]
+
+
+@pytest.mark.parametrize("W,npix", [(1, 2500), (2, 700), (9, 2500),
+                                    (9, 2048)])
+def test_torch_gpu_expand_matches_plain(W, npix):
+    """K3 against expand_plain, element for element: W = 1, 2 and 9 sv
+    words, npix below, past and at a multiple of the kernel's 1024-pixel
+    chunk; op_cap with room for every op, inside a pixel's ops, at the
+    first op of slice 0's second chunk, and not a multiple of 4."""
+    words, diff, svp, btp, hlen = _expand_inputs(W, npix, W * npix)
+    base, total = ex.op_bases(diff, svp.shape[1])
+    counts = ex.event_count(diff)
+    big = -(-(int(total.max()) + 3) // host.OP_GRAN) * host.OP_GRAN
+    px = int(torch.nonzero(counts[0] >= 20)[0, 0])
+    caps = [big, int(base[0, px]) + 7, big + 3]
+    if npix > ex.CHUNK:
+        caps.append(int(base[0, ex.CHUNK]))
+    assert int(counts.max()) == 35
+    k = _build.KERNELS["expand"]
+    for op_cap in caps:
+        _poison(diff.shape[0] * op_cap)
+        before = k.launches
+        got = ex.expand(words, diff, svp, btp, hlen, op_cap)
+        assert k.launches == before + 1
+        for a, b in zip(got, ex.expand_plain(words, diff, svp, btp, hlen,
+                                             op_cap)):
+            assert torch.equal(a, b), op_cap
+
+
+@pytest.mark.parametrize("gcap,coder,pix", [
+    (64, 1, "yuv420p"), (16, 1, "yuv420p"), (64, 0, "yuv420p"),
+    (16, 0, "yuv420p16")])
+def test_torch_gpu_place_layouts(monkeypatch, gcap, coder, pix):
+    """K1 against scatter_cells on the encoder's own layouts: split groups
+    (GCAP 64 and 16), range cells and the rice payload at pb = 12 and
+    16, with the cell rows the layout needs, and half of them (layout()
+    clamps the walk's tiles and the cells past the cap are dropped)."""
+    monkeypatch.setattr(host, "GCAP", gcap)
+    w, h = (128, 96) if gcap == 64 else (64, 48)
+    cfg = FFV1Config(level=3, coder=coder, slices=4)
+    p = params_from_config(cfg, pix, w, h)
+    if coder == 0:
+        p = dataclasses.replace(p, ac=CODER_GOLOMB)
+    enc = dc.DeviceFFV1Encoder(w, h, pix, cfg, device="cuda", params=p)
+    planes = _frame(p, w, h, 0, np.random.RandomState(5), True)
+    if p.bits > 8:
+        planes = [x << (p.bits - 8) | x for x in planes]
+    dev = [torch.as_tensor(x, device="cuda") for x in planes]
+    if enc.golomb:
+        assert enc.rice_pb == (16 if p.bits > 8 else 12)
+        ctx, streams = enc.phase_a_rice(dev)
+        field, bits = streams["payload"], enc.rice_pb + 1
+    else:
+        (ctx, field), bits = enc.phase_a(dev), 0
+    rows = int(enc.layout(ctx, field, enc.tiles_max, enc.cellrows_max,
+                          bits)["n_rows"])
+    k = _build.KERNELS["place"]
+    for cellrows_cap in (enc.cellrows_max, rows, rows // 2):
+        plan = enc.layout(ctx, field, enc.tiles_max, cellrows_cap, bits)
+        assert (plan["tile_rank0"] > 0).any()
+        _poison(cellrows_cap * 128)
+        before = k.launches
+        got = pl.place(plan, cellrows_cap)
+        assert k.launches == before + 1
+        for a, b in zip(got, pl.scatter_cells(plan["dest"], plan["ch1"],
+                                              plan["orig"], cellrows_cap)):
+            assert torch.equal(a, b), cellrows_cap
+    assert not torch.equal(plan["tile_bases"], plan["cell_bases"])
+    assert ((plan["dest"] >= cellrows_cap * 128)
+            & (plan["dest"] != pl.INT32_MAX)).any()
 
 
 def test_torch_gpu_rac_render_long_fill_run():
@@ -296,8 +396,7 @@ def _vlc_against_plain(monkeypatch, pix, params=None):
     plan = enc.layout(ctx, streams["payload"], enc.tiles_cap,
                       enc.cellrows_cap, enc.rice_pb + 1)
     assert (plan["tile_pred"] >= 0).any()
-    ch1c, _ = pl.place(plan["dest"], plan["ch1"], plan["orig"],
-                       enc.cellrows_cap)
+    ch1c, _ = pl.place(plan, enc.cellrows_cap)
     rng = np.random.RandomState(2)
     vcanon = np.stack([rng.randint(-128, 1, enc.vcanon.shape[0]),
                        rng.randint(0, 1 << 16, enc.vcanon.shape[0]),
@@ -485,8 +584,7 @@ def test_torch_gpu_adapt_repeat_substeps(monkeypatch, pix, code_bits):
     ctx, diff = enc.phase_a(dev)
     plan = enc.layout(ctx, diff, enc.tiles_cap, enc.cellrows_cap)
     assert (plan["tile_pred"] >= 0).any()
-    ch1c, _ = pl.place(plan["dest"], plan["ch1"], plan["orig"],
-                       enc.cellrows_cap)
+    ch1c, _ = pl.place(plan, enc.cellrows_cap)
     if code_bits > 10:
         assert int((ad.cell_diff(ch1c, code_bits).abs()
                     >= 1 << 10).sum()) > 0

@@ -221,8 +221,7 @@ def port48(real48):
     ctx, streams = enc.phase_a_rice([_t(p) for p in real48["planes"]])
     plan = enc.layout(ctx, streams["payload"], enc.tiles_cap,
                       enc.cellrows_cap, rice.PAYLOAD_BITS + 1)
-    ch1c, ch2c = place(plan["dest"], plan["ch1"], plan["orig"],
-                       enc.cellrows_cap)
+    ch1c, ch2c = place(plan, enc.cellrows_cap)
     return dict(enc=enc, ctx=ctx, streams=streams, plan=plan, ch1c=ch1c,
                 ch2c=ch2c)
 
@@ -286,7 +285,7 @@ def test_torch_vlc_adapt_plain_zero_carry(monkeypatch, real48, port48):
     assert (pred >= 0).any()
     caps = plan["tile_caps"].clone()
     caps[int(pred[pred >= 0][0])] = 0
-    ch1c, _ = place(plan["dest"], plan["ch1"], plan["orig"], cellrows_cap)
+    ch1c, _ = place(plan, cellrows_cap)
     s0 = rice.build_vlc_s0(plan, _t(real48["vcanon"]), tiles_cap)
     got = vlc_adapt_plain(ch1c, caps, plan["tile_bases"], pred, s0, 8)
     jch1 = jnp.zeros(cellrows_cap * 128, jnp.int32).at[jplan["dest"]].set(
