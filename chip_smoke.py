@@ -12,7 +12,8 @@ wall seconds:
 1. the build of the CUDA kernels from csrc/ (one nvcc per source, all
    started together), of the native C++ FFV1 codec, the oracle (g++), and
    of tools/latency.cu, whose chains give the SM cycles a link of K4's
-   coder step and of K2's table lookup on this card;
+   (and K7's) coder step, of K2's table lookup and of K5's row on this
+   card;
 2. range, 1920x1080 yuv420p, FFV1Config(level=3, coder=1, slices=30): K1-K4
    each against its plain PyTorch version on the card, on the inputs frame
    0 gives it (K2 and K4 plain versions on a stated cut: K4's first 3080
@@ -36,7 +37,9 @@ wall seconds:
    histogram of its picks), K6 against its plain version, 3 frames
    checked as in phase 3 with K1, K6, K3 and K4 launched and K2 not;
 8. bgr0 1920x1080, FFV1Config(level=3, coder=0, slices=30): FATE's RGB
-   Golomb-Rice configuration, 3 frames with K1, K5 and the ladder kernel;
+   Golomb-Rice configuration: K5 at coding depth 9 against its plain
+   version (on a cut) on frame 0's inputs (entry vlc_bgr0), then 3 frames
+   with K1, K5 and the ladder kernel;
 9. yuv422p10 720x486 (SD tape transfers), FFV1Config(level=3, coder=1,
    slices=24, slicecrc=1): slice rects of 120x121 and 120x122, so the
    session splits into two shape banks; 3 frames checked as in phase 3;
@@ -46,7 +49,8 @@ wall seconds:
    with pass-1 statistics on, checked as in phase 3, K7 launched once a
    frame, and the statistics equal to a native session's;
 11. TPUCoderFFV1Encoder with phase 4's Golomb-Rice config: K7 codes the
-   slice headers, bit_pack_lanes packs the Rice bits on the card, 3
+   slice headers (against its plain version on frame 0's, entry
+   rac_lanes_rice), bit_pack_lanes packs the Rice bits on the card, 3
    frames;
 12. TPUFFV1Encoder (phase A on the card, the native entropy coder): 3
    frames of 1080p yuv420p coder=1, then 2 of bgr0 coder=0 (fixed RCT);
@@ -83,10 +87,11 @@ before the last is a JSON object with one entry per kernel (and K2 again
 at rgb48; K6's entry carries its rgb48 numbers too): its times, its bound
 on this card (bytes over the memory rate or operations over the peak rate,
 whichever is larger, from this run's inputs; and for a serial kernel the
-longest dependent chain at one step per SM clock, and for K2, K4 and K6
+longest dependent chain at one step per SM clock, and for K2, K4-K7
 the work's longest chain of dependent links (K4: the longest slice's
-steps; K2, K6: the lookups a slot's hits need) at the cycles a link
-measured in phase 1) and the time of one
+steps; K7: the lanes' steps; K2, K6: the lookups a slot's hits need;
+K5: the live cells a lane walks) at the cycles a link measured in phase
+1) and the time of one
 PyTorch call computing the same function where there is one. The last line
 is {"ok": true, "device": {...}}. Any failure raises and exits non-zero
 without those lines. Exits non-zero at once when torch sees no CUDA
@@ -597,13 +602,36 @@ def range_checks(out, inputs, clock_mhz, cycles):
               f"ms_cut on the cut, ms on {steps} steps")
 
 
-def rice_checks(out, inputs, clock_mhz, bits=8, suffix="", path="rice"):
-    """K5 (coding depth ``bits``) and the ladder kernel against their plain
-    versions on rice frame 0's inputs; their entries are ``vlc`` and
-    ``ladder`` with ``suffix``."""
+def vlc_links(ch1c, caps, bases, pred, s0, pb: int) -> int:
+    """The most live cells that one lane of K5's walk takes one after the
+    other: a lane's live cells in a tile, added to its predecessor's in
+    the lanes whose continuation flag is set; an empty tile ends the chain
+    (its state is zeroed)."""
+    import torch
+    caps_h, bases_h, pred_h = caps.tolist(), bases.tolist(), pred.tolist()
+    live = (((ch1c >> (pb + 1)) & 1) & (1 - ((ch1c >> pb) & 1)))
+    total = torch.zeros((len(caps_h), 128), dtype=torch.int64,
+                        device=ch1c.device)
+    for t, (c, b, p) in enumerate(zip(caps_h, bases_h, pred_h)):
+        if c <= 0:
+            continue
+        total[t] = live[b:b + c].sum(0)
+        if p >= 0:
+            total[t] += torch.where(s0[t, 4] > 0, total[p], 0)
+    return int(total.max()) if caps_h else 0
+
+
+def rice_checks(out, inputs, clock_mhz, cycles, bits=8, suffix="",
+                path="rice", ladder=True):
+    """K5 (coding depth ``bits``) and (with ``ladder``) the ladder kernel
+    against their plain versions on rice frame 0's inputs; their entries
+    are ``vlc`` and ``ladder`` with ``suffix``.  K5's latency bound: the
+    most live cells a lane walks one after the other (``vlc_links``) at
+    the measured cycles of K5's row (``cycles``, ``tools/latency.py``)."""
     import torch
     from ffmpeg_ffv2_tpu_torch.ffv1 import rice
     from ffmpeg_ffv2_tpu_torch.ffv1 import vlc
+    from ffmpeg_ffv2_tpu_torch.tools import latency
     pb = rice.rice_pb(bits)
 
     k5 = inputs["k5"]
@@ -624,17 +652,25 @@ def rice_checks(out, inputs, clock_mhz, bits=8, suffix="", path="rice"):
     n_rows = sum(c for c in caps_h if c > 0)
     tiles = used_tiles(caps)
     valid, live = live_cells(ch1c, pb)
-    entry(out, "vlc", path, err,
-          cuda_ms(lambda: vlc.vlc_adapt(*k5, bits), 5), plain_ms, None,
+    ms = cuda_ms(lambda: vlc.vlc_adapt(*k5, bits), 5)
+    rows_chain = chain_rows(caps_h, pred.tolist())
+    links = vlc_links(ch1c, caps, bases, pred, s0, pb)
+    log(f"kernel vlc{suffix}: {ms * 1e6 / rows_chain:.1f} ns a chain row "
+        f"({ms:.4f} ms over the longest chain's {rows_chain} rows; the most "
+        f"live cells a lane walks: {links})")
+    entry(out, "vlc", path, err, ms, plain_ms, None,
           bound(valid * 8 + tiles * ((5 + 4) * 128 * 4 + 12), live * 40,
-                chain_rows(caps_h, pred.tolist()), clock_mhz),
+                rows_chain, clock_mhz, links, cycles[latency.K5_ROW]),
           key="vlc" + suffix,
           ms_cut=cuda_ms(lambda: vlc.vlc_adapt(ch1c, caps_cut, bases, pred,
                                                s0, bits), 5),
+          ns_a_chain_row=ms * 1e6 / rows_chain,
           cut=f"tiles {cut} ({rows.numel()} of {n_rows} rows); plain_ms "
               "and ms_cut on the cut, ms on every tile",
           split_tiles=sum(1 for t in pred.tolist() if t >= 0),
           valid_cells=valid, live_cells=live, payload_bits=pb)
+    if not ladder:
+        return
 
     # the ladder: kernel and plain loop on frame 0's events, each lane
     # walked as far as its event count; bound: per event its count and
@@ -655,16 +691,19 @@ def rice_checks(out, inputs, clock_mhz, bits=8, suffix="", path="rice"):
           events=events, max_events=int(n_ev.max()))
 
 
-def lanes_checks(out, enc, frame, clock_mhz):
+def lanes_checks(out, enc, frame, clock_mhz, cycles):
     """K7 on the lane matrices of ``frame`` planned as a keyframe by
     ``enc`` (a TPUCoderFFV1Encoder session of its own), timed after a
     warm-up; kernel and plain version on the first 2048 steps of every
     lane ending in the two flush steps.  Bound: each used step of each
-    lane reads 3 int32 and writes 3 int32; chain: the longest lane's
-    steps.  Also times frame 0's host and device stages."""
+    lane reads 3 int32 and writes 3 int32; chain: the lanes' steps, and
+    its latency bound those steps at the measured cycles of K4's coder
+    step (``cycles``, ``tools/latency.py``), which K7's coder runs.  Also
+    times frame 0's host and device stages."""
     import torch
     from ffmpeg_ffv2_tpu_torch.ffv1 import rac
     from ffmpeg_ffv2_tpu_torch.ffv1 import tpu_coder as tc
+    from ffmpeg_ffv2_tpu_torch.tools import latency
     stages = {}
     t0 = time.perf_counter()
     svs, bits, lens, _ = enc._plan(frame, True)
@@ -689,13 +728,45 @@ def lanes_checks(out, enc, frame, clock_mhz):
     got = rac.rac_lanes(*cut)
     ref, plain_ms = cuda_ms_once(lambda: rac.rac_scan_lanes(*cut))
     err = max_abs_err(got, ref)
-    entry(out, "rac_lanes", "hybrid range", err,
-          cuda_ms(lambda: rac.rac_lanes(*k7), 5), plain_ms, None,
-          bound(steps * lanes * 6 * 4, steps * lanes, steps, clock_mhz),
+    ms = cuda_ms(lambda: rac.rac_lanes(*k7), 5)
+    log(f"kernel rac_lanes: {ms * 1e6 / steps:.2f} ns a step ({ms:.4f} ms "
+        f"over {steps} steps of {lanes} lanes)")
+    entry(out, "rac_lanes", "hybrid range", err, ms, plain_ms, None,
+          bound(steps * lanes * 6 * 4, steps * lanes, steps, clock_mhz,
+                steps, cycles[latency.K4_STEP]),
           ms_cut=cuda_ms(lambda: rac.rac_lanes(*cut), 5),
+          ns_a_step=ms * 1e6 / steps,
           cut=f"first {n} steps of each of {lanes} lanes; plain_ms and "
               f"ms_cut on the cut, ms on {steps} steps",
           ops_per_lane_max=max(lens), ops_per_lane_min=min(lens))
+
+
+def rice_lanes_checks(out, enc, frame, clock_mhz, cycles):
+    """K7 on the slice headers of rice ``frame`` as a keyframe of ``enc``
+    (a TPUCoderFFV1Encoder session of its own, whose ``lane_matrices`` it
+    records while the frame encodes), against its plain version in full;
+    bound and latency bound as ``lanes_checks``."""
+    from ffmpeg_ffv2_tpu_torch.ffv1 import rac
+    from ffmpeg_ffv2_tpu_torch.tools import latency
+    seen = []
+    lane_matrices = enc.lane_matrices
+    enc.lane_matrices = lambda *a: seen.append(lane_matrices(*a)) or seen[-1]
+    enc.encode(frame, force_keyframe=True)
+    if len(seen) != 1:
+        raise AssertionError(f"hybrid rice: {len(seen)} lane codings in a "
+                             "frame, not one")
+    k7 = seen[0]
+    steps, lanes = k7[0].shape
+    got = rac.rac_lanes(*k7)
+    ref, plain_ms = cuda_ms_once(lambda: rac.rac_scan_lanes(*k7))
+    err = max_abs_err(got, ref)
+    ms = cuda_ms(lambda: rac.rac_lanes(*k7), 5)
+    entry(out, "rac_lanes", "hybrid rice", err, ms, plain_ms, None,
+          bound(steps * lanes * 6 * 4, steps * lanes, steps, clock_mhz,
+                steps, cycles[latency.K4_STEP]),
+          key="rac_lanes_rice", ns_a_step=ms * 1e6 / steps,
+          shape=f"{steps} steps x {lanes} lanes (the slice headers); "
+                "kernel and plain on every step")
 
 
 def sort_tools_checks(out, card) -> dict:
@@ -776,7 +847,7 @@ def sort_tools_checks(out, card) -> dict:
     return counts
 
 
-def deep_rice_checks(out, frames, cfg, clock_mhz, card) -> dict:
+def deep_rice_checks(out, frames, cfg, clock_mhz, cycles, card) -> dict:
     """Phase 15: ``frames`` (8-bit yuv420p) scaled to 16 bits (x << 8 |
     x) on Golomb-Rice at ``cfg`` with the params forced to it (the
     config takes the range coder past 8 bits): K1, K5 at pb = 16 (on a
@@ -795,7 +866,7 @@ def deep_rice_checks(out, frames, cfg, clock_mhz, card) -> dict:
     if enc.rice_pb != 16:
         raise AssertionError(f"yuv420p16 rice: payload {enc.rice_pb}")
     place_checks(out, inputs["k1"], "rice16", key="place_pb16")
-    rice_checks(out, inputs, clock_mhz, bits=16, suffix="_pb16",
+    rice_checks(out, inputs, clock_mhz, cycles, bits=16, suffix="_pb16",
                 path="rice16")
     del enc, inputs
     return drive("rice16", device_encoder("yuv420p16", w, h, cfg,
@@ -978,7 +1049,7 @@ def main() -> int:
                      ms_rice=cuda_ms(lambda: place(*rk1), 5),
                      rice=f"N={rk1[0]['dest'].shape[0]} "
                           f"cells={rk1[1] * 128}")
-        rice_checks(kernels, inputs, clock_mhz)
+        rice_checks(kernels, inputs, clock_mhz, cycles)
         del inputs, range_k1, rk1
     with Phase(5):
         launches["rice"] = drive(
@@ -1035,6 +1106,11 @@ def main() -> int:
 
     # 8. bgr0 Golomb-Rice (FATE's RGB configuration)
     with Phase(8):
+        enc, inputs = probe("phase 8: bgr0 rice", "bgr0", W, H, rice_cfg,
+                            rgb[0])
+        rice_checks(kernels, inputs, clock_mhz, cycles, bits=enc.code_bits,
+                    suffix="_bgr0", path="bgr0 rice", ladder=False)
+        del enc, inputs
         launches["bgr0 rice"] = drive(
             "bgr0 rice", device_encoder("bgr0", W, H, rice_cfg), rgb, card, 8)
     del rgb
@@ -1071,7 +1147,7 @@ def main() -> int:
 
     with Phase(10):
         lanes_checks(kernels, TPUCoderFFV1Encoder(W, H, "yuv420p", range_cfg),
-                     frames[0], clock_mhz)
+                     frames[0], clock_mhz, cycles)
         enc = TPUCoderFFV1Encoder(W, H, "yuv420p", range_cfg)
         enc.set_stats_mode(True)
         nat = NativeFFV1Codec(enc.p)
@@ -1090,6 +1166,9 @@ def main() -> int:
         stats_text = twopass.stats_to_text(enc.p, *stats)
         del enc, nat
     with Phase(11):
+        rice_lanes_checks(kernels,
+                          TPUCoderFFV1Encoder(W, H, "yuv420p", rice_cfg),
+                          frames[0], clock_mhz, cycles)
         launches["hybrid rice"] = drive(
             "hybrid rice", TPUCoderFFV1Encoder(W, H, "yuv420p", rice_cfg),
             frames[:N_NEW], card, 11)
@@ -1129,7 +1208,7 @@ def main() -> int:
     # 15. Golomb-Rice at coding depth 16: phase 4's frames in 16 bits
     with Phase(15):
         launches["rice16"] = deep_rice_checks(kernels, frames[:2], rice_cfg,
-                                              clock_mhz, card)
+                                              clock_mhz, cycles, card)
 
     for k in kernels.values():
         k["launches"] = launches[k["path"]][k["kernel"]]
@@ -1137,7 +1216,8 @@ def main() -> int:
                                  for label in launches}
     order = ["place", "place_pb16", "adapt", "adapt_rgb48",
              "adapt_emission", "expand", "rac_render", "vlc", "vlc_pb16",
-             "ladder", "ladder_pb16", "rac_lanes", "sort",
+             "vlc_bgr0", "ladder", "ladder_pb16", "rac_lanes",
+             "rac_lanes_rice", "sort",
              "rowsort", "roll", "rowcx", "transpose", "probe_scalar_extract",
              "probe_scalar_in_ds", "probe_big_prefetch", "probe_roll_dynamic",
              "probe_taa_rows"]

@@ -1,9 +1,10 @@
 """CUDA-event times of the range path's kernels K4 (rac_render), K2
-(adapt), K6 (adapt_emission), K3 (expand) and K1 (place), and of K1 on
-the Golomb-Rice path, at the main path's shapes, for the checkout at
-``--root``:
+(adapt), K6 (adapt_emission), K3 (expand) and K1 (place), of K1 and K5
+(vlc) on the Golomb-Rice path, and of K7 (rac_lanes, the hybrid lane
+coder), at the main path's shapes, for the checkout at ``--root``:
 
     python3 ffmpeg_ffv2_tpu_torch/tools/kernel_times.py [--root DIR]
+        [--cases range,rgb48,rice,rice16,rice_bgr0,lanes]
 
 ``--root`` (default: this checkout) is the root of a checkout of the
 repository, whose ``ffmpeg_ffv2_tpu_torch`` and ``chip_smoke.py`` are
@@ -14,20 +15,28 @@ yuv420p (``FFV1Config(level=3, coder=1, slices=30)``, and ``coder=0``
 for the rice case) and of 1080p rgb48 (``slicecrc=1``, coding depth 17,
 R = 7) through that checkout's ``chip_smoke.probe`` and times each
 kernel's wrapper on the captured inputs (median of ``REPS`` runs after a
-warm-up).  For K1 and K3 it also prints the device time of each kernel
-and torch op that one wrapper call runs (``torch.profiler``, ms a call by
-name), and the layout stage and K1 together (the encoder's own ``front``
+warm-up).  The rice cases time K5 on frame 0 of 1080p yuv420p
+(``coder=0``; ``rice`` with K1 too), of the same frame in 16 bits
+(``yuv420p16``, x << 8 | x, the params forced to Golomb-Rice: pb = 16;
+``rice16``) and of 1080p bgr0 (``chip_smoke.synth_rgb_frames``, coding
+depth 9; ``rice_bgr0``); ``lanes`` times K7 on the lane matrices that
+``TPUCoderFFV1Encoder`` (``coder=1``) plans for yuv420p frame 0.  For
+K1 and K3 it also prints the device time of each kernel and torch op
+that one wrapper call runs (``torch.profiler``, ms a call by name), and
+the layout stage and K1 together (the encoder's own ``front``
 or ``rice_front`` on frame 0, stopped by its ``mark`` hook after K1:
 the median and quartiles of ``LAYOUT_REPS`` runs, and the device time
-alone of one run, the sum of its kernels' spans).  Prints one JSON line per configuration: the card
-(``nvidia-smi`` name and power limit), the root, ms, ns a step (K4: the
-longest slice's live steps) and ns a chain row (K2, K6: the longest tile
-chain's rows).  Needs a CUDA card.
+alone of one run, the sum of its kernels' spans).  Prints one JSON line
+per case: the card (``nvidia-smi`` name and power limit), the root, ms,
+ns a step (K4: the longest slice's live steps; K7: the lanes' steps) and
+ns a chain row (K2, K6, K5: the longest tile chain's rows).  Needs a
+CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -36,6 +45,7 @@ import sys
 
 REPS = 9                    # timed runs a kernel, after a warm-up
 LAYOUT_REPS = 101           # timed runs of the layout stage and K1
+CASES = ("range", "rgb48", "rice", "rice16", "rice_bgr0", "lanes")
 
 
 def main() -> int:
@@ -43,7 +53,12 @@ def main() -> int:
     here = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     ap.add_argument("--root", default=here)
+    ap.add_argument("--cases", default=",".join(CASES),
+                    help="comma-separated subset of " + ",".join(CASES))
     args = ap.parse_args()
+    todo = args.cases.split(",")
+    if not set(todo) <= set(CASES):
+        ap.error(f"--cases: unknown {set(todo) - set(CASES)}")
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     import torch
@@ -56,7 +71,10 @@ def main() -> int:
     from ffmpeg_ffv2_tpu_torch.ffv1 import expand as ex
     from ffmpeg_ffv2_tpu_torch.ffv1 import host
     from ffmpeg_ffv2_tpu_torch.ffv1 import rac
-    from ffmpeg_ffv2_tpu_torch.ffv1.params import FFV1Config
+    from ffmpeg_ffv2_tpu_torch.ffv1 import vlc
+    from ffmpeg_ffv2_tpu_torch.ffv1.params import (CODER_GOLOMB, FFV1Config,
+                                                   params_from_config)
+    from ffmpeg_ffv2_tpu_torch.ffv1.tpu_coder import TPUCoderFFV1Encoder
     from ffmpeg_ffv2_tpu_torch.ops import place as pl
     from ffmpeg_ffv2_tpu_torch.tools import device_profile
     if not os.path.abspath(_build.__file__).startswith(root):
@@ -116,11 +134,21 @@ def main() -> int:
                     k1_split=split(lambda: pl.place(*k1)),
                     **layout_k1(enc, frame))
 
+    def k5_fields(enc, inputs):
+        k5 = inputs["k5"]
+        ms = cs.cuda_ms(lambda: vlc.vlc_adapt(*k5, enc.code_bits), REPS)
+        rows = cs.chain_rows(k5[1].tolist(), k5[3].tolist())
+        return dict(code_bits=enc.code_bits, k5_ms=ms, chain_rows=rows,
+                    k5_ns_a_row=ms * 1e6 / rows)
+
     yuv = cs.synth_1080p_frames(1)[0]
-    cases = [("yuv420p", yuv, FFV1Config(level=3, coder=1, slices=30)),
-             ("rgb48", cs.synth_rgb48_frames(1)[0],
+    cases = [("range", "yuv420p", yuv,
+              FFV1Config(level=3, coder=1, slices=30)),
+             ("rgb48", "rgb48", cs.synth_rgb48_frames(1)[0],
               FFV1Config(level=3, coder=1, slices=30, slicecrc=1))]
-    for pix, frame, cfg in cases:
+    for case, pix, frame, cfg in cases:
+        if case not in todo:
+            continue
         enc, inputs = cs.probe(f"kernel_times {pix}", pix, cs.W, cs.H, cfg,
                                frame)
         k = inputs["walk"]
@@ -145,10 +173,43 @@ def main() -> int:
             **k1_fields(enc, inputs, frame))), flush=True)
         del enc, inputs, k, ev, k3
     cfg = FFV1Config(level=3, coder=0, slices=30)
-    enc, inputs = cs.probe("kernel_times rice", "yuv420p", cs.W, cs.H, cfg,
-                           yuv)
-    print(json.dumps(dict(card=card, root=root, pix="yuv420p", coder="rice",
-                          **k1_fields(enc, inputs, yuv))), flush=True)
+    if "rice" in todo:
+        enc, inputs = cs.probe("kernel_times rice", "yuv420p", cs.W, cs.H,
+                               cfg, yuv)
+        print(json.dumps(dict(card=card, root=root, pix="yuv420p",
+                              coder="rice", **k5_fields(enc, inputs),
+                              **k1_fields(enc, inputs, yuv))), flush=True)
+        del enc, inputs
+    if "rice16" in todo:
+        p16 = dataclasses.replace(
+            params_from_config(cfg, "yuv420p16", cs.W, cs.H),
+            ac=CODER_GOLOMB)
+        deep = [x << 8 | x for x in yuv]
+        enc, inputs = cs.probe("kernel_times rice16", "yuv420p16", cs.W,
+                               cs.H, cfg, deep, params=p16)
+        print(json.dumps(dict(card=card, root=root, pix="yuv420p16",
+                              coder="rice", **k5_fields(enc, inputs))),
+              flush=True)
+        del enc, inputs
+    if "rice_bgr0" in todo:
+        rgb = cs.synth_rgb_frames(1)[0]
+        enc, inputs = cs.probe("kernel_times rice bgr0", "bgr0", cs.W, cs.H,
+                               cfg, rgb)
+        print(json.dumps(dict(card=card, root=root, pix="bgr0",
+                              coder="rice", **k5_fields(enc, inputs))),
+              flush=True)
+        del enc, inputs
+    if "lanes" in todo:
+        enc = TPUCoderFFV1Encoder(cs.W, cs.H, "yuv420p",
+                                  FFV1Config(level=3, coder=1, slices=30))
+        svs, bits, lens, _ = enc._plan(yuv, True)
+        k7 = enc.lane_matrices(svs, bits, lens)
+        steps, lanes = k7[0].shape
+        ms = cs.cuda_ms(lambda: rac.rac_lanes(*k7), REPS)
+        print(json.dumps(dict(card=card, root=root, pix="yuv420p",
+                              coder="hybrid range", k7_ms=ms,
+                              k7_steps=steps, k7_lanes=lanes,
+                              k7_ns_a_step=ms * 1e6 / steps)), flush=True)
     return 0
 
 

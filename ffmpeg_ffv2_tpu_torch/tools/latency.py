@@ -1,9 +1,10 @@
 """SM cycles a link of the dependent chains that bound the serial kernels
-(``latency.cu``): K2's and K6's table lookup, K4's coder step, and a
-branch on a value just computed.  ``build()`` compiles ``latency.cu``
-with nvcc into ``build/latency/`` (keyed by its source and flags);
-``measure()`` runs each chain for 2^14 links in one warp and returns the
-cycles a link by chain.  Needs a CUDA card; ``chip_smoke.py`` calls both.
+(``latency.cu``): K2's and K6's table lookup, K4's coder step (K7's
+too), a branch on a value just computed, and K5's row.  ``build()``
+compiles ``latency.cu`` with nvcc into ``build/latency/`` (keyed by its
+source and flags); ``measure()`` runs each chain for 2^14 links in one
+warp and returns the cycles a link by chain.  Needs a CUDA card;
+``chip_smoke.py`` calls both.
 """
 
 from __future__ import annotations
@@ -12,8 +13,9 @@ import hashlib
 import os
 import subprocess
 
-CHAINS = ("IADD3 LDS.U8", "IMAD IADD SHF LOP3", "IMAD ISETP BRA")
-LOOKUP, K4_STEP, BRANCH = CHAINS
+CHAINS = ("IADD3 LDS.U8", "IMAD IADD SHF LOP3", "IMAD ISETP BRA",
+          "K5 row")
+LOOKUP, K4_STEP, BRANCH, K5_ROW = CHAINS
 LINKS = 1 << 14
 
 

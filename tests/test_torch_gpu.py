@@ -418,8 +418,56 @@ def _vlc_against_plain(monkeypatch, pix, params=None):
             assert torch.equal(a, b)
 
 
-def test_torch_gpu_vlc_matches_plain(monkeypatch):
-    _vlc_against_plain(monkeypatch, "yuv420p")
+def _vlc_chain_inputs(bits, seed):
+    """A chain of 5 tiles (0 -> 1 -> 2 -> 3 -> 4) whose tile 2 has cap 0
+    (its successor loads a zero carry), two lone tiles, caps not multiples
+    of 32; tile 6's lane 5 is live in all of its 300 rows (count passes
+    128 twice), its lane 7 in none; random start states (counts 0, 1, 128
+    and 200 among them) and continuation flags."""
+    rng = np.random.RandomState(seed)
+    pb = rice.rice_pb(bits)
+    caps = np.array([70, 33, 0, 95, 64, 31, 300], np.int32)
+    pred = np.array([-1, 0, 1, 2, 3, -1, -1], np.int32)
+    bases = np.concatenate([[0], np.cumsum(caps)[:-1]]).astype(np.int32)
+    cellrows = int(caps.sum()) + 16
+    half = 1 << (bits - 1)
+    diff = rng.randint(-half, half, (cellrows, 128))
+    diff = np.where(rng.rand(cellrows, 128) < 0.5, diff // 64, diff)
+    valid = rng.rand(cellrows, 128) >= 0.125
+    silent = rng.rand(cellrows, 128) < 0.125
+    t6 = slice(int(bases[6]), int(bases[6]) + 300)
+    valid[t6, 5], silent[t6, 5] = True, False
+    valid[t6, 7] = False
+    ch1 = (((diff + (1 << (pb - 1))) & ((1 << pb) - 1))
+           | (silent.astype(np.int64) << pb)
+           | (valid.astype(np.int64) << (pb + 1)))
+    s0 = np.stack([-rng.randint(0, 129, (7, 128)),
+                   rng.randint(0, 1 << 16, (7, 128)),
+                   rng.randint(-128, 128, (7, 128)),
+                   rng.choice([0, 1, 128, 5, 77, 200], (7, 128)),
+                   rng.randint(-1, 2, (7, 128))], 1)
+    return [torch.as_tensor(np.ascontiguousarray(a, np.int32))
+            for a in (ch1, caps, bases, pred, s0)]
+
+
+@pytest.mark.parametrize("case", ["frame", "chain-pb12", "chain-pb16"])
+def test_torch_gpu_vlc_matches_plain(monkeypatch, case):
+    """K5 against its plain row scan: a frame's split groups (with zero
+    carries), and the synthetic chain at coding depths 8 (pb 12) and 16
+    (pb 16)."""
+    if case == "frame":
+        _vlc_against_plain(monkeypatch, "yuv420p")
+        return
+    bits = 8 if case == "chain-pb12" else 16
+    args = _vlc_chain_inputs(bits, bits)
+    _build.reset_counts()
+    got = vlc.vlc_adapt(*(a.cuda() for a in args), bits)
+    assert _build.KERNELS["vlc"].launches == 1
+    ref = vlc.vlc_adapt_plain(*args, bits)
+    for a, b in zip(got, ref):
+        assert torch.equal(a.cpu(), b)
+    t6 = slice(int(args[2][6]), int(args[2][6]) + 300)
+    assert (ref[0][t6, 5] != 0).all() and not ref[0][t6, 7].any()
 
 
 def test_torch_gpu_vlc_pb16_matches_plain(monkeypatch):
@@ -499,17 +547,22 @@ def test_torch_gpu_deep_rgb_banks_match_native(pix, wh, level, coder,
         assert k.launches > 0 and k.plain_calls == 0, name
 
 
-def _ragged_lanes(steps, lanes, seed):
+def _ragged_lanes(steps, lanes, seed, start=0):
     """Random ops; lane l ends (its two flush steps, then NOPs) at its own
-    length; lane 0 carries a long run of pending bytes."""
+    length; lane 0 carries a long run of pending bytes over steps // 2
+    steps from ``start`` (NOPs before it, and the lane runs to the end)."""
     rng = np.random.RandomState(seed)
     sv = rng.randint(1, 256, (steps, lanes)).astype(np.int32)
     bit = rng.randint(0, 2, (steps, lanes)).astype(np.int32)
-    sv[:steps // 2, 0] = 255
-    bit[:steps // 2, 0] = np.arange(steps // 2) % 2 == 0
+    run = slice(start, start + steps // 2)
+    sv[run, 0] = 255
+    bit[run, 0] = np.arange(run.stop - run.start) % 2 == 0
     mode = np.full((steps, lanes), tc.MODE_OP, np.int32)
     ends = rng.randint(steps // 2, steps - 2, lanes)
     ends[-1] = steps - 2
+    if start:
+        ends[0] = steps - 2
+        mode[:start, 0] = tc.MODE_NOP
     for l, L in enumerate(ends):
         mode[L:, l] = tc.MODE_NOP
         mode[L, l] = tc.MODE_FLUSH1
@@ -517,15 +570,25 @@ def _ragged_lanes(steps, lanes, seed):
     return [torch.as_tensor(a) for a in (sv, bit, mode)]
 
 
-@pytest.mark.parametrize("steps,lanes", [(700, 5), (4096, 30), (300, 1)])
-def test_torch_gpu_rac_lanes_matches_plain(steps, lanes):
+@pytest.mark.parametrize("steps,lanes,start", [
+    (700, 5, 0), (4096, 30, 0), (300, 1, 0),
+    # below one stage of the kernel's ring (512 steps), not a multiple of
+    # one, across many; 33 and 64 lanes (a 4-byte column 132 and 256
+    # bytes apart)
+    (200, 7, 0), (1300, 33, 0), (5000, 64, 0),
+    # a fill run from inside a stage across three stage boundaries
+    (4600, 30, 700)])
+def test_torch_gpu_rac_lanes_matches_plain(steps, lanes, start):
     """K7 against its plain version, every staged array whole."""
-    args = _ragged_lanes(steps, lanes, 3)
+    args = _ragged_lanes(steps, lanes, 3, start)
     _build.reset_counts()
     got = rac.rac_lanes(*(a.cuda() for a in args))
     assert _build.KERNELS["rac_lanes"].launches == 1
-    for a, b in zip(got, rac.rac_scan_lanes(*args)):
+    ref = rac.rac_scan_lanes(*args)
+    for a, b in zip(got, ref):
         assert torch.equal(a.cpu(), b)
+    if start:
+        assert int(ref[1][:, 0].max()) > 1023
 
 
 @pytest.mark.parametrize("pix,coder,level", [
