@@ -15,14 +15,15 @@ wall seconds:
    (and K7's) coder step, of K2's table lookup and of K5's row on this
    card;
 2. range, 1920x1080 yuv420p, FFV1Config(level=3, coder=1, slices=30): K1-K4
-   each against its plain PyTorch version on the card, on the inputs frame
-   0 gives it (K2 and K4 plain versions on a stated cut: K4's first 3080
-   steps, across seven stages of its 512-op ring), with CUDA-event times of
-   both, K4's ns a step and K2's ns a row of the longest chain, plus the
-   time of each stage of frame 0;
+   and emission_pack each against its plain PyTorch version on the card, on
+   the inputs frame 0 gives it (K2 and K4 plain versions on a stated cut:
+   K4's first 3080 steps, across seven stages of its 512-op ring;
+   emission_pack against repack_emission_order on every row of the
+   frame's cells), with CUDA-event times of both, K4's ns a step and K2's
+   ns a row of the longest chain, plus the time of each stage of frame 0;
 3. range: 8 frames (1 key, 7 inter) through encode(): every packet must
    equal the native codec's and decode back to the input exactly, K1-K4
-   must have launched and no plain version may have run;
+   and emission_pack must have launched and no plain version may have run;
 4. Golomb-Rice, the same frames with coder=0: K5 (vlc) against its plain
    version (on a cut) and the ladder kernel against its plain loop (on the
    frame's events), K1 again on the rice cells, and the stage times;
@@ -30,12 +31,17 @@ wall seconds:
    K5 and the ladder kernel launched and no plain version run;
 6. rgb48 1920x1080 (16-bit RGB film scans), FFV1Config(level=3, coder=1,
    slices=30, slicecrc=1), coding depth 17: K2 with its R = 7 repeat
-   sub-steps and K6 against their plain versions (on a cut), then 3 frames
-   through encode() on the default route (K1-K4), checked as in phase 3;
+   sub-steps and K6 against their plain versions (on a cut), emission_pack
+   against repack_emission_order on every row, then 3 frames through
+   encode() on the default route (K1-K4, emission_pack), checked as in
+   phase 3;
 7. bgr0 1920x1080, FFV1Config(level=4, coder=1, slices=30, slicecrc=1)
    with emission_order=True: the per-slice RCT search on the card (the
-   histogram of its picks), K6 against its plain version, 3 frames
-   checked as in phase 3 with K1, K6, K3 and K4 launched and K2 not;
+   histogram of its picks), K6 against its plain version (on a cut), and
+   on every row against emission_pack (the zero fill) of K2's slot words,
+   as is the emission_pack kernel with the zero fill, 3 frames checked as
+   in phase 3 with K1, K6, K3 and K4 launched and K2 and emission_pack
+   not;
 8. bgr0 1920x1080, FFV1Config(level=3, coder=0, slices=30): FATE's RGB
    Golomb-Rice configuration: K5 at coding depth 9 against its plain
    version (on a cut) on frame 0's inputs (entry vlc_bgr0), then 3 frames
@@ -84,7 +90,8 @@ wall seconds:
 The launch counts of a path are reset just before its frames and read just
 after (in phase 14, around each case's one call of its op). The line
 before the last is a JSON object with one entry per kernel (and K2 again
-at rgb48; K6's entry carries its rgb48 numbers too): its times, its bound
+at rgb48; K6's entry carries its rgb48 numbers too, and emission_pack's
+its rgb48 and bgr0 v4 numbers): its times, its bound
 on this card (bytes over the memory rate or operations over the peak rate,
 whichever is larger, from this run's inputs; and for a serial kernel the
 longest dependent chain at one step per SM clock, and for K2, K4-K7
@@ -349,6 +356,7 @@ def capture_range(enc, planes):
         (time.perf_counter() - t0) * 1e3, 4)
     walk = "K6 adapt_emission" if enc.emission_order else "K2 adapt"
     return dict(k1=mark.inputs["K1 place"], walk=mark.inputs[walk],
+                pack=mark.inputs.get("emission_pack"),
                 k3=mark.inputs["K3 expand"], k4=k4, n_ops=n_ops,
                 rendered=int(ln_h.sum())), stages
 
@@ -550,6 +558,59 @@ def walk_check(out, inputs, clock_mhz, cycles, key, path, emission: bool):
     return big_cut
 
 
+def pack_check(out, kp, path, key=None, fill="sign", **extra):
+    """emission_pack on K2's slot words of a whole frame (``kp``: the
+    wrapper's arguments) against its plain version on every row of the
+    cells: ``repack_emission_order`` (fill "sign", the JAX encoder's XLA
+    repack) or ``emission_pack`` (fill "zero").  Bound: each cell of the
+    walked rows reads its payload and writes its emission words, each
+    valid cell reads its slot words."""
+    from ffmpeg_ffv2_tpu_torch.ffv1 import adapt as ad
+    from ffmpeg_ffv2_tpu_torch.ffv1 import host
+    sv, ch1c, caps, bases, code_bits, n_words = kp
+    plain_fn = (ad.repack_emission_order if fill == "sign" else
+                ad.emission_pack)
+
+    def plain():
+        return plain_fn(sv, ad.cell_diff(ch1c, code_bits), code_bits,
+                        n_words)
+
+    err = max_abs_err([ad.pack_emission(*kp, fill)], [plain()])
+    n = ad.walked_rows(caps, bases)
+    valid = valid_cells(ch1c[:n], host.payload_field(code_bits)[2])
+    nsv = sv.shape[1]
+    entry(out, "emission_pack", path, err,
+          cuda_ms(lambda: ad.pack_emission(*kp, fill), 5),
+          cuda_ms(plain, 3), None,
+          bound(n * 128 * 4 * (1 + n_words) + valid * 4 * nsv,
+                n * 128 * 4 * n_words), key=key,
+          shape=f"cellrows={ch1c.shape[0]} ({n} walked) sv_words={nsv} "
+                f"n_words={n_words} code_bits={code_bits} fill={fill}",
+          valid_cells=valid,
+          compared="every row of the cells against the plain version",
+          **extra)
+
+
+def k6_pack_check(out, k):
+    """K6 on the inputs ``k`` of a whole frame against K2's walk followed
+    by the plain ``emission_pack`` on every row of the cells (the packing
+    inside K6, held whole; its walk is K2's), and the emission_pack kernel
+    with the zero fill on the same slot words (entry
+    ``emission_pack_bgr0_v4``)."""
+    from ffmpeg_ffv2_tpu_torch.ffv1 import adapt as ad
+    walk, ev_words = k[:7], k[7]
+    ch1c, caps, bases, code_bits = walk[0], walk[1], walk[2], walk[6]
+    sv, _ = ad.adapt(*walk)
+    ref = ad.emission_pack(sv, ad.cell_diff(ch1c, code_bits), code_bits,
+                           ev_words)
+    err = max_abs_err([ad.adapt_emission(*k)[0]], [ref])
+    log(f"kernel adapt_emission: equal on every row to K2's walk and the "
+        f"plain emission_pack (max_abs_err {err})")
+    out["adapt_emission"]["whole_frame_pack_err"] = err
+    pack_check(out, (sv, ch1c, caps, bases, code_bits, ev_words), "bgr0 v4",
+               key="emission_pack_bgr0_v4", fill="zero")
+
+
 def range_checks(out, inputs, clock_mhz, cycles):
     """K2-K4 against their plain versions on range frame 0's inputs;
     ``cycles``: the chains' measured cycles a link (``tools/latency.py``)."""
@@ -559,6 +620,7 @@ def range_checks(out, inputs, clock_mhz, cycles):
     from ffmpeg_ffv2_tpu_torch.tools import latency
 
     walk_check(out, inputs, clock_mhz, cycles, "adapt", "range", False)
+    pack_check(out, inputs["pack"], "range")
 
     # K3 expand: full main-path shapes; bound: the inputs read, the op
     # words the slices hold written (not the op_cap capacity, whose NOP
@@ -1068,6 +1130,8 @@ def main() -> int:
         ev_in = dict(walk=k + (host.n_ev_words(enc.code_bits),))
         walk_check(kernels, ev_in, clock_mhz, cycles,
                    "adapt_emission_rgb48", "rgb48", True)
+        pack_check(kernels, inputs["pack"], "rgb48",
+                   key="emission_pack_rgb48")
         e = kernels["adapt_rgb48"]
         log(f"phase 6: rgb48: {e['cells_e_over_9']} of {e['valid_cells']} "
             f"valid cells have e > 9 ({big} in the cut), so the repeat "
@@ -1088,10 +1152,14 @@ def main() -> int:
                             emission=True)
         walk_check(kernels, inputs, clock_mhz, cycles, None, "bgr0 v4",
                    True)
+        k6_pack_check(kernels, inputs["walk"])
         # K6 on phase 6's rgb48 cells (a path that runs K2) rides in K6's
         # entry, which reports the launches of its own path
         kernels["adapt_emission"]["at_rgb48"] = kernels.pop(
             "adapt_emission_rgb48")
+        for at in ("rgb48", "bgr0_v4"):
+            kernels["emission_pack"][f"at_{at}"] = kernels.pop(
+                f"emission_pack_{at}")
         hist = {}
         for fr in rgb:
             dev = [torch.as_tensor(x, device=enc.device) for x in fr]
@@ -1102,7 +1170,7 @@ def main() -> int:
         del enc, inputs
         launches["bgr0 v4"] = drive(
             "bgr0 v4", device_encoder("bgr0", W, H, cfg, emission=True), rgb,
-            card, 7, not_launched=("adapt",))
+            card, 7, not_launched=("adapt", "emission_pack"))
 
     # 8. bgr0 Golomb-Rice (FATE's RGB configuration)
     with Phase(8):
@@ -1215,8 +1283,9 @@ def main() -> int:
         k["launches_by_path"] = {label: launches[label][k["kernel"]]
                                  for label in launches}
     order = ["place", "place_pb16", "adapt", "adapt_rgb48",
-             "adapt_emission", "expand", "rac_render", "vlc", "vlc_pb16",
-             "vlc_bgr0", "ladder", "ladder_pb16", "rac_lanes",
+             "adapt_emission", "emission_pack", "expand", "rac_render",
+             "vlc", "vlc_pb16", "vlc_bgr0", "ladder", "ladder_pb16",
+             "rac_lanes",
              "rac_lanes_rice", "sort",
              "rowsort", "roll", "rowcx", "transpose", "probe_scalar_extract",
              "probe_scalar_in_ds", "probe_big_prefetch", "probe_roll_dynamic",

@@ -169,9 +169,14 @@ KERNELS = {k.name: k for k in (
            "ffmpeg_ffv2_tpu_torch/csrc/adapt.cu",
            "ffmpeg_ffv2_tpu/ffv1/adapt_pallas.py:189"),
     Kernel("adapt_emission", "ffv2_adapt_emission",
-           [P, P, P, P, P, P, P, I, I, I, I, P, P, P],
+           [P, P, P, P, P, P, P, I, I, I, I, P, P, P, P, P],
            "ffmpeg_ffv2_tpu_torch/csrc/adapt.cu",
            "ffmpeg_ffv2_tpu/ffv1/adapt_pallas.py:36"),
+    Kernel("emission_pack", "ffv2_emission_pack",
+           [P, P, P, P, I, I, I, I, P, P, P],
+           "ffmpeg_ffv2_tpu_torch/csrc/adapt.cu",
+           "ffmpeg_ffv2_tpu/ffv1/device_coder.py:255 (repack_emission_order "
+           "under _repack_jit :321, XLA; no Pallas counterpart)"),
     Kernel("expand", "ffv2_expand",
            [P, I, P, P, P, P, I, I, I, I, P, P, P, P],
            "ffmpeg_ffv2_tpu_torch/csrc/expand.cu",

@@ -1,17 +1,21 @@
-// K2 adapt and K6 adapt_emission: the FFV1 context-state walk over
-// chain-grouped cells.
+// K2 adapt, K6 adapt_emission and emission_pack: the FFV1 context-state
+// walk over chain-grouped cells, and the packing of its slot-packed words
+// into emission order.
 //
 // Replaces ffmpeg_ffv2_tpu/ffv1/adapt_pallas.py:_kernel_slotpack (K2,
 // adapt_pallas with emission_order=False) and :_kernel_emission (K6,
-// emission_order=True).  The TPU kernels walk the tiles in grid order on one
-// core, 128 lanes x 32 slot states per tile, and hand the states of split
-// groups (tile_pred >= 0) from a tile to its successor through an HBM carry
-// buffer -- which works only because the grid runs in order.
+// emission_order=True), and the XLA repack that follows K2 in the JAX
+// encoder (ffmpeg_ffv2_tpu/ffv1/device_coder.py:repack_emission_order,
+// _repack_jit; no Pallas counterpart).  The TPU kernels walk the tiles in
+// grid order on one core, 128 lanes x 32 slot states per tile, and hand the
+// states of split groups (tile_pred >= 0) from a tile to its successor
+// through an HBM carry buffer -- which works only because the grid runs in
+// order.
 //
-// Bound: latency of one dependent chain per lane.  Each cell row is one
-// table lookup per slot whose input is the previous row's output, so the
-// walk of a lane is serial over its rows (up to GCAP = 4096 per tile, and
-// a split group chains tiles); the bytes moved are small (4 bytes in,
+// The walk's bound: latency of one dependent chain per lane.  Each cell row
+// is one table lookup per slot whose input is the previous row's output, so
+// the walk of a lane is serial over its rows (up to GCAP = 4096 per tile,
+// and a split group chains tiles); the bytes moved are small (4 bytes in,
 // 32-48 out per cell).  At coding depths 11..17 each row adds R =
 // code_bits - 10 dependent lookups on slots 10 and 31 (two chains of R, in
 // two threads).
@@ -41,10 +45,30 @@
 //    warp walks the next batch into the other (the two meet at a named
 //    barrier once a batch), so the chain never waits on the stores, whose
 //    4-byte words lie 512 bytes apart (cells x words x 128 lanes).
-// K2 output: whole words of the batch's cells (8 packed sv words,
-// device_coder.pack_sv_words, and the repeat sub-steps' pre-update pairs
-// sv10 | sv31 << 8, two to a word, after them).
-// K6 output: the emission-order packing (store_batch) on the store warp.
+// The walk writes whole words of the batch's cells (8 packed sv words,
+// adapt.pack_sv_words, and the repeat sub-steps' pre-update pairs sv10 |
+// sv31 << 8, two to a word, after them).
+//
+// emission_pack: slot-packed words -> emission-order words, one thread a
+// cell.  Byte k of a cell's output is one byte of its slot words, or 0,
+// and which one depends only on (code_bits, the cell's exponent e, k) and
+// the fill past the op count (the repack repeats the sign byte there, K6
+// writes 0): the wrapper passes that choice as a source table built on the
+// host (adapt.emission_table), one row an exponent, four source bytes a
+// word.  Its bound: bytes (a payload word and 8-12 slot words read and 2-9
+// words written a cell).  Design: a block stages each of its cells' slot
+// words in shared memory, word-major and thread-minor (so a warp's byte
+// reads hit 32 banks whatever their bytes), with a zero word after them
+// for the table's "zero" source, and builds each output word from four
+// table lookups and four byte loads; 32 lanes of a row read each slot word
+// and write each output word as 128 contiguous bytes.  The walked extent
+// (the end of the last tile with rows) comes from the tile tables in every
+// block, so no row count goes to the host; rows from it on are written 0
+// without reading.
+// K6: the walk into a scratch of slot-packed words, then emission_pack
+// with the zero fill, on one stream (the kernel boundary orders them).
+
+#include <algorithm>
 
 #include "common.cuh"
 
@@ -52,15 +76,6 @@ namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int LANES = 2;   // lanes a block, two warps each
-
-// Emission index of this slot's first hit in the pixel's rac-op stream:
-// slot 0 -> 0; exponent slot j -> j; sign -> 2e + 2; mantissa slot 22 + i
-// -> 2e + 1 - i, except slot 31's first hit when e > 9, at k = e + 2.
-__device__ __forceinline__ int first_hit_k(int slot, int e) {
-  if (slot <= 10) return slot;
-  if (slot < 22) return 2 * e + 2;
-  return (slot == 31 && e > 9) ? e + 2 : 2 * e + 1 - (slot - 22);
-}
 
 // A batch of 32 rows for this thread's slot: bit j of v is whether row j
 // hits the slot, of b its coded bit; rv/rb the same for the repeat
@@ -158,70 +173,15 @@ __device__ __forceinline__ void chain(const Pages<R>& p,
   }
 }
 
-// Part 3 for one batch, by the lane's store warp: the batch's bytes in
-// the buffer `b8` (32 rows of 4 * OW bytes) out to the cells of rows r0 ..
-// r0 + nr - 1 of the tile at `base`.  K2: whole words, one store each.
-// K6: per row, each thread reads its slot's pre-update byte back and
-// places it at the slot's emission index kk (adapt_pallas.py:117-130), the
-// slot-10 and slot-31 threads add their repeat bytes at k = 10 + j and e +
-// 2 + j, and word m of the cell is the warp OR of the bytes that land in
-// it, for m < ev_words.  As in the TPU kernel, bytes past ev_words words
-// are dropped and the slot-31 repeat bytes land by adding.
-template <int R, bool kEmission>
-__device__ __forceinline__ void store_batch(
-    const unsigned char* b8, const int* rows, int r0, int nr, int base,
-    int t, int slot, bool k10, bool k31, int my_byte, int rep_byte,
-    int mask, int bias, int out_words, int lane, int* __restrict__ out) {
-  constexpr int NW = (12 + R) / 2;
-  constexpr int OW = 8 + (R + 1) / 2;
-  if (!kEmission) {
-    const unsigned* buf = reinterpret_cast<const unsigned*>(b8);
-    int* dst = out + (size_t)(base + r0) * OW * 128 + lane;
-    for (int i = t; i < nr * OW; i += 32) dst[(size_t)i * 128] = (int)buf[i];
-    return;
-  }
-  const int row_cur = t < nr ? rows[(size_t)(r0 + t) * 128] : 0;
-#pragma unroll 1
-  for (int j = 0; j < nr; ++j) {
-    const int row = __shfl_sync(FULL, row_cur, j);
-    const int v = (row & mask) - bias;
-    const int a = v < 0 ? -v : v;
-    const int e = exponent_of(a);
-    const unsigned char* cell = b8 + j * 4 * OW;
-    const unsigned pre_b = cell[my_byte];
-    unsigned orv[NW], addv[NW];
-    const int kk = first_hit_k(slot, e);
-#pragma unroll
-    for (int m = 0; m < NW; ++m) {
-      orv[m] = (kk >> 2) == m ? pre_b << ((kk & 3) * 8) : 0u;
-      addv[m] = 0;
-    }
-#pragma unroll
-    for (int jj = 1; jj <= R; ++jj) {
-      const unsigned rb =
-          cell[rep_byte + 4 * ((jj - 1) >> 1) + 2 * ((jj - 1) & 1)];
-      if (k10) {
-        const int k10i = 10 + jj;
-#pragma unroll
-        for (int m = 0; m < NW; ++m)
-          if ((k10i >> 2) == m) orv[m] |= rb << ((k10i & 3) * 8);
-      } else if (k31) {
-        const int k31i = e + 2 + jj;
-#pragma unroll
-        for (int m = 0; m < NW; ++m)
-          if ((k31i >> 2) == m) addv[m] += rb << ((k31i & 3) * 8);
-      }
-    }
-    const size_t cw = (size_t)(base + r0 + j) * out_words;
-#pragma unroll
-    for (int m = 0; m < NW; ++m) {
-      if (m < out_words) {
-        const unsigned word = __reduce_or_sync(FULL, orv[m]) +
-                              __shfl_sync(FULL, addv[m], 31);
-        if (t == m) out[(cw + m) * 128 + lane] = (int)word;
-      }
-    }
-  }
+// Part 3 for one batch, by the lane's store warp: the batch's words in
+// the buffer `buf` (32 rows of OW words) out to the cells of rows r0 ..
+// r0 + nr - 1 of the tile at `base`, one store a word.
+template <int OW>
+__device__ __forceinline__ void store_batch(const unsigned* buf, int r0,
+                                            int nr, int base, int t,
+                                            int lane, int* __restrict__ out) {
+  int* dst = out + (size_t)(base + r0) * OW * 128 + lane;
+  for (int i = t; i < nr * OW; i += 32) dst[(size_t)i * 128] = (int)buf[i];
 }
 
 // The two warps of a lane meet here once a batch, at named barrier 1 +
@@ -235,15 +195,15 @@ __device__ __forceinline__ void pair_sync(int pair) {
 }
 
 // R: repeat sub-steps per row (code_bits - 10, or 0).  OW: the words of a
-// cell in the shared buffer (K2's output: 8 + ceil(R / 2)).
-template <int R, bool kEmission>
+// cell (8 + ceil(R / 2)), in the shared buffer and in the output.
+template <int R>
 __global__ void __launch_bounds__(64 * LANES)
 adapt_kernel(const int* __restrict__ ch1, const int* __restrict__ caps,
              const int* __restrict__ bases, const int* __restrict__ pred,
              const int* __restrict__ succ, const int* __restrict__ s0,
              const int* __restrict__ table, int tiles, int cellrows,
-             int mask, int bias, int vbit, int out_words,
-             int* __restrict__ out, int* __restrict__ ends) {
+             int mask, int bias, int vbit, int* __restrict__ out,
+             int* __restrict__ ends) {
   constexpr int OW = 8 + (R + 1) / 2;
   __shared__ unsigned char tab[768];
   // two buffers a lane: the chain fills one while the store warp empties
@@ -293,10 +253,8 @@ adapt_kernel(const int* __restrict__ ch1, const int* __restrict__ caps,
     if (!chain_warp) {
       for (int r0 = 0; r0 < cap; r0 += 32, ++batch) {
         pair_sync(pair);
-        store_batch<R, kEmission>(
-            reinterpret_cast<const unsigned char*>(obuf[pair][batch & 1]),
-            rows, r0, min(32, cap - r0), base, t, slot, k10, k31, my_byte,
-            rep_byte, mask, bias, out_words, lane, out);
+        store_batch<OW>(obuf[pair][batch & 1], r0, min(32, cap - r0), base,
+                        t, lane, out);
       }
       continue;
     }
@@ -321,6 +279,74 @@ adapt_kernel(const int* __restrict__ ch1, const int* __restrict__ caps,
   }
 }
 
+constexpr int PACK_THREADS = 256;        // cells a block of emission_pack
+constexpr int MAX_SV_WORDS = 12;         // n_sv_words(17)
+constexpr int MAX_EV_WORDS = 9;          // n_ev_words(17)
+constexpr int MAX_SOURCE_ROWS = 18;      // e = -1 .. 16
+
+// emission_pack.  src: the source table, `src_rows` rows (row e + 1 for
+// the cell's exponent e, e = -1 for a zero diff, up to the payload field's
+// largest) of `ev_words` words; byte j of word m is the source of output
+// byte k = 4m + j: a byte index into the cell's nsv slot words, or 4 *
+// nsv, the zero word staged after them.  Cells of rows from the walked
+// extent on are written 0.
+__global__ void __launch_bounds__(PACK_THREADS)
+emission_pack_kernel(const int* __restrict__ sv, const int* __restrict__ ch1,
+                     const int* __restrict__ caps,
+                     const int* __restrict__ bases, int tiles, int cellrows,
+                     int nsv, int mask, int bias,
+                     const int* __restrict__ src, int src_rows, int ev_words,
+                     int out_words, int* __restrict__ out) {
+  __shared__ unsigned tab[MAX_SOURCE_ROWS * MAX_EV_WORDS];
+  // word w of thread t's cell at words[w][t]; words[nsv][t] stays 0
+  __shared__ unsigned words[MAX_SV_WORDS + 1][PACK_THREADS];
+  __shared__ int warp_ext[PACK_THREADS / 32];
+  const int t = threadIdx.x;
+  for (int i = t; i < src_rows * ev_words; i += PACK_THREADS)
+    tab[i] = (unsigned)src[i];
+  words[nsv][t] = 0;
+  // the walked extent: the end of the last tile with rows
+  int ext = 0;
+  for (int i = t; i < tiles; i += PACK_THREADS) {
+    const int c = caps[i];
+    if (c > 0) ext = max(ext, bases[i] + c);
+  }
+  ext = __reduce_max_sync(FULL, ext);
+  if ((t & 31) == 0) warp_ext[t >> 5] = ext;
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < PACK_THREADS / 32; ++w) ext = max(ext, warp_ext[w]);
+  ext = min(ext, cellrows);
+
+  const unsigned char* mine =
+      reinterpret_cast<const unsigned char*>(&words[0][t]);
+  const long long cells = (long long)cellrows * 128;
+  for (long long cell = (long long)blockIdx.x * PACK_THREADS + t;
+       cell < cells; cell += (long long)gridDim.x * PACK_THREADS) {
+    const int row = (int)(cell >> 7), lane = (int)(cell & 127);
+    int* dst = out + (size_t)row * out_words * 128 + lane;
+    if (row >= ext) {
+      for (int m = 0; m < out_words; ++m) dst[(size_t)m * 128] = 0;
+      continue;
+    }
+    const int* cw = sv + (size_t)row * nsv * 128 + lane;
+    for (int w = 0; w < nsv; ++w) words[w][t] = (unsigned)cw[(size_t)w * 128];
+    const int v = (ch1[cell] & mask) - bias;
+    const unsigned* trow = tab + (exponent_of(v < 0 ? -v : v) + 1) * ev_words;
+    for (int m = 0; m < out_words; ++m) {
+      const unsigned s4 = trow[m];
+      unsigned word = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const unsigned b = (s4 >> (8 * j)) & 0xFF;
+        word |= (unsigned)mine[(b >> 2) * (4 * PACK_THREADS) + (b & 3)]
+                << (8 * j);
+      }
+      dst[(size_t)m * 128] = (int)word;
+    }
+  }
+}
+
 // (mask, bias, valid bit) of the cell payload's diff field
 // (host.payload_field).
 void payload_field(int code_bits, int* mask, int* bias, int* vbit) {
@@ -333,11 +359,17 @@ void payload_field(int code_bits, int* mask, int* bias, int* vbit) {
   }
 }
 
-template <bool kEmission>
-cudaError_t launch(const int* ch1, const int* caps, const int* bases,
-                   const int* pred, const int* succ, const int* s0,
-                   const int* table, int tiles, int cellrows, int code_bits,
-                   int out_words, int* out, int* ends, cudaStream_t stream) {
+int n_sv_words(int code_bits) {
+  return 8 + ((code_bits > 10 ? code_bits - 10 : 0) + 1) / 2;
+}
+
+int n_ev_words(int code_bits) { return (code_bits + 2) / 2; }
+
+cudaError_t launch_walk(const int* ch1, const int* caps, const int* bases,
+                        const int* pred, const int* succ, const int* s0,
+                        const int* table, int tiles, int cellrows,
+                        int code_bits, int* sv, int* ends,
+                        cudaStream_t stream) {
   if (code_bits < 8 || code_bits > 17) return cudaErrorInvalidValue;
   if (tiles <= 0) return cudaGetLastError();
   int mask, bias, vbit;
@@ -346,9 +378,9 @@ cudaError_t launch(const int* ch1, const int* caps, const int* bases,
   const unsigned blocks = (unsigned)((long long)tiles * 128 / LANES);
 #define FFV2_ADAPT_CASE(R)                                                 \
   case R:                                                                  \
-    adapt_kernel<R, kEmission><<<blocks, 64 * LANES, 0, stream>>>(        \
+    adapt_kernel<R><<<blocks, 64 * LANES, 0, stream>>>(                   \
         ch1, caps, bases, pred, succ, s0, table, tiles, cellrows, mask,    \
-        bias, vbit, out_words, out, ends);                                 \
+        bias, vbit, sv, ends);                                             \
     break;
   switch (code_bits > 10 ? code_bits - 10 : 0) {
     FFV2_ADAPT_CASE(0)
@@ -364,6 +396,37 @@ cudaError_t launch(const int* ch1, const int* caps, const int* bases,
   return cudaGetLastError();
 }
 
+cudaError_t launch_pack(const int* sv, const int* ch1, const int* caps,
+                        const int* bases, int tiles, int cellrows,
+                        int code_bits, int out_words, const int* src,
+                        int* out, cudaStream_t stream) {
+  if (code_bits < 8 || code_bits > 17) return cudaErrorInvalidValue;
+  const int ev_words = n_ev_words(code_bits);
+  if (out_words < 1 || out_words > ev_words) return cudaErrorInvalidValue;
+  if (cellrows <= 0) return cudaGetLastError();
+  int mask, bias, vbit;
+  payload_field(code_bits, &mask, &bias, &vbit);
+  // rows e = -1 .. log2(bias): every exponent the payload field can hold
+  const int src_rows = 33 - __builtin_clz((unsigned)bias);
+  int dev, sms, per_sm;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, emission_pack_kernel, PACK_THREADS, 0);
+  if (err != cudaSuccess) return err;
+  // enough blocks to fill the card once, each striding over the cells
+  const long long need =
+      ((long long)cellrows * 128 + PACK_THREADS - 1) / PACK_THREADS;
+  const unsigned blocks =
+      (unsigned)std::min(need, (long long)sms * std::max(per_sm, 1));
+  emission_pack_kernel<<<blocks, PACK_THREADS, 0, stream>>>(
+      sv, ch1, caps, bases, tiles, cellrows, n_sv_words(code_bits), mask,
+      bias, src, src_rows, ev_words, out_words, out);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // K2: sv (cellrows, n_sv_words(code_bits), 128).
@@ -373,19 +436,36 @@ extern "C" cudaError_t ffv2_adapt(const int* ch1, const int* caps,
                                   const int* table, int tiles, int cellrows,
                                   int code_bits, int* sv, int* ends,
                                   cudaStream_t stream) {
-  const int r = code_bits > 10 ? code_bits - 10 : 0;
-  return launch<false>(ch1, caps, bases, pred, succ, s0, table, tiles,
-                       cellrows, code_bits, 8 + (r + 1) / 2, sv, ends, stream);
+  return launch_walk(ch1, caps, bases, pred, succ, s0, table, tiles,
+                     cellrows, code_bits, sv, ends, stream);
 }
 
-// K6: ev (cellrows, ev_words, 128), ev_words <= n_ev_words(code_bits).
+// emission_pack: sv (cellrows, n_sv_words(code_bits), 128) -> out
+// (cellrows, out_words, 128), out_words <= n_ev_words(code_bits), by the
+// source table src (adapt.source_words).
+extern "C" cudaError_t ffv2_emission_pack(const int* sv, const int* ch1,
+                                          const int* caps, const int* bases,
+                                          int tiles, int cellrows,
+                                          int code_bits, int out_words,
+                                          const int* src, int* out,
+                                          cudaStream_t stream) {
+  return launch_pack(sv, ch1, caps, bases, tiles, cellrows, code_bits,
+                     out_words, src, out, stream);
+}
+
+// K6: the walk into sv (zeroed by the caller), then emission_pack by src
+// (the zero fill) into ev (cellrows, ev_words, 128), on one stream.
 extern "C" cudaError_t ffv2_adapt_emission(
     const int* ch1, const int* caps, const int* bases, const int* pred,
     const int* succ, const int* s0, const int* table, int tiles,
-    int cellrows, int code_bits, int ev_words, int* ev, int* ends,
-    cudaStream_t stream) {
-  if (ev_words < 1 || ev_words > (code_bits + 2) / 2)
+    int cellrows, int code_bits, int ev_words, const int* src, int* sv,
+    int* ev, int* ends, cudaStream_t stream) {
+  if (ev_words < 1 || ev_words > n_ev_words(code_bits))
     return cudaErrorInvalidValue;
-  return launch<true>(ch1, caps, bases, pred, succ, s0, table, tiles,
-                      cellrows, code_bits, ev_words, ev, ends, stream);
+  const cudaError_t err = launch_walk(ch1, caps, bases, pred, succ, s0,
+                                      table, tiles, cellrows, code_bits, sv,
+                                      ends, stream);
+  if (err != cudaSuccess) return err;
+  return launch_pack(sv, ch1, caps, bases, tiles, cellrows, code_bits,
+                     ev_words, src, ev, stream);
 }

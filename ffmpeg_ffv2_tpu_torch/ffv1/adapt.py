@@ -3,10 +3,14 @@
 Counterpart of ``ffmpeg_ffv2_tpu/ffv1/device_coder.py:adapt_reference`` and
 ``repack_emission_order`` and of the TPU kernels of
 ``ffmpeg_ffv2_tpu/ffv1/adapt_pallas.py:adapt_pallas``: ``_kernel_slotpack``
-(K2, ``adapt``) and ``_kernel_emission`` (K6, ``adapt_emission``).  Both
+(K2, ``adapt``) and ``_kernel_emission`` (K6, ``adapt_emission``).  The
 wrappers launch ``csrc/adapt.cu`` on CUDA tensors and take their plain
-versions on CPU tensors: the row scan ``adapt_plain``, and for K6 the row
-scan followed by ``emission_pack`` (``adapt_emission_plain``).
+versions on CPU tensors: the row scan ``adapt_plain``; for
+``pack_emission`` (the emission_pack kernel, which packs K2's slot words
+into emission order where the JAX encoder runs its XLA repack)
+``repack_emission_order`` or ``emission_pack`` on the walked rows; for K6
+the row scan followed by ``emission_pack`` (``adapt_emission_plain``).  On
+the card K6 is K2's walk followed by the emission_pack kernel.
 
 Slot states are kept in PERMUTED row order (host.SLOT_AT_ROW); a cell's
 pre-update state values pack into 8 int32 words, word j = slots 4j..4j+3
@@ -19,6 +23,8 @@ diff field and valid flag sit where ``host.payload_field`` says.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .. import _build
@@ -28,6 +34,8 @@ from .symbols import (emission_source, event_count, exponent,
 
 _K = _build.KERNELS["adapt"]
 _K6 = _build.KERNELS["adapt_emission"]
+_KP = _build.KERNELS["emission_pack"]
+FILLS = ("sign", "zero")     # past a cell's op count: the repack's, K6's
 
 
 def pack_sv_words(sv_perm):
@@ -118,6 +126,102 @@ def emission_pack(sv_words, diff, code_bits: int, ev_words: int):
     return torch.stack(outs, dim=-2)
 
 
+@functools.lru_cache(maxsize=None)
+def emission_table(code_bits: int, fill: str) -> torch.Tensor:
+    """Where each emission-order byte comes from, (rows, 4 * n_ev_words)
+    int32 (read-only, cached): entry [e + 1, k] is the byte index (4 *
+    word + byte) into the cell's slot-packed words that byte k of its
+    emission-order words copies, or -1 for a 0 byte, for a cell of
+    exponent e (-1 for a zero diff, up to the largest the payload field
+    holds; the source depends on nothing else).  ``fill`` "sign" follows
+    ``repack_emission_order`` (the sign byte repeated past the op count),
+    "zero" ``emission_pack``.  Read off the plain function itself, on slot
+    words whose bytes hold their own index + 1."""
+    if fill not in FILLS:
+        raise ValueError(f"emission_table: fill {fill!r} not in {FILLS}")
+    W, nev = host.n_sv_words(code_bits), host.n_ev_words(code_bits)
+    bias = host.payload_field(code_bits)[1]
+    e = torch.arange(-1, bias.bit_length(), dtype=torch.int32)
+    diff = torch.where(e < 0, 0, 1 << e.clamp(min=0))[None, :]
+    b = torch.arange(4 * W, dtype=torch.int32).reshape(W, 4) + 1
+    probe = (b << torch.tensor([0, 8, 16, 24], dtype=torch.int32)).sum(
+        1, dtype=torch.int32)
+    probe = probe[None, :, None].expand(1, W, diff.shape[1])
+    fn = repack_emission_order if fill == "sign" else emission_pack
+    ev = fn(probe, diff, code_bits, nev)[0]             # (nev, rows)
+    by = (ev[:, None, :] >> (8 * torch.arange(4)[None, :, None])) & 0xFF
+    return (by.reshape(4 * nev, -1).T - 1).contiguous()
+
+
+@functools.lru_cache(maxsize=None)
+def source_words(code_bits: int, fill: str, device) -> torch.Tensor:
+    """``emission_table`` as the kernel reads it, cached per device:
+    (rows, n_ev_words) int32, byte j of word m the source of byte 4m + j,
+    with the "zero" source mapped to 4 * n_sv_words (a zero word the
+    kernel stages after a cell's slot words)."""
+    src = emission_table(code_bits, fill)
+    src = torch.where(src < 0, 4 * host.n_sv_words(code_bits), src)
+    src = src.reshape(src.shape[0], -1, 4) << torch.tensor(
+        [0, 8, 16, 24], dtype=torch.int32)
+    return src.sum(-1, dtype=torch.int32).to(device)
+
+
+def walked_rows(tile_caps, tile_bases) -> int:
+    """The walked extent: the end of the last tile with rows (0 if
+    none)."""
+    return max(torch.where(tile_caps > 0, tile_bases + tile_caps,
+                           0).tolist(), default=0)
+
+
+def pack_emission_plain(sv_words, ch1_cells, tile_caps, tile_bases,
+                        code_bits: int, n_words: int, fill: str = "sign"):
+    """Plain version of the emission_pack kernel: ``repack_emission_order``
+    (fill "sign") or ``emission_pack`` (fill "zero") on the rows up to the
+    walked extent, 0 from there on."""
+    n = walked_rows(tile_caps, tile_bases)
+    fn = repack_emission_order if fill == "sign" else emission_pack
+    out = sv_words.new_zeros((sv_words.shape[0], n_words, 128))
+    out[:n] = fn(sv_words[:n], cell_diff(ch1_cells[:n], code_bits),
+                 code_bits, n_words)
+    return out
+
+
+def pack_emission(sv_words, ch1_cells, tile_caps, tile_bases,
+                  code_bits: int, n_words: int, fill: str = "sign"):
+    """emission_pack wrapper: K2's slot-packed words (CELLROWS,
+    n_sv_words(code_bits), 128) -> emission-order words (CELLROWS,
+    n_words, 128) int32, n_words <= n_ev_words(code_bits), rows from the
+    walked extent on 0.  Equals ``repack_emission_order`` (fill "sign") on
+    K2's output, whose rows no tile walks are 0."""
+    cellrows = ch1_cells.shape[0]
+    dev = ch1_cells.device
+    if not 8 <= code_bits <= 17:
+        raise ValueError(f"{_KP.name}: coding depth {code_bits} outside "
+                         "8..17")
+    if fill not in FILLS:
+        raise ValueError(f"{_KP.name}: fill {fill!r} not in {FILLS}")
+    if not 1 <= n_words <= host.n_ev_words(code_bits):
+        raise ValueError(f"{_KP.name}: n_words {n_words} outside "
+                         f"1..{host.n_ev_words(code_bits)}")
+    _KP.check("sv_words", sv_words,
+              (cellrows, host.n_sv_words(code_bits), 128), dev)
+    _KP.check("ch1_cells", ch1_cells, (cellrows, 128), dev)
+    tiles = tile_caps.shape[0]
+    _KP.check("tile_caps", tile_caps, (tiles,), dev)
+    _KP.check("tile_bases", tile_bases, (tiles,), dev)
+    if _KP.plain_for(dev):
+        return pack_emission_plain(sv_words, ch1_cells, tile_caps,
+                                   tile_bases, code_bits, n_words, fill)
+    out = torch.empty((cellrows, n_words, 128), dtype=torch.int32,
+                      device=dev)
+    _KP.launch(sv_words.data_ptr(), ch1_cells.data_ptr(),
+               tile_caps.data_ptr(), tile_bases.data_ptr(), tiles, cellrows,
+               code_bits, n_words,
+               source_words(code_bits, fill, dev).data_ptr(),
+               out.data_ptr(), _build.stream_handle(ch1_cells))
+    return out
+
+
 def adapt_plain(ch1_cells, tile_caps, tile_bases, tile_pred, s0_blocks,
                 packed_table, code_bits: int = 10, tiles=None):
     """Plain version: a Python loop over the cell rows of each tile on
@@ -194,12 +298,8 @@ def adapt_emission_plain(ch1_cells, tile_caps, tile_bases, tile_pred,
     Returns (ev (CELLROWS, ev_words, 128), ends (TILES, 32, 128)) int32."""
     sv, ends = adapt_plain(ch1_cells, tile_caps, tile_bases, tile_pred,
                            s0_blocks, packed_table, code_bits, tiles)
-    n = max(torch.where(tile_caps > 0, tile_bases + tile_caps, 0).tolist(),
-            default=0)
-    ev = sv.new_zeros((sv.shape[0], ev_words, 128))
-    ev[:n] = emission_pack(sv[:n], cell_diff(ch1_cells[:n], code_bits),
-                           code_bits, ev_words)
-    return ev, ends
+    return pack_emission_plain(sv, ch1_cells, tile_caps, tile_bases,
+                               code_bits, ev_words, "zero"), ends
 
 
 def successors(tile_pred):
@@ -256,9 +356,11 @@ def adapt(ch1_cells, tile_caps, tile_bases, tile_pred, s0_blocks,
 def adapt_emission(ch1_cells, tile_caps, tile_bases, tile_pred, s0_blocks,
                    packed_table, code_bits: int, ev_words: int):
     """K6 wrapper: the walk with each cell's sv bytes packed at their
-    emission positions in the kernel, no repack pass.  Returns (ev
-    (CELLROWS, ev_words, 128), ends (TILES, 32, 128)) int32, ev_words <=
-    n_ev_words(code_bits); bytes past ev_words words are dropped."""
+    emission positions (on the card: K2's walk into a scratch of slot
+    words, then the emission_pack kernel with the zero fill, in one
+    launcher call on the stream).  Returns (ev (CELLROWS, ev_words, 128),
+    ends (TILES, 32, 128)) int32, ev_words <= n_ev_words(code_bits); bytes
+    past ev_words words are dropped."""
     _check(_K6, ch1_cells, tile_caps, tile_bases, tile_pred, s0_blocks,
            packed_table, code_bits)
     if not 1 <= ev_words <= host.n_ev_words(code_bits):
@@ -272,12 +374,17 @@ def adapt_emission(ch1_cells, tile_caps, tile_bases, tile_pred, s0_blocks,
     cellrows = ch1_cells.shape[0]
     tiles = tile_caps.shape[0]
     succ = successors(tile_pred)
-    ev = torch.zeros((cellrows, ev_words, 128), dtype=torch.int32,
+    # the walk leaves the rows no tile walks 0, as K2's wrapper has them
+    sv = torch.zeros((cellrows, host.n_sv_words(code_bits), 128),
+                     dtype=torch.int32, device=dev)
+    ev = torch.empty((cellrows, ev_words, 128), dtype=torch.int32,
                      device=dev)
     ends = torch.zeros((tiles, 32, 128), dtype=torch.int32, device=dev)
     _K6.launch(ch1_cells.data_ptr(), tile_caps.data_ptr(),
                tile_bases.data_ptr(), tile_pred.data_ptr(), succ.data_ptr(),
                s0_blocks.data_ptr(), packed_table.data_ptr(), tiles,
-               cellrows, code_bits, ev_words, ev.data_ptr(), ends.data_ptr(),
+               cellrows, code_bits, ev_words,
+               source_words(code_bits, "zero", dev).data_ptr(),
+               sv.data_ptr(), ev.data_ptr(), ends.data_ptr(),
                _build.stream_handle(ch1_cells))
     return ev, ends

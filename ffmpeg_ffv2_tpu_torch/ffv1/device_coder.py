@@ -14,11 +14,12 @@ class ``DeviceFFV1Encoder`` (``__init__`` with ``slice_subset``,
 ``encode``, ``_finish_packet``, ``_encode_frame_data``).
 
 A range-coded frame runs phase A (plain torch), the chain-grouping layout
-(plain torch), then four CUDA kernels: K1 ``ops/place.py`` places the
-cells, K2 ``adapt.py`` walks the context states (then a plain repack to
-emission order; or K6, the same walk packing the emission order itself,
-under ``emission_order=True``), K3 ``expand.py`` lays out each slice's rac
-ops and K4 ``rac.py`` codes and renders each slice's bytes.  A Golomb-Rice
+(plain torch), then five CUDA kernels: K1 ``ops/place.py`` places the
+cells, K2 ``adapt.py`` walks the context states and the emission_pack
+kernel (``adapt.pack_emission``) packs them into emission order (or K6,
+the same walk and packing in one launcher call, under
+``emission_order=True``), K3 ``expand.py`` lays out each slice's rac ops
+and K4 ``rac.py`` codes and renders each slice's bytes.  A Golomb-Rice
 frame plans its runs in phase A (``rice.py``), takes the same layout and
 K1, then K5 ``vlc.py`` walks the VlcStates, the ladder kernel
 (``rice.run_index_scan``) carries each slice's run index, and plain torch
@@ -37,8 +38,8 @@ from ..coder.rac import RangeEncoder
 from ..ops.place import place
 from . import headers as H
 from . import host
-from .adapt import (adapt, adapt_emission, cell_diff,
-                    repack_emission_order)
+from .adapt import (adapt, adapt_emission, pack_emission,
+                    repack_emission_order)  # noqa: F401 (the tests' name)
 from .expand import expand
 from .native import crc32_trailer
 from .params import FFV1Config, FFV1Params, params_from_config, CODER_GOLOMB
@@ -293,7 +294,7 @@ def unsort_codes(code_cells, ch2c, S: int, npix: int):
 
 # the kernels each path's frame launches (chip_smoke.py and the card tests
 # check that a path went through all of its kernels)
-RANGE_KERNELS = ("place", "adapt", "expand", "rac_render")
+RANGE_KERNELS = ("place", "adapt", "emission_pack", "expand", "rac_render")
 EMISSION_KERNELS = ("place", "adapt_emission", "expand", "rac_render")
 RICE_KERNELS = ("place", "vlc", "ladder")
 
@@ -311,7 +312,7 @@ class DeviceFFV1Encoder:
     frame.  Non-uniform slice geometries split into shape banks, one
     sub-encoder per slice shape, assembled in global slice order.
     ``emission_order`` runs K6 (the walk that packs the emission order
-    itself) instead of K2 and the repack, as the JAX encoder does under
+    itself) instead of K2 and emission_pack, as the JAX encoder does under
     FFV1_ADAPT_EMISSION=1.  device="cpu" runs every kernel's plain
     PyTorch version (tests).  ``params`` overrides the config's
     FFV1Params, such as the 2-pass parameters of
@@ -636,8 +637,8 @@ class DeviceFFV1Encoder:
 
     def adapt(self, ch1c, plan, s0, ev_words: int, mark=no_mark):
         """The walk -> (emission-order words (CELLROWS, ev_words, 128),
-        end states): K2 and the repack, or K6 under emission_order
-        (device_coder._adapt)."""
+        end states): K2 and emission_pack (the repack to emission order),
+        or K6 under emission_order (device_coder._adapt)."""
         k = (ch1c, plan["tile_caps"], plan["tile_bases"], plan["tile_pred"],
              s0, self.table, self.code_bits)
         if self.emission_order:
@@ -646,14 +647,15 @@ class DeviceFFV1Encoder:
             return out
         sv, ends = adapt(*k)
         mark("K2 adapt", k)
-        ev = repack_emission_order(sv, cell_diff(ch1c, self.code_bits),
-                                   self.code_bits, ev_words)
-        mark("repack")
+        kp = (sv, ch1c, plan["tile_caps"], plan["tile_bases"],
+              self.code_bits, ev_words)
+        ev = pack_emission(*kp)
+        mark("emission_pack", kp)
         return ev, ends
 
     def front(self, ctx, diff, canonical, keyframe: bool, tiles_cap: int,
               cellrows_cap: int, ev_words: int, mark=no_mark):
-        """Layout, K1 place, start states, the walk (K2 then the repack
+        """Layout, K1 place, start states, the walk (K2 then emission_pack
         to emission order, or K6) and the state writeback
         (device_coder._s_front).  ``mark`` is called after each stage
         (``rice.no_mark``)."""

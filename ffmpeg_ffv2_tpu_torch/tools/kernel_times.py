@@ -1,10 +1,11 @@
 """CUDA-event times of the range path's kernels K4 (rac_render), K2
-(adapt), K6 (adapt_emission), K3 (expand) and K1 (place), of K1 and K5
-(vlc) on the Golomb-Rice path, and of K7 (rac_lanes, the hybrid lane
-coder), at the main path's shapes, for the checkout at ``--root``:
+(adapt), emission_pack, K6 (adapt_emission), K3 (expand) and K1 (place),
+of K1 and K5 (vlc) on the Golomb-Rice path, and of K7 (rac_lanes, the
+hybrid lane coder), at the main path's shapes, for the checkout at
+``--root``:
 
     python3 ffmpeg_ffv2_tpu_torch/tools/kernel_times.py [--root DIR]
-        [--cases range,rgb48,rice,rice16,rice_bgr0,lanes]
+        [--cases range,rgb48,bgr0_v4,rice,rice16,rice_bgr0,lanes]
 
 ``--root`` (default: this checkout) is the root of a checkout of the
 repository, whose ``ffmpeg_ffv2_tpu_torch`` and ``chip_smoke.py`` are
@@ -15,10 +16,15 @@ yuv420p (``FFV1Config(level=3, coder=1, slices=30)``, and ``coder=0``
 for the rice case) and of 1080p rgb48 (``slicecrc=1``, coding depth 17,
 R = 7) through that checkout's ``chip_smoke.probe`` and times each
 kernel's wrapper on the captured inputs (median of ``REPS`` runs after a
-warm-up).  The rice cases time K5 on frame 0 of 1080p yuv420p
-(``coder=0``; ``rice`` with K1 too), of the same frame in 16 bits
-(``yuv420p16``, x << 8 | x, the params forced to Golomb-Rice: pb = 16;
-``rice16``) and of 1080p bgr0 (``chip_smoke.synth_rgb_frames``, coding
+warm-up); the packing of K2's slot words into emission order at the
+frame's unsort width is ``adapt.pack_emission`` where the checkout has
+it, else its plain repack (``pack_by`` says which).  ``bgr0_v4`` times
+K6 and K2 on frame 0 of 1080p bgr0 at version 4 (``emission_order=True``,
+``chip_smoke.synth_rgb_frames``, coding depth 9), and the packing with
+K6's zero fill where the checkout has the kernel.  The rice cases time
+K5 on frame 0 of 1080p yuv420p (``coder=0``; ``rice`` with K1 too), of
+the same frame in 16 bits (``yuv420p16``, x << 8 | x, the params forced
+to Golomb-Rice: pb = 16; ``rice16``) and of 1080p bgr0 (``chip_smoke.synth_rgb_frames``, coding
 depth 9; ``rice_bgr0``); ``lanes`` times K7 on the lane matrices that
 ``TPUCoderFFV1Encoder`` (``coder=1``) plans for yuv420p frame 0.  For
 K1 and K3 it also prints the device time of each kernel and torch op
@@ -45,7 +51,8 @@ import sys
 
 REPS = 9                    # timed runs a kernel, after a warm-up
 LAYOUT_REPS = 101           # timed runs of the layout stage and K1
-CASES = ("range", "rgb48", "rice", "rice16", "rice_bgr0", "lanes")
+CASES = ("range", "rgb48", "bgr0_v4", "rice", "rice16", "rice_bgr0",
+         "lanes")
 
 
 def main() -> int:
@@ -141,6 +148,24 @@ def main() -> int:
         return dict(code_bits=enc.code_bits, k5_ms=ms, chain_rows=rows,
                     k5_ns_a_row=ms * 1e6 / rows)
 
+    def pack_fields(walk, n_words, fill):
+        """The packing of K2's slot words of ``walk`` into ``n_words``
+        emission-order words: the kernel, or the checkout's plain repack
+        (sign fill) where it has no kernel."""
+        ch1c, caps, bases, code_bits = walk[0], walk[1], walk[2], walk[6]
+        sv, _ = ad.adapt(*walk)
+        if hasattr(ad, "pack_emission"):
+            by = f"emission_pack kernel, {fill} fill"
+            ms = cs.cuda_ms(lambda: ad.pack_emission(
+                sv, ch1c, caps, bases, code_bits, n_words, fill), REPS)
+        elif fill == "sign":
+            by = "plain repack_emission_order"
+            ms = cs.cuda_ms(lambda: ad.repack_emission_order(
+                sv, ad.cell_diff(ch1c, code_bits), code_bits, n_words), REPS)
+        else:
+            return {}
+        return dict(pack_ms=ms, pack_by=by, pack_words=n_words)
+
     yuv = cs.synth_1080p_frames(1)[0]
     cases = [("range", "yuv420p", yuv,
               FFV1Config(level=3, coder=1, slices=30)),
@@ -157,6 +182,7 @@ def main() -> int:
         live = int(inputs["n_ops"].max())
         ev = k + (host.n_ev_words(enc.code_bits),)
         k3 = inputs["k3"]
+        pack = pack_fields(k, enc.unsort_words, "sign")
         t4 = cs.cuda_ms(lambda: rac.rac_render(*inputs["k4"]), REPS)
         t2 = cs.cuda_ms(lambda: ad.adapt(*k), REPS)
         t6 = cs.cuda_ms(lambda: ad.adapt_emission(*ev), REPS)
@@ -169,9 +195,25 @@ def main() -> int:
             chain_rows=rows, k2_ns_a_row=t2 * 1e6 / rows,
             k6_ns_a_row=t6 * 1e6 / rows, k3_ms=t3,
             k3_W=int(k3[0].shape[0]), k3_op_cap=int(k3[5]),
-            k3_split=split(lambda: ex.expand(*k3)),
+            k3_split=split(lambda: ex.expand(*k3)), **pack,
             **k1_fields(enc, inputs, frame))), flush=True)
         del enc, inputs, k, ev, k3
+    if "bgr0_v4" in todo:
+        rgb = cs.synth_rgb_frames(1)[0]
+        enc, inputs = cs.probe("kernel_times bgr0 v4", "bgr0", cs.W, cs.H,
+                               FFV1Config(level=4, coder=1, slices=30,
+                                          slicecrc=1), rgb, emission=True)
+        ev = inputs["walk"]
+        k = ev[:7]
+        rows = cs.chain_rows(k[1].tolist(), k[3].tolist())
+        t6 = cs.cuda_ms(lambda: ad.adapt_emission(*ev), REPS)
+        t2 = cs.cuda_ms(lambda: ad.adapt(*k), REPS)
+        print(json.dumps(dict(
+            card=card, root=root, pix="bgr0 v4", coder="range",
+            code_bits=enc.code_bits, k6_ms=t6, k6_words=ev[7], k2_ms=t2,
+            chain_rows=rows, k6_ns_a_row=t6 * 1e6 / rows,
+            **pack_fields(k, ev[7], "zero"))), flush=True)
+        del enc, inputs, ev, k
     cfg = FFV1Config(level=3, coder=0, slices=30)
     if "rice" in todo:
         enc, inputs = cs.probe("kernel_times rice", "yuv420p", cs.W, cs.H,

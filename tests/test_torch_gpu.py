@@ -1,8 +1,9 @@
 """The PyTorch port's CUDA kernels on the card: each kernel equals its plain
 PyTorch version, and the encoder's packets equal NativeFFV1Codec's (the
 port's own copy), for the range and the Golomb-Rice coder, deep and RGB
-formats, shape banks and the emission-order walk (K6); the row sort (K8,
-K9) and the tool kernels (K10-K17) equal their plain versions.
+formats, shape banks, the emission_pack kernel and the emission-order walk
+(K6); the row sort (K8, K9) and the tool kernels (K10-K17) equal their
+plain versions.
 
 Needs an NVIDIA GPU and nvcc; skips itself elsewhere.  The machine with
 the card has no jax, so run this file without the repository's
@@ -375,6 +376,69 @@ def test_torch_gpu_adapt_split_chain(code_bits):
         for a, b in zip(ad.adapt_emission(*k2, ev_words),
                         ad.adapt_emission_plain(*k2, ev_words)):
             assert torch.equal(a, b), ev_words
+
+
+@pytest.mark.parametrize("code_bits", range(8, 18))
+def test_torch_gpu_emission_pack_matches_plain(code_bits):
+    """emission_pack against both plain versions at every depth, Wk full
+    and capped: on K2's slot words of the split chain (the rows past the
+    tiles 0, as the repack gives them), every row equal to
+    repack_emission_order (sign fill) and emission_pack (zero fill); on
+    random slot words, equal to its CPU path, which zeroes the rows past
+    the walked extent (16 rows here)."""
+    k2 = _walk_inputs(code_bits, code_bits + 40)
+    ch1c, caps, bases = k2[0], k2[1], k2[2]
+    sv, _ = ad.adapt(*k2)
+    diff = ad.cell_diff(ch1c, code_bits)
+    rng = np.random.RandomState(code_bits)
+    noise = torch.as_tensor(rng.randint(-2 ** 31, 2 ** 31 - 1, sv.shape,
+                                        dtype=np.int64).astype(np.int32),
+                            device="cuda")
+    n = ad.walked_rows(caps, bases)
+    assert n == ch1c.shape[0] - 16
+    for nw in sorted({host.n_ev_words(code_bits), 3, 2}):
+        for fill, plain in (("sign", ad.repack_emission_order),
+                            ("zero", ad.emission_pack)):
+            _build.reset_counts()
+            got = ad.pack_emission(sv, ch1c, caps, bases, code_bits, nw,
+                                   fill)
+            assert _build.KERNELS["emission_pack"].launches == 1
+            assert torch.equal(got, plain(sv, diff, code_bits, nw)), (nw,
+                                                                      fill)
+            got = ad.pack_emission(noise, ch1c, caps, bases, code_bits, nw,
+                                   fill)
+            ref = ad.pack_emission(*(t.cpu() for t in (noise, ch1c, caps,
+                                                       bases)),
+                                   code_bits, nw, fill)
+            assert torch.equal(got.cpu(), ref), (nw, fill)
+            assert (got[n:] == 0).all()
+
+
+def test_torch_gpu_range_frame_runs_emission_pack(monkeypatch):
+    """A CUDA DeviceFFV1Encoder range frame packs K2's words with the
+    emission_pack kernel, once a walk, and never runs the plain repack
+    (its counter stays 0, and the plain functions would raise); the
+    packets equal the native codec's."""
+    def refuse(*a, **kw):
+        raise AssertionError("the plain repack ran on the card")
+
+    monkeypatch.setattr(ad, "repack_emission_order", refuse)
+    monkeypatch.setattr(ad, "emission_pack", refuse)
+    w, h = 128, 96
+    cfg = FFV1Config(level=3, coder=1, slices=4)
+    p = params_from_config(cfg, "yuv420p", w, h)
+    enc = dc.DeviceFFV1Encoder(w, h, "yuv420p", cfg, device="cuda")
+    assert "emission_pack" in enc.kernels
+    nat = NativeFFV1Codec(p)
+    rng = np.random.RandomState(3)
+    _build.reset_counts()
+    for t in range(2):
+        planes = _frame(p, w, h, t, rng, True)
+        assert enc.encode(planes, force_keyframe=t == 0) == nat.encode(
+            planes, t == 0)
+    k = _build.KERNELS["emission_pack"]
+    assert k.launches == _build.KERNELS["adapt"].launches >= 2
+    assert k.plain_calls == 0
 
 
 def _vlc_against_plain(monkeypatch, pix, params=None):
