@@ -85,7 +85,25 @@ wall seconds:
    pb = 16 (on a cut) and the ladder kernel against their plain versions
    on frame 0's inputs (entries place_pb16, vlc_pb16, ladder_pb16), then
    2 frames checked as in phase 3, with K1, K5 and the ladder kernel
-   launched.
+   launched;
+16. the all-intra batch, phase 2's config: a key frame through encode(),
+   then encode_batch of phase 3's frames at B = 1, 4 and 8 (up to 240
+   slices in one pass), every packet equal to the native codec's key
+   packet and decoded losslessly, K1-K4 and emission_pack launched and no
+   plain version run, then an inter frame through encode() equal to a
+   native session's (the batch left the session alone); K4 against its
+   plain version on the first 3080 steps of the B = 8 batch's 240 rows
+   (entry rac_render_batch), and through tools.bench_batch_scale the
+   batch's ms a frame and K4's ms a launch and a frame at each B, beside
+   encode() of the same frames as key frames, and each B's stage times;
+17. the device conversions at 1080p (convert/device.py): each of the five
+   on the card equal to the port's numpy model (yuv420p -> rgb48 on an
+   input whose int32 sums wrap), fused_bgr0_phase_a equal to the staged
+   conversion + plane_context_diff, their CUDA-event times beside the
+   models' host times; then the capture path: phase 7's bgr0 frames
+   through bgr0_to_yuv420p on the card, handed as tensors to
+   encode_batch at B = 3, every packet equal to the native codec's on
+   the numpy model's planes.
 
 The launch counts of a path are reset just before its frames and read just
 after (in phase 14, around each case's one call of its op). The line
@@ -99,10 +117,11 @@ the work's longest chain of dependent links (K4: the longest slice's
 steps; K7: the lanes' steps; K2, K6: the lookups a slot's hits need;
 K5: the live cells a lane walks) at the cycles a link measured in phase
 1) and the time of one
-PyTorch call computing the same function where there is one. The last line
-is {"ok": true, "device": {...}}. Any failure raises and exits non-zero
-without those lines. Exits non-zero at once when torch sees no CUDA
-device.
+PyTorch call computing the same function where there is one; beside the
+kernels, ``batch`` (phase 16's rows) and ``conversions`` (phase 17's
+times). The last line is {"ok": true, "device": {...}}. Any failure
+raises and exits non-zero without those lines. Exits non-zero at once
+when torch sees no CUDA device.
 """
 
 from __future__ import annotations
@@ -614,10 +633,7 @@ def k6_pack_check(out, k):
 def range_checks(out, inputs, clock_mhz, cycles):
     """K2-K4 against their plain versions on range frame 0's inputs;
     ``cycles``: the chains' measured cycles a link (``tools/latency.py``)."""
-    import torch
     from ffmpeg_ffv2_tpu_torch.ffv1 import expand as ex
-    from ffmpeg_ffv2_tpu_torch.ffv1 import rac
-    from ffmpeg_ffv2_tpu_torch.tools import latency
 
     walk_check(out, inputs, clock_mhz, cycles, "adapt", "range", False)
     pack_check(out, inputs["pack"], "range")
@@ -639,10 +655,21 @@ def range_checks(out, inputs, clock_mhz, cycles):
           writes=f"{S * op_cap} op words (the bound counts the {n_ops} "
                  "of the slices' ops; the rest is the NOP fill to op_cap)")
 
-    # K4 rac_render: kernel on the frame's op streams; kernel and plain on
-    # the first 3080 op steps of every slice (six stages of the kernel's
-    # 512-op ring and 8 steps of a seventh) ending in the tail ops
-    opw, steps, buf_cap = inputs["k4"]
+    render_check(out, inputs["k4"], inputs["n_ops"], inputs["rendered"],
+                 clock_mhz, cycles, "range")
+
+
+def render_check(out, k4, n_ops, rendered, clock_mhz, cycles, path,
+                 key=None, **extra):
+    """K4 rac_render: the kernel on the op streams ``k4`` (opw, steps,
+    buf_cap) whose slices hold ``n_ops`` ops and render ``rendered``
+    bytes; kernel and plain on the first 3080 op steps of every slice
+    (six stages of the kernel's 512-op ring and 8 steps of a seventh)
+    ending in the tail ops."""
+    import torch
+    from ffmpeg_ffv2_tpu_torch.ffv1 import rac
+    from ffmpeg_ffv2_tpu_torch.tools import latency
+    opw, steps, buf_cap = k4
     n = 3 * 1024 + 8
     opw_cut = opw[:, :n].clone()
     opw_cut[:, -3:] = torch.tensor([(1 << 9) | 129, 2 << 9, 3 << 9],
@@ -650,18 +677,20 @@ def range_checks(out, inputs, clock_mhz, cycles):
     err = max_abs_err(rac.rac_render(opw_cut, n, 8192),
                       rac.rac_render_plain(opw_cut, n, 8192))
     S = opw.shape[0]
-    ms = cuda_ms(lambda: rac.rac_render(opw, steps, buf_cap), 5)
-    live = int(inputs["n_ops"].max())
-    log(f"kernel rac_render: {ms * 1e6 / live:.2f} ns a step ({ms:.4f} ms "
-        f"over the longest slice's {live} live steps of {steps})")
-    entry(out, "rac_render", "range", err, ms,
+    ms = cuda_ms(lambda: rac.rac_render(*k4), 5)
+    live = int(n_ops.max())
+    total = int(n_ops.sum())
+    log(f"kernel {key or 'rac_render'}: {ms * 1e6 / live:.2f} ns a step "
+        f"({ms:.4f} ms over the longest slice's {live} live steps of "
+        f"{steps}, {S} slices)")
+    entry(out, "rac_render", path, err, ms,
           cuda_ms(lambda: rac.rac_render_plain(opw_cut, n, 8192), 1), None,
-          bound(n_ops * 4 + inputs["rendered"] + S * 4, n_ops, live,
-                clock_mhz, live, cycles[latency.K4_STEP]),
+          bound(total * 4 + rendered + S * 4, total, live,
+                clock_mhz, live, cycles[latency.K4_STEP]), key=key,
           ms_cut=cuda_ms(lambda: rac.rac_render(opw_cut, n, 8192), 5),
           ns_a_step=ms * 1e6 / live,
           cut=f"first {n} op steps of each of {S} slices; plain_ms and "
-              f"ms_cut on the cut, ms on {steps} steps")
+              f"ms_cut on the cut, ms on {steps} steps", **extra)
 
 
 def vlc_links(ch1c, caps, bases, pred, s0, pb: int) -> int:
@@ -978,8 +1007,7 @@ def drive(label, enc, frames, card, phase, not_launched=(), check=None,
         t0 = time.perf_counter()
         packets.append(enc.encode(frame, force_keyframe=t == 0))
         ms.append((time.perf_counter() - t0) * 1e3)
-    launches = {k.name: k.launches for k in _build.KERNELS.values()}
-    plain = {k.name: k.plain_calls for k in _build.KERNELS.values()}
+    launches, plain = path_counts(label, kernels, not_launched)
     for t, (frame, pkt) in enumerate(zip(frames, packets)):
         ref = nat.encode(frame, t == 0)
         if pkt != ref:
@@ -990,17 +1018,6 @@ def drive(label, enc, frames, card, phase, not_launched=(), check=None,
             if not np.array_equal(a, b):
                 raise AssertionError(f"{label} frame {t}: decode is not "
                                      "lossless")
-    for name in kernels:
-        if launches[name] <= 0:
-            raise AssertionError(f"kernel {name} never launched on the "
-                                 f"{label} path")
-    for name in not_launched:
-        if launches[name]:
-            raise AssertionError(f"kernel {name} launched on the {label} "
-                                 "path")
-    if any(plain.values()):
-        raise AssertionError(f"plain versions ran on the {label} path: "
-                             f"{plain}")
     steady = sorted(ms[1:])[len(ms[1:]) // 2]
     log(f"phase {phase}: {label}: {type(enc).__name__}, {len(frames)} "
         f"frames {w}x{h} {pix} (1 key + {len(frames) - 1} inter, "
@@ -1012,6 +1029,196 @@ def drive(label, enc, frames, card, phase, not_launched=(), check=None,
         f"= {w * h / steady / 1e3:.2f} Mpixel/s [{card}]; packet bytes "
         f"{[len(x) for x in packets]}")
     return launches
+
+
+def path_counts(label, kernels, not_launched=()) -> tuple:
+    """The launch and plain-call counts since the last reset, read just
+    after a path ran: each of ``kernels`` launched, none of
+    ``not_launched``, and no plain version."""
+    from ffmpeg_ffv2_tpu_torch import _build
+    launches = {k.name: k.launches for k in _build.KERNELS.values()}
+    plain = {k.name: k.plain_calls for k in _build.KERNELS.values()}
+    for name in kernels:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"{label} path")
+    for name in not_launched:
+        if launches[name]:
+            raise AssertionError(f"kernel {name} launched on the {label} "
+                                 "path")
+    if any(plain.values()):
+        raise AssertionError(f"plain versions ran on the {label} path: "
+                             f"{plain}")
+    return launches, plain
+
+
+BATCH_SIZES = (1, 4, 8)
+
+
+def batch_checks(out, frames, cfg, clock_mhz, cycles, card) -> tuple:
+    """Phase 16: a session encodes frame 0 as a key frame; then, with the
+    launch counts reset, ``tools.bench_batch_scale.gate`` runs
+    encode_batch of ``frames[:B]`` at each B of BATCH_SIZES (every packet
+    against the native codec's key packet and its lossless decode); the
+    counts are read; the session's next inter frame must equal a native
+    session's.  Then K4 against its plain version on the B = 8 batch's
+    rows (entry ``rac_render_batch``), the tool's times and each B's
+    stage times.  Returns the path's launch counts and the rows."""
+    from ffmpeg_ffv2_tpu_torch import _build
+    from ffmpeg_ffv2_tpu_torch.ffv1.native import NativeFFV1Codec
+    from ffmpeg_ffv2_tpu_torch.ffv1.rac import rac_render
+    from ffmpeg_ffv2_tpu_torch.tools import bench_batch_scale as bbs
+    enc = device_encoder("yuv420p", W, H, cfg)
+    sess = NativeFFV1Codec(enc.p)
+    if enc.encode(frames[0], force_keyframe=True) != sess.encode(frames[0],
+                                                                 True):
+        raise AssertionError("batch session: key frame differs")
+    state = enc.state()
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    bbs.gate(enc, frames, BATCH_SIZES)
+    wall = time.perf_counter() - t0
+    launches, plain = path_counts("batch", enc.kernels)
+    log(f"phase 16: encode_batch at B = {list(BATCH_SIZES)} ({W}x{H} "
+        f"yuv420p, up to {max(BATCH_SIZES) * enc.S} slices a pass) "
+        f"byte-identical to the native codec's key packets and decoded "
+        f"losslessly ({wall:.1f} s with the first calls' cap retries); "
+        f"launches {launches}, plain calls {plain}; batch caps "
+        f"{json.dumps(enc._batch_caps)}")
+    if not np.array_equal(enc.state(), state) or enc.picture_number != 1:
+        raise AssertionError("encode_batch changed the session's state")
+    if enc.encode(frames[1], force_keyframe=False) != sess.encode(frames[1],
+                                                                  False):
+        raise AssertionError("batch session: the inter frame after the "
+                             "batches differs from the native session's")
+    log("phase 16: the session's inter frame after the batches equals the "
+        "native session's")
+    staged = [enc.upload(f) for f in frames]
+    rows, k4s = [], {}
+    for B in BATCH_SIZES:
+        row, k4s[B] = bbs.time_batch(enc, staged, B, 3)
+        rows.append(row)
+    rows.append(bbs.time_encode(enc, staged, 3))
+    for B in BATCH_SIZES:
+        mark = Marks()
+        enc.encode_batch(staged[:B], mark)
+        log(f"phase 16: B = {B} stage times (ms, CUDA events; frames "
+            f"staged on the card): {json.dumps(mark.stages())}")
+    k4, n_ops = k4s[max(BATCH_SIZES)]
+    _, ln = rac_render(*k4)
+    b1 = out["rac_render"]["ms"]
+    render_check(out, k4, n_ops, int(ln.sum()), clock_mhz, cycles, "batch",
+                 key="rac_render_batch", B=max(BATCH_SIZES),
+                 per_B=[{k: r[k] for k in ("B", "slices", "k4_ms",
+                                           "k4_ms_per_frame", "k4_steps",
+                                           "k4_live_steps")}
+                        for r in rows[:-1]],
+                 encode_path_ms=b1)
+    for r in rows[:-1]:
+        log(f"phase 16: B = {r['B']} ({r['slices']} slices): batch "
+            f"{r['ms_per_frame']:.2f} ms a frame ({r['mpixel_s']:.1f} "
+            f"Mpixel/s); K4 {r['k4_ms']:.3f} ms a launch, "
+            f"{r['k4_ms_per_frame']:.3f} ms a frame, {r['k4_live_steps']} "
+            f"live steps of {r['k4_steps']} (phase 2's K4 on frame 0 "
+            f"through encode(): {b1:.3f} ms) [{card}]")
+    e = rows[-1]
+    log(f"phase 16: encode() of the same {e['frames']} frames as key "
+        f"frames: {e['ms_per_frame']:.2f} ms a frame (median; each "
+        f"{[round(x, 2) for x in e['ms_per_frame_each']]}) [{card}]")
+    return launches, rows
+
+
+def conversion_checks(frames, cfg, card, device="cuda") -> tuple:
+    """Phase 17: the five device conversions and fused_bgr0_phase_a at
+    1080p against the numpy models (exact), timed (CUDA events on inputs
+    already on the card; the models on the host clock); then the capture
+    path, bgr0 frames converted on the card and handed as tensors to
+    encode_batch at B = 3, checked against the native codec on the
+    model's planes with the launch counts reset just before.  Returns the
+    path's launch counts and the times.  ``device`` is the card's, or
+    "cpu" in a rehearsal of the phase with the plain versions."""
+    import torch
+    from ffmpeg_ffv2_tpu_torch import _build
+    from ffmpeg_ffv2_tpu_torch.convert import device as conv
+    from ffmpeg_ffv2_tpu_torch.convert import yuv_rgb
+    from ffmpeg_ffv2_tpu_torch.ffv1 import phase_a as pa
+    from ffmpeg_ffv2_tpu_torch.ffv1.native import NativeFFV1Codec
+    from ffmpeg_ffv2_tpu_torch.ffv1.params import params_from_config
+    # frame 0 with a bright, saturated band on top (luma 232..255, u and
+    # v 255), where the rgb48 writer's int32 sums wrap
+    yuv = [x.astype(np.uint8) for x in frames[0]]
+    yuv[0][:16] = 255 - np.arange(yuv[0].shape[1]) % 24
+    yuv[1][:8] = yuv[2][:8] = 255
+    g, b, r = synth_rgb48_frames(1, W, H)[0]
+    rgb = [np.stack([b8, g8, r8, np.zeros_like(g8)], -1).astype(np.uint8)
+           for g8, b8, r8 in synth_rgb_frames(N_NEW, W, H)]
+    img48 = np.stack([r, g, b], -1).astype(np.uint16)
+    g16, b16, r16 = (x.astype(np.uint16) for x in (g, b, r))
+    # the yuv420p -> rgb48 sums that pass 2^31 - 1 before the int32 wrap
+    y64 = yuv[0].astype(np.int64)
+    u64 = np.repeat(np.repeat(yuv[1].astype(np.int64), 2, 0), 2, 1)
+    Y1 = ((y64 << 9) - yuv_rgb._YO) * yuv_rgb._YC + (1 << 13)
+    wraps = int(((((u64 - 128) << 9) * yuv_rgb._U2B + Y1)
+                 > 2 ** 31 - 1).sum())
+    dev = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    qt = pa.lut_for(params_from_config(cfg, "yuv420p", W, H), 0)
+    cases = [("yuv420p_to_bgr0", yuv, [dev(x) for x in yuv]),
+             ("yuv420p_to_rgb48", yuv, [dev(x) for x in yuv]),
+             ("bgr0_to_yuv420p", [rgb[0]], [dev(rgb[0])]),
+             ("rgb48_to_yuv420p", [img48], [dev(img48.astype(np.int32))]),
+             ("gbrp16_to_yuv420p", [g16, b16, r16],
+              [dev(x.astype(np.int32)) for x in (g16, b16, r16)])]
+    times = {}
+    for name, host_args, dev_args in cases:
+        fn = getattr(conv, name)
+        got = fn(*dev_args, device=device)
+        t0 = time.perf_counter()
+        ref = getattr(yuv_rgb, name)(*host_args)
+        model_ms = (time.perf_counter() - t0) * 1e3
+        for a, o in zip([got] if torch.is_tensor(got) else got,
+                        [ref] if isinstance(ref, np.ndarray) else ref):
+            if not np.array_equal(a.cpu().numpy(), o):
+                raise AssertionError(f"{name}: differs from the numpy "
+                                     "model")
+        times[name] = dict(ms=cuda_ms(lambda: fn(*dev_args, device=device),
+                                      5),
+                           model_host_ms=model_ms)
+    times["yuv420p_to_rgb48"]["wrapped_sums"] = wraps
+    if not wraps:
+        raise AssertionError("yuv420p_to_rgb48: no sum wrapped int32")
+    fused = conv.fused_bgr0_phase_a(dev(rgb[0]), qt, 8, False, device)
+    for (fc, fd), pl in zip(fused, yuv_rgb.bgr0_to_yuv420p(rgb[0])):
+        sc, sd = pa.plane_context_diff(pa._wrap16(dev(pl.astype(np.int32))),
+                                       qt, 8, False)
+        if not (torch.equal(fc, sc) and torch.equal(fd, sd)):
+            raise AssertionError("fused_bgr0_phase_a differs from the "
+                                 "staged conversion + plane_context_diff")
+    times["fused_bgr0_phase_a"] = dict(ms=cuda_ms(
+        lambda: conv.fused_bgr0_phase_a(dev(rgb[0]), qt, 8, False, device),
+        5))
+    log(f"phase 17: the five conversions and fused_bgr0_phase_a at {W}x{H} "
+        f"on the card equal the numpy models ({wraps} rgb48 sums wrapped "
+        f"int32); ms: {json.dumps(times)} [{card}]")
+    enc = device_encoder("yuv420p", W, H, cfg)
+    nat, dec = NativeFFV1Codec(enc.p), NativeFFV1Codec(enc.p)
+    _build.reset_counts()
+    planes = [conv.bgr0_to_yuv420p(dev(img), device) for img in rgb]
+    pkts = enc.encode_batch(planes)
+    launches, plain = path_counts("capture", enc.kernels)
+    for t, (img, pkt) in enumerate(zip(rgb, pkts)):
+        model = [x.astype(np.int32) for x in yuv_rgb.bgr0_to_yuv420p(img)]
+        if pkt != nat.encode(model, True):
+            raise AssertionError(f"capture frame {t}: packet differs from "
+                                 "the native codec's")
+        for a, b in zip(dec.decode(pkt), model):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"capture frame {t}: decode is not "
+                                     "lossless")
+    log(f"phase 17: capture path: {len(rgb)} bgr0 frames -> "
+        f"bgr0_to_yuv420p on the card -> encode_batch (B = {len(rgb)}, "
+        "tensors handed over) byte-identical to the native codec on the "
+        f"numpy model's planes; launches {launches}, plain calls {plain}")
+    return launches, times
 
 
 class Phase:
@@ -1278,19 +1485,31 @@ def main() -> int:
         launches["rice16"] = deep_rice_checks(kernels, frames[:2], rice_cfg,
                                               clock_mhz, cycles, card)
 
+    # 16. the all-intra batch at B = 1, 4, 8 (K1-K4 on up to 240 slices)
+    with Phase(16):
+        launches["batch"], batch = batch_checks(kernels, frames, range_cfg,
+                                                clock_mhz, cycles, card)
+
+    # 17. the device conversions, then the capture path into encode_batch
+    with Phase(17):
+        launches["capture"], conversions = conversion_checks(
+            frames, range_cfg, card)
+
     for k in kernels.values():
         k["launches"] = launches[k["path"]][k["kernel"]]
         k["launches_by_path"] = {label: launches[label][k["kernel"]]
                                  for label in launches}
     order = ["place", "place_pb16", "adapt", "adapt_rgb48",
              "adapt_emission", "emission_pack", "expand", "rac_render",
-             "vlc", "vlc_pb16", "vlc_bgr0", "ladder", "ladder_pb16",
-             "rac_lanes",
+             "rac_render_batch", "vlc", "vlc_pb16", "vlc_bgr0", "ladder",
+             "ladder_pb16", "rac_lanes",
              "rac_lanes_rice", "sort",
              "rowsort", "roll", "rowcx", "transpose", "probe_scalar_extract",
              "probe_scalar_in_ds", "probe_big_prefetch", "probe_roll_dynamic",
              "probe_taa_rows"]
-    print(json.dumps({"kernels": [kernels[n] for n in order]}), flush=True)
+    print(json.dumps({"kernels": [kernels[n] for n in order],
+                      "batch": batch, "conversions": conversions}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -10,6 +10,10 @@ codec that serves as its oracle) is copied under mirror paths
 hand-written CUDA kernels (``csrc/*.cu``, built on first use by
 ``_build``): with the range coder K1 place, K2 adapt, K3 expand and K4
 rac_render; with the Golomb-Rice coder K1 place, K5 vlc and the run-index
-ladder.  ``ops.sort_rows`` is the bitonic row sort (K8, K9), and
-``tools/`` holds the counterparts of the repository's Pallas tools (K10-K17).
+ladder; ``encode_batch`` runs B key frames through K1-K4 as B x S slices.
+``convert.device`` holds the pixel-format conversions on tensors (plain
+PyTorch, held against the numpy models of ``convert.yuv_rgb``).
+``ops.sort_rows`` is the bitonic row sort (K8, K9), and ``tools/`` holds
+the counterparts of the repository's Pallas tools (K10-K17) and of
+``tools/bench_batch_scale.py``.
 """

@@ -292,6 +292,40 @@ def unsort_codes(code_cells, ch2c, S: int, npix: int):
     return out[:n].reshape(S, npix)
 
 
+def layout_caps(npix: int, n_slices: int, rows_per_slice: int) -> dict:
+    """Worst-case bounds (``tiles_max``, ``cellrows_max``) and
+    content-typical starting sizes (``tiles``, ``cellrows``) of the
+    adaptive layout domains of ``n_slices`` slices of ``npix`` pixels
+    (grown on overflow, on quantize_cap rungs): a session's S slices, or
+    a batch's B x S (device_coder._batch_state)."""
+    gcap = host.GCAP
+    n = n_slices * npix
+    chains = n_slices * rows_per_slice
+    n_buckets = npix // gcap + 2
+    tiles_max = n // gcap + 2 * n_buckets + chains // 128 + 8
+    cellrows_max = n // 128 + (n_buckets + 2) * gcap + tiles_max + 128
+    return dict(tiles=host.quantize_cap(n // gcap + chains // 128 + 72,
+                                        tiles_max),
+                cellrows=host.quantize_cap(n // 128 * 5 // 4 + 2 * gcap + 256,
+                                           cellrows_max),
+                tiles_max=tiles_max, cellrows_max=cellrows_max)
+
+
+def layout_fits(rows: int, tiles: int, slots: int, tiles_cap: int,
+                cellrows_cap: int) -> bool:
+    return (rows + 1024 <= cellrows_cap and tiles <= tiles_cap
+            and slots <= tiles_cap * 128)
+
+
+def grow_layout(rows: int, tiles: int, caps: dict) -> None:
+    """Grow a ``layout_caps`` dict's tile and cell-row caps to the
+    measured need (+slack)."""
+    caps["tiles"] = host.quantize_cap(max(tiles + 64, caps["tiles"] + 1),
+                                      caps["tiles_max"])
+    caps["cellrows"] = host.quantize_cap(
+        max(rows + 2048, caps["cellrows"] + 1), caps["cellrows_max"])
+
+
 # the kernels each path's frame launches (chip_smoke.py and the card tests
 # check that a path went through all of its kernels)
 RANGE_KERNELS = ("place", "adapt", "emission_pack", "expand", "rac_render")
@@ -415,21 +449,11 @@ class DeviceFFV1Encoder:
         self.class_off_stream = torch.as_tensor(class_off[pclass],
                                                 device=self.device)
 
-        n = self.S * self.npix
         self.n_chain_rows = self.S * self.rows_per_slice
-        # worst-case bounds and content-typical starting sizes of the
-        # adaptive working domains (grown on overflow, on quantize_cap
-        # rungs)
-        gcap = host.GCAP
-        n_buckets = self.npix // gcap + 2
-        self.tiles_max = (n // gcap + 2 * n_buckets
-                          + self.n_chain_rows // 128 + 8)
-        self.cellrows_max = (n // 128 + (n_buckets + 2) * gcap
-                             + self.tiles_max + 128)
-        self.tiles_cap = host.quantize_cap(
-            n // gcap + self.n_chain_rows // 128 + 72, self.tiles_max)
-        self.cellrows_cap = host.quantize_cap(
-            n // 128 * 5 // 4 + 2 * gcap + 256, self.cellrows_max)
+        c = layout_caps(self.npix, self.S, self.rows_per_slice)
+        self.tiles_cap, self.cellrows_cap = c["tiles"], c["cellrows"]
+        self.tiles_max, self.cellrows_max = c["tiles_max"], c["cellrows_max"]
+        self._batch_caps = {}        # encode_batch's layout caps, per B
         self.extradata = H.write_extradata(p) if p.version > 1 else b""
         if self.golomb:
             self._init_rice()
@@ -442,8 +466,8 @@ class DeviceFFV1Encoder:
                                      device=self.device)
         # keyframe canonical: 128 everywhere, or the 2-pass per-context
         # initial states (ff_ffv1_clear_slice_state, ffv1.c:70-84): one
-        # slice's (rows_per_slice, 32) key tiled over the slices, plus the
-        # spare row
+        # slice's (rows_per_slice, 32) key (canonical_key1) tiled over the
+        # slices, plus the spare row
         ck = np.full((self.rows_per_slice, 32), 128, np.uint8)
         if p.initial_states is not None:
             ss = SliceState(p)
@@ -453,9 +477,8 @@ class DeviceFFV1Encoder:
                 if init is not None:
                     ck[off:off + cnt] = np.asarray(init, np.uint8)[:cnt]
                 off += cnt
-        full = np.full((self.n_chain_rows + 1, 32), 128, np.uint8)
-        full[:self.n_chain_rows] = np.tile(ck, (self.S, 1))
-        self.canonical_key = torch.as_tensor(full, device=self.device)
+        self.canonical_key1 = torch.as_tensor(ck, device=self.device)
+        self.canonical_key = self.key_canonical(self.S)
         self.canonical = self.canonical_key
 
         # host-planned per-slice prefix ops (constant per keyframe flag;
@@ -665,7 +688,8 @@ class DeviceFFV1Encoder:
         ch1c, ch2c = place(*k1)
         mark("K1 place", k1)
         if keyframe:
-            canonical = self.canonical_key
+            canonical = (self.canonical_key if ctx.shape[0] == self.S
+                         else self.key_canonical(ctx.shape[0]))
         s0 = build_s0_blocks(plan, canonical, tiles_cap)
         mark("s0")
         ev, ends = self.adapt(ch1c, plan, s0, ev_words, mark)
@@ -677,9 +701,10 @@ class DeviceFFV1Encoder:
 
     def ops_from_streams(self, ctx, diff, canonical, svp, btp, hlen,
                          keyframe: bool, caps, ev_words: int, mark=no_mark):
-        """Streams -> (opw (S, op_cap) int32 op words, n_ops (S,),
-        canonical after the frame, sizes = [rows, tiles, slots, opmax,
-        maxcount])."""
+        """Streams of n slices (the session's S, or a batch's B x S) ->
+        (opw (n, op_cap) int32 op words, n_ops (n,), canonical after the
+        frame, sizes = [rows, tiles, slots, opmax, maxcount]).  A keyframe
+        starts from ``key_canonical(n)``, not from ``canonical``."""
         tiles_cap, cellrows_cap, op_cap = caps
         ev, ch1c, ch2c, canonical, psizes = self.front(
             ctx, diff, canonical, keyframe, tiles_cap, cellrows_cap,
@@ -694,15 +719,28 @@ class DeviceFFV1Encoder:
         return opw, n_ops, canonical, sizes
 
     def _layout_fits(self, rows: int, tiles: int, slots: int) -> bool:
-        return (rows + 1024 <= self.cellrows_cap and tiles <= self.tiles_cap
-                and slots <= self.tiles_cap * 128)
+        return layout_fits(rows, tiles, slots, self.tiles_cap,
+                           self.cellrows_cap)
 
     def _grow_layout(self, rows: int, tiles: int):
-        """Grow the tile and cell-row caps to the measured need (+slack)."""
-        self.tiles_cap = host.quantize_cap(
-            max(tiles + 64, self.tiles_cap + 1), self.tiles_max)
-        self.cellrows_cap = host.quantize_cap(
-            max(rows + 2048, self.cellrows_cap + 1), self.cellrows_max)
+        """Grow the session's tile and cell-row caps to the measured need
+        (+slack)."""
+        caps = dict(tiles=self.tiles_cap, cellrows=self.cellrows_cap,
+                    tiles_max=self.tiles_max, cellrows_max=self.cellrows_max)
+        grow_layout(rows, tiles, caps)
+        self.tiles_cap, self.cellrows_cap = caps["tiles"], caps["cellrows"]
+
+    def _ops_fit(self, opmax: int, maxc: int) -> bool:
+        return opmax <= self.op_cap and maxc <= 4 * self.unsort_words
+
+    def _grow_ops(self, opmax: int, maxc: int):
+        """Grow the op domain and the unsort width to the measured need."""
+        if opmax > self.op_cap:
+            self.op_cap = host.quantize_cap(opmax + 512, self.op_cap_max,
+                                            host.OP_GRAN)
+        if maxc > 4 * self.unsort_words:
+            self.unsort_words = min(host.n_ev_words(self.code_bits),
+                                    (maxc + 3) // 4)
 
     def _render_retry(self, opw, steps: int):
         """K4 with render-buffer growth; returns (bytes on the device,
@@ -785,8 +823,7 @@ class DeviceFFV1Encoder:
     def _encode_rice(self, planes, keyframe: bool) -> list:
         """One Golomb-Rice frame -> list of raw slice payloads
         (encoder.py:_encode_slice)."""
-        dev = [torch.as_tensor(np.asarray(pl), dtype=I32, device=self.device)
-               for pl in planes]
+        dev = self.upload(planes)
         ctx, streams = self.phase_a_rice(dev)
         for _ in range(8):
             codes, vcanon, psizes = self.rice_front(
@@ -830,10 +867,107 @@ class DeviceFFV1Encoder:
         self.picture_number += 1
         return self._finish_packet(chunks)
 
-    def encode_batch(self, frames_list) -> list:
-        raise NotImplementedError(
-            "torch device coder: encode_batch is not ported yet; call "
-            "encode() per frame")
+    def upload(self, planes) -> list:
+        """Planes -> int32 tensors on the encoder's device: numpy arrays
+        are copied up; a tensor already there (a device conversion's
+        output, ``convert/device.py``) is used as it is, cast on the
+        device."""
+        return [torch.as_tensor(pl if torch.is_tensor(pl) else np.asarray(pl),
+                                dtype=I32, device=self.device)
+                for pl in planes]
+
+    def key_canonical(self, n_slices: int):
+        """The keyframe state table of ``n_slices`` slices: one slice's
+        key (``canonical_key1``: 128, or the 2-pass initial states) tiled
+        over them, plus the spare row of 128 (device_coder._s_front)."""
+        return torch.cat([self.canonical_key1.repeat(n_slices, 1),
+                          self.canonical_key1.new_full((1, 32), 128)])
+
+    def batch_streams(self, frames_list):
+        """B frames -> (ctx, diff) of their B x S slices, frame-major, and
+        the keyframe prefix ops tiled over the frames
+        (device_coder._pipeline_batch)."""
+        parts = [self.phase_a(self.upload(f)) for f in frames_list]
+        B = len(frames_list)
+        svp, btp, hlen = self.prefix[True]
+        return (torch.cat([c for c, _ in parts]),
+                torch.cat([d for _, d in parts]),
+                (svp.repeat(B, 1), btp.repeat(B, 1), hlen.repeat(B)))
+
+    def _check_batchable(self):
+        if self.banks is not None:
+            raise NotImplementedError(
+                "batch encode with a non-uniform slice geometry: use "
+                "encode() (per-shape banks) or a uniform frame size")
+        if self.v4rgb:
+            raise NotImplementedError(
+                "batch encode with v4 RGB: the per-slice RCT search "
+                "re-plans headers per frame; use encode()")
+        if self.golomb:
+            raise NotImplementedError(
+                "batch encode with Golomb-Rice: the batch is the range "
+                "pipeline; use encode()")
+
+    def batch_ops(self, frames_list, mark=no_mark):
+        """B >= 1 key frames -> (opw (B x S, op_cap) op words, n_ops
+        (B x S,), K4's step count): phase A, the layout, K1, the walk and
+        K3 on the batch's slices, retried on the batch's own layout caps
+        (per B) until every size fits (device_coder.encode_batch)."""
+        self._check_batchable()
+        B = len(frames_list)
+        ctx, diff, (svp, btp, hlen) = self.batch_streams(frames_list)
+        mark("phase_a")
+        caps = self._batch_caps.get(B)
+        if caps is None:
+            caps = self._batch_caps[B] = layout_caps(self.npix, B * self.S,
+                                                     self.rows_per_slice)
+        for _ in range(8):
+            opw, n_ops, _, sizes = self.ops_from_streams(
+                ctx, diff, None, svp, btp, hlen, True,
+                (caps["tiles"], caps["cellrows"], self.op_cap),
+                self.unsort_words, mark)
+            rows, tiles, slots, opmax, maxc = sizes.tolist()
+            fits = layout_fits(rows, tiles, slots, caps["tiles"],
+                               caps["cellrows"])
+            if fits and self._ops_fit(opmax, maxc):
+                break
+            if not fits:
+                grow_layout(rows, tiles, caps)
+            self._grow_ops(opmax, maxc)
+        else:
+            raise RuntimeError("device layout exceeded worst-case caps")
+        mark("sizes to host")
+        # code at the power-of-two step bucket
+        return opw, n_ops, max(512, min(1 << opmax.bit_length(),
+                                        int(opw.shape[1])))
+
+    def encode_batch(self, frames_list, mark=no_mark) -> list:
+        """B intra (key) frames -> their packets, in one pass of B x S
+        slices through phase A, the layout, K1, the walk (K2 and
+        emission_pack, or K6), K3 and K4 (device_coder.encode_batch):
+        keyframes reset every slice's states, so the frames are
+        independent coding units.  Planes are numpy arrays or tensors
+        (``upload``).  The batch keeps its own layout caps per B and
+        leaves the session's state table, picture number and layout caps
+        as they were; it shares (and may grow) op_cap, unsort_words and
+        render_cap.  Raises NotImplementedError for shape banks and v4
+        RGB (as the JAX encoder does) and for Golomb-Rice (the JAX batch
+        runs the range pipeline under a rice header there).  ``mark`` is
+        called after each stage, and after K4 with its inputs."""
+        self._check_batchable()
+        if not frames_list:
+            return []
+        opw, _, steps = self.batch_ops(frames_list, mark)
+        by, ln_h = self._render_retry(opw, steps)
+        mark("K4 rac_render", (opw, steps, self.render_cap))
+        by_h = by.cpu().numpy()
+        mark("bytes to host")
+        S = self.S
+        pkts = [self._finish_packet([by_h[b * S + li, :int(ln_h[b * S + li])]
+                                     .tobytes() for li in range(S)])
+                for b in range(len(frames_list))]
+        mark("slice trailers + CRC")
+        return pkts
 
     def _finish_packet(self, chunks) -> bytes:
         """Per-slice raw data -> packet: 3-byte BE size trailer + optional
@@ -855,8 +989,7 @@ class DeviceFFV1Encoder:
         payloads (no trailers)."""
         if self.golomb:
             return self._encode_rice(planes, keyframe)
-        dev = [torch.as_tensor(np.asarray(pl), dtype=I32, device=self.device)
-               for pl in planes]
+        dev = self.upload(planes)
         ctx, diff, (svp, btp, hlen) = self.range_streams(dev, keyframe)
         for _ in range(8):
             opw, n_ops, canon, sizes = self.ops_from_streams(
@@ -865,8 +998,7 @@ class DeviceFFV1Encoder:
                 self.unsort_words)
             rows, tiles, slots, opmax, maxc = sizes.tolist()
             fits = self._layout_fits(rows, tiles, slots)
-            if (fits and opmax <= self.op_cap
-                    and maxc <= 4 * self.unsort_words):
+            if fits and self._ops_fit(opmax, maxc):
                 # tighten a fat op domain to the content's measured scale
                 # (+25%), at most twice per session so the caps settle
                 tight_op = host.quantize_cap(opmax * 5 // 4 + 512,
@@ -882,13 +1014,7 @@ class DeviceFFV1Encoder:
             # grow the adaptive working sizes to the measured need (+slack)
             if not fits:
                 self._grow_layout(rows, tiles)
-            if opmax > self.op_cap:
-                self.op_cap = host.quantize_cap(opmax + 512,
-                                                self.op_cap_max,
-                                                host.OP_GRAN)
-            if maxc > 4 * self.unsort_words:
-                self.unsort_words = min(host.n_ev_words(self.code_bits),
-                                        (maxc + 3) // 4)
+            self._grow_ops(opmax, maxc)
         else:
             raise RuntimeError("device layout exceeded worst-case caps")
         self.canonical = canon

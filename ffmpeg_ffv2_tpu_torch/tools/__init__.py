@@ -8,6 +8,11 @@ says so.
     python -m ffmpeg_ffv2_tpu_torch.tools.microbench_sort [case substring]
     python -m ffmpeg_ffv2_tpu_torch.tools.microbench_prims
     python -m ffmpeg_ffv2_tpu_torch.tools.probes
+    python -m ffmpeg_ffv2_tpu_torch.tools.bench_batch_scale [B ...]
+
+``bench_batch_scale`` gates ``encode_batch`` against the native codec and
+times it at each B beside ``encode()`` (the counterpart of the
+repository's ``tools/bench_batch_scale.py``).
 
 ``kernel_times.py`` (run by its path, with ``--root`` naming the checkout
 whose kernels it times) gives the CUDA-event times of the range path's

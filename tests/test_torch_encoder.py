@@ -167,7 +167,9 @@ def test_torch_encoder_scope_missing(pix, cfg, change, err):
 
 def test_torch_encoder_scope_geometry_and_batch():
     """A non-uniform geometry (35, 33) builds one bank per slice shape and
-    encodes; encode_batch is not ported."""
+    encodes, and encode_batch refuses it (as the JAX encoder does);
+    encode_batch of a uniform geometry gives the native codec's key
+    packets (tests/test_torch_batch.py holds it whole)."""
     cfg = FFV1Config(level=3, coder=1, slices=4)
     enc = DeviceFFV1Encoder(35, 33, "yuv420p", cfg, device="cpu")
     assert len(enc.banks) == 4
@@ -175,9 +177,14 @@ def test_torch_encoder_scope_geometry_and_batch():
     planes = [np.full(s, 50, np.int32) for s in _shapes(p, 35, 33)]
     assert enc.encode(planes, force_keyframe=True) == NativeFFV1Codec(
         p).encode(planes, True)
+    with pytest.raises(NotImplementedError, match="non-uniform"):
+        enc.encode_batch([planes])
     enc = DeviceFFV1Encoder(64, 48, "yuv420p", cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="encode_batch"):
-        enc.encode_batch([])
+    assert enc.encode_batch([]) == []
+    p = params_from_config(cfg, "yuv420p", 64, 48)
+    frames = [_frame_for(p, 64, 48, seed=t) for t in range(2)]
+    nat = NativeFFV1Codec(p)
+    assert enc.encode_batch(frames) == [nat.encode(f, True) for f in frames]
 
 
 # ---------------------------------------------------------------------------

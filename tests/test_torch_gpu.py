@@ -2,8 +2,9 @@
 PyTorch version, and the encoder's packets equal NativeFFV1Codec's (the
 port's own copy), for the range and the Golomb-Rice coder, deep and RGB
 formats, shape banks, the emission_pack kernel and the emission-order walk
-(K6); the row sort (K8, K9) and the tool kernels (K10-K17) equal their
-plain versions.
+(K6), and for encode_batch; the row sort (K8, K9) and the tool kernels
+(K10-K17) equal their plain versions, and the device conversions equal
+their numpy models.
 
 Needs an NVIDIA GPU and nvcc; skips itself elsewhere.  The machine with
 the card has no jax, so run this file without the repository's
@@ -816,3 +817,67 @@ def test_torch_gpu_probes_match_plain():
             (probes.taa_rows, probes.taa_rows_plain, (v, idx))):
         args = tuple(a.contiguous() for a in args)
         assert torch.equal(fn(*args), plain(*args)), fn.__name__
+
+
+def test_torch_gpu_encode_batch_matches_native():
+    """encode_batch at B = 2 on the card (K1, K2, emission_pack, K3 and K4
+    on 2 x 4 slices, no plain version) == the native codec frame by frame;
+    the session's next inter frame still equals a native session's."""
+    w, h = 128, 96
+    cfg = FFV1Config(level=3, coder=1, slices=4)
+    p = params_from_config(cfg, "yuv420p", w, h)
+    enc = dc.DeviceFFV1Encoder(w, h, "yuv420p", cfg, device="cuda")
+    sess, nat = NativeFFV1Codec(p), NativeFFV1Codec(p)
+    rng = np.random.RandomState(8)
+    frames = [_frame(p, w, h, t, rng, t == 1) for t in range(4)]
+    assert enc.encode(frames[0], force_keyframe=True) == sess.encode(
+        frames[0], True)
+    state = enc.state()
+    _build.reset_counts()
+    pkts = enc.encode_batch(frames[1:3])
+    for name in enc.kernels:
+        k = _build.KERNELS[name]
+        assert k.launches > 0 and k.plain_calls == 0, name
+    assert pkts == [nat.encode(f, True) for f in frames[1:3]]
+    assert np.array_equal(enc.state(), state) and enc.picture_number == 1
+    assert enc.encode(frames[3], force_keyframe=False) == sess.encode(
+        frames[3], False)
+
+
+def test_torch_gpu_conversions_match_numpy_models():
+    """The five conversions and fused_bgr0_phase_a on the card == the
+    port's numpy models (and the staged conversion + plane_context_diff),
+    exactly; the yuv420p input makes the rgb48 sums wrap int32."""
+    from ffmpeg_ffv2_tpu_torch.convert import device as conv
+    from ffmpeg_ffv2_tpu_torch.convert import yuv_rgb
+    from ffmpeg_ffv2_tpu_torch.ffv1 import phase_a as pa
+    h, w = 96, 128
+    rng = np.random.RandomState(9)
+    y = rng.randint(0, 256, (h, w)).astype(np.uint8)
+    u, v = (rng.randint(0, 256, (h // 2, w // 2)).astype(np.uint8)
+            for _ in range(2))
+    y[:8], u[:4], v[:4] = 255, 255, 255
+    img = rng.randint(0, 256, (h, w, 4)).astype(np.uint8)
+    img48 = rng.randint(0, 65536, (h, w, 3)).astype(np.uint16)
+    g, b, r = (rng.randint(0, 65536, (h, w)).astype(np.uint16)
+               for _ in range(3))
+    out = conv.yuv420p_to_bgr0(y, u, v)
+    assert out.is_cuda
+    assert np.array_equal(out.cpu().numpy(), yuv_rgb.yuv420p_to_bgr0(y, u, v))
+    out = conv.yuv420p_to_rgb48(y, u, v)
+    assert np.array_equal(out.cpu().numpy(), yuv_rgb.yuv420p_to_rgb48(y, u, v))
+    for got, ref in ((conv.bgr0_to_yuv420p(img),
+                      yuv_rgb.bgr0_to_yuv420p(img)),
+                     (conv.rgb48_to_yuv420p(img48),
+                      yuv_rgb.rgb48_to_yuv420p(img48)),
+                     (conv.gbrp16_to_yuv420p(g, b, r),
+                      yuv_rgb.gbrp16_to_yuv420p(g, b, r))):
+        for a, o in zip(got, ref):
+            assert a.is_cuda and np.array_equal(a.cpu().numpy(), o)
+    qt = pa.lut_for(params_from_config(FFV1Config(level=3), "yuv420p", w,
+                                       h), 0)
+    for (fc, fd), pl in zip(conv.fused_bgr0_phase_a(img, qt, 8, False),
+                            yuv_rgb.bgr0_to_yuv420p(img)):
+        sc, sd = pa.plane_context_diff(pa._wrap16(torch.as_tensor(
+            pl.astype(np.int32), device="cuda")), qt, 8, False)
+        assert torch.equal(fc, sc) and torch.equal(fd, sd)
