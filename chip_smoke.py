@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Drives the port's paths through the encode() of ffmpeg_ffv2_tpu_torch's
-DeviceFFV1Encoder, TPUCoderFFV1Encoder and TPUFFV1Encoder on synthetic
-frames, in phases that each print a line, their ms per frame and their
-wall seconds:
+DeviceFFV1Encoder, TPUCoderFFV1Encoder, TPUFFV1Encoder and the FFV2
+sessions on synthetic frames, in phases that each print a line, their ms
+per frame and their wall seconds:
 
 0. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
 1. the build of the CUDA kernels from csrc/ (one nvcc per source, all
@@ -103,7 +103,19 @@ wall seconds:
    models' host times; then the capture path: phase 7's bgr0 frames
    through bgr0_to_yuv420p on the card, handed as tensors to
    encode_batch at B = 3, every packet equal to the native codec's on
-   the numpy model's planes.
+   the numpy model's planes;
+18. FFV2 (ffv2/native.py): K18 (pvq) against its plain version on every
+   (row, band) of a 1920x1080 yuv444p frame 0 at FFV2Config(qp=16), K19
+   (lap_pre, lap_post) against theirs on the whole frame, the float64
+   transforms timed, the encode and decode stage times (CUDA events);
+   then, counts reset: 3 frames of 1080p yuv444p qp 16 (moving ramps and
+   seeded noise), 1 of gbrp10 (the 16-bit upload), 1 of yuv444p with
+   block_size=0 (the split tree: mixed leaf sizes through K19 and the
+   transforms), every packet decoded on the card, and the 3 frames again
+   through PipelinedFFV2Encoder(depth=2); K18 once a frame, K19 twice an
+   encode and twice a decode; every packet byte-identical to the port's
+   host path (encode_host) of the same frame, every card decode equal to
+   decode_host, the pipelined packets equal to the sequential ones.
 
 The launch counts of a path are reset just before its frames and read just
 after (in phase 14, around each case's one call of its op). The line
@@ -118,9 +130,10 @@ steps; K7: the lanes' steps; K2, K6: the lookups a slot's hits need;
 K5: the live cells a lane walks) at the cycles a link measured in phase
 1) and the time of one
 PyTorch call computing the same function where there is one; beside the
-kernels, ``batch`` (phase 16's rows) and ``conversions`` (phase 17's
-times). The last line is {"ok": true, "device": {...}}. Any failure
-raises and exits non-zero without those lines. Exits non-zero at once
+kernels, ``batch`` (phase 16's rows), ``conversions`` (phase 17's
+times) and ``ffv2`` (phase 18's stage times, frame times, transforms).
+The last line is {"ok": true, "device": {...}}. Any failure raises and
+exits non-zero without those lines. Exits non-zero at once
 when torch sees no CUDA device.
 """
 
@@ -1221,6 +1234,190 @@ def conversion_checks(frames, cfg, card, device="cuda") -> tuple:
     return launches, times
 
 
+FFV2_FRAMES = 3
+FFV2_QP = 16                # bench.py's FFV2 qp
+FP64_FLOPS = 67e12          # H100 SXM FP64 tensor-core peak, data sheet
+
+
+def synth_ffv2_frames(n, depth, planes=3, seed=4):
+    """Moving sawtooth ramps (a plane's slope its own) plus seeded noise
+    whose amplitude grows across four column bands (0 at the left), so a
+    frame codes a mix of smooth and busy superblocks."""
+    w, h = W, H
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    mx = (1 << depth) - 1
+    amp = (xx * 4 // w) * ((mx + 1) >> 5)
+    frames = []
+    for t in range(n):
+        frames.append([
+            np.clip(((xx + 8 * t) * (p + 2) + (yy + 4 * t) * 3)
+                    * (mx + 1) // 1024 % (mx + 1)
+                    + (rng.randint(-128, 129, (h, w)) * amp >> 7), 0, mx)
+            .astype(np.int32) for p in range(planes)])
+    return frames
+
+
+def ffv2_checks(out, card, device="cuda") -> tuple:
+    """Phase 18: FFV2 through ffv2/native.py at 1080p.  K18 and K19
+    against their plain versions on frame 0 (on the card), the transforms
+    and the stage times; then the main path with the launch counts reset
+    (3 yuv444p frames, 1 gbrp10, 1 yuv444p split tree, each decoded on the
+    card, the 3 frames again pipelined), checked against the host paths.
+    Returns the path's launch counts and the phase's numbers.  ``device``
+    is the card's, or "cpu" in a rehearsal with the plain versions."""
+    import torch
+    from ffmpeg_ffv2_tpu_torch import _build
+    from ffmpeg_ffv2_tpu_torch.ffv2 import FFV2Config
+    from ffmpeg_ffv2_tpu_torch.ffv2 import device as dv
+    from ffmpeg_ffv2_tpu_torch.ffv2 import dsp
+    from ffmpeg_ffv2_tpu_torch.ffv2.native import (NativeFFV2Decoder,
+                                                   NativeFFV2Encoder,
+                                                   PipelinedFFV2Encoder)
+    n, qp = dsp.SB_SIZE, FFV2_QP
+    cfg = FFV2Config(qp=qp)
+    frames = synth_ffv2_frames(FFV2_FRAMES, 8)
+    enc = NativeFFV2Encoder(W, H, "yuv444p", cfg, device)
+    dec = NativeFFV2Decoder(W, H, device=device)
+    dec.decode(enc.encode(frames[0]))                 # warm-up
+
+    # K19 and K18 against their plain versions on frame 0's inputs
+    x = dv.upload(enc._pad(frames[0]), 8, device)
+    q12 = ((x << 4) - 2048).contiguous()
+    P, ph, pw = q12.shape
+    nbx, nby = (pw - 1) // n, (ph - 1) // n
+    rad = dv.LAP_RADIUS
+    touched = P * (nbx * rad * ph + nby * rad * pw - nbx * rad * nby * rad)
+    lines = P * (nbx * ph + nby * pw)
+    lap_bound = bound(touched * 8, lines * rad * 8)
+
+    def plain_lap(c, forward):
+        for vertical in ((False, True) if forward else (True, False)):
+            dv.lap_dir_plain(c, n, forward, vertical)
+        return c
+
+    pre = dv.lap_frame(q12.clone(), n, True)
+    post_in = pre.clone()
+    for key, forward, src in (("lap_pre", True, q12), ("lap_post", False,
+                                                       post_in)):
+        got = dv.lap_frame(src.clone(), n, forward)
+        ref, plain_ms = cuda_ms_once(lambda: plain_lap(src.clone(), forward))
+        scratch = src.clone()
+        ms = cuda_ms(lambda: dv.lap_frame(scratch, n, forward), 5)
+        entry(out, key, "ffv2", max_abs_err([got], [ref]), ms, plain_ms,
+              None, lap_bound, launches_a_call=2, lines=lines)
+    streams = dv.encode_front_t(x, 8, n, n)
+    bands = dsp.band_starts(n)
+    NB = streams.shape[0]
+    got = dv.quantize_t(streams, qp, bands, n)
+    ref, plain_ms = cuda_ms_once(
+        lambda: dv.quantize_plain(streams, qp, bands, n))
+    ms = cuda_ms(lambda: dv.quantize_t(streams, qp, bands, n), 5)
+    nbands, plen = len(bands) - 1, bands[-1] - bands[0]
+    # every (row, band) runs its qp steps (a band of 2 or more positions
+    # never runs out of candidates below the qp - 1 cap), about 8 integer
+    # operations (one a division) a position a step
+    entry(out, "pvq", "ffv2", max_abs_err(got, ref), ms, plain_ms, None,
+          bound(NB * (n * n * 4 + plen + 4 + nbands * 12),
+                NB * plen * qp * 8),
+          rows=NB, bands=nbands, qp=qp)
+    blocks = dv.blocks_of(pre, n)
+    coeffs = dv.tx_batch_t(blocks, dsp.TX_DCT, False)
+    tx = {}
+    for name, arg, inverse in (("forward", blocks, False),
+                               ("inverse", coeffs, True)):
+        flops = 2 * 2 * NB * n ** 3          # two passes of n MACs an output
+        b_ms = NB * n * n * 8 / HBM_BYTES_PER_S * 1e3
+        f_ms = flops / FP64_FLOPS * 1e3
+        tx[name] = dict(
+            ms=cuda_ms(lambda: dv.tx_batch_t(arg, dsp.TX_DCT, inverse), 5),
+            bound_ms=max(b_ms, f_ms),
+            bound_by="bytes" if b_ms >= f_ms else "operations",
+            blocks=NB, flops=flops)
+    log(f"phase 18: the float64 transforms of {NB} 64x64 blocks (ms, CUDA "
+        f"events; bound: FP64 tensor-core peak or bytes): "
+        f"{json.dumps(tx)} [{card}]")
+    del x, q12, pre, post_in, streams, got, ref, blocks, coeffs
+
+    # the stage times of frame 0 (a warm session)
+    marks = Marks()
+    pkt0 = enc.encode(frames[0], mark=marks)
+    enc_stages = marks.stages()
+    marks = Marks()
+    dec.decode(pkt0, mark=marks)
+    dec_stages = marks.stages()
+    log("phase 18: yuv444p frame 0 encode stage times (ms, CUDA events): "
+        + json.dumps(enc_stages))
+    log("phase 18: yuv444p frame 0 decode stage times (ms, CUDA events): "
+        + json.dumps(dec_stages))
+
+    # the main path, counts reset
+    gbr = synth_ffv2_frames(1, 10, seed=5)[0]
+    enc10 = NativeFFV2Encoder(W, H, "gbrp10", cfg, device)
+    enc_split = NativeFFV2Encoder(W, H, "yuv444p",
+                                  FFV2Config(qp=qp, block_size=0), device)
+    enc10.encode(gbr)
+    enc_split.encode(frames[0])
+    pipe = PipelinedFFV2Encoder(W, H, "yuv444p", cfg, depth=2,
+                                device=device)
+    try:
+        _build.reset_counts()
+        cases, enc_ms, dec_ms = [], [], []
+        for label, e, f in ([(f"yuv444p {t}", enc, fr)
+                             for t, fr in enumerate(frames)]
+                            + [("gbrp10", enc10, gbr),
+                               ("yuv444p block_size=0", enc_split,
+                                frames[0])]):
+            t0 = time.perf_counter()
+            pkt = e.encode(f)
+            enc_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            planes = dec.decode(pkt)
+            dec_ms.append((time.perf_counter() - t0) * 1e3)
+            cases.append((label, e, f, pkt, planes))
+        piped = pipe.encode_stream(frames)
+        launches, plain = path_counts("ffv2", ("pvq", "lap_pre", "lap_post"))
+    finally:
+        pipe.close()
+    n_q = FFV2_FRAMES * 2 + 1              # the q-path frames, pipelined too
+    want = dict(pvq=n_q, lap_pre=2 * (n_q + 1), lap_post=2 * len(cases))
+    got_counts = {k: launches[k] for k in want}
+    if got_counts != want:
+        raise AssertionError(f"ffv2: launches {got_counts}, expected {want}")
+    if piped != [c[3] for c in cases[:FFV2_FRAMES]]:
+        raise AssertionError("ffv2: the pipelined packets differ from the "
+                             "sequential ones")
+    psnr = {}
+    for label, e, f, pkt, planes in cases:
+        if pkt != e.encode_host(f):
+            raise AssertionError(f"ffv2 {label}: packet differs from "
+                                 "encode_host's")
+        for a, b in zip(planes, dec.decode_host(pkt)):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"ffv2 {label}: the card decode "
+                                     "differs from decode_host")
+        mx = (1 << e.fmt.bits) - 1
+        err = np.mean([np.mean((a.astype(np.float64) - b) ** 2)
+                       for a, b in zip(planes, f)])
+        psnr[label] = round(10 * np.log10(mx * mx / max(err, 1e-12)), 3)
+        if not 10 < psnr[label] < 99:        # finite, not noise
+            raise AssertionError(f"ffv2 {label}: PSNR {psnr[label]} dB")
+    sizes = {c[0]: len(c[3]) for c in cases}
+    log(f"phase 18: ffv2 {W}x{H} qp {qp}: {json.dumps(sizes)} bytes, every "
+        "packet byte-identical to encode_host and every card decode equal "
+        f"to decode_host; PSNR (dB) {json.dumps(psnr)}; pipelined (depth 2) "
+        f"packets equal the sequential ones; launches {got_counts}, plain "
+        f"calls {sum(plain.values())}")
+    log(f"phase 18: whole frames (ms, host clock): encode "
+        f"{[round(v, 2) for v in enc_ms]}, decode "
+        f"{[round(v, 2) for v in dec_ms]} ({[c[0] for c in cases]}) "
+        f"[{card}]")
+    return launches, dict(encode_stages=enc_stages, decode_stages=dec_stages,
+                          encode_ms=enc_ms, decode_ms=dec_ms,
+                          cases=[c[0] for c in cases], packet_bytes=sizes,
+                          psnr_db=psnr, transforms=tx)
+
+
 class Phase:
     """Logs a phase's wall seconds when its block ends."""
 
@@ -1495,6 +1692,10 @@ def main() -> int:
         launches["capture"], conversions = conversion_checks(
             frames, range_cfg, card)
 
+    # 18. FFV2: K18, K19, the transforms, then its main path
+    with Phase(18):
+        launches["ffv2"], ffv2 = ffv2_checks(kernels, card)
+
     for k in kernels.values():
         k["launches"] = launches[k["path"]][k["kernel"]]
         k["launches_by_path"] = {label: launches[label][k["kernel"]]
@@ -1506,10 +1707,10 @@ def main() -> int:
              "rac_lanes_rice", "sort",
              "rowsort", "roll", "rowcx", "transpose", "probe_scalar_extract",
              "probe_scalar_in_ds", "probe_big_prefetch", "probe_roll_dynamic",
-             "probe_taa_rows"]
+             "probe_taa_rows", "pvq", "lap_pre", "lap_post"]
     print(json.dumps({"kernels": [kernels[n] for n in order],
-                      "batch": batch, "conversions": conversions}),
-          flush=True)
+                      "batch": batch, "conversions": conversions,
+                      "ffv2": ffv2}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,4 +1,5 @@
-"""ffmpeg_ffv2_tpu_torch -- the FFV1 device encoder on PyTorch and CUDA.
+"""ffmpeg_ffv2_tpu_torch -- the FFV1 device encoder and the FFV2 codec on
+PyTorch and CUDA.
 
 A port of the JAX/TPU package ``ffmpeg_ffv2_tpu`` to PyTorch on NVIDIA
 Hopper GPUs.  It imports neither jax nor ``ffmpeg_ffv2_tpu``: the host
@@ -15,5 +16,11 @@ ladder; ``encode_batch`` runs B key frames through K1-K4 as B x S slices.
 PyTorch, held against the numpy models of ``convert.yuv_rgb``).
 ``ops.sort_rows`` is the bitonic row sort (K8, K9), and ``tools/`` holds
 the counterparts of the repository's Pallas tools (K10-K17) and of
-``tools/bench_batch_scale.py``.
+``tools/bench_batch_scale.py``.  ``ffv2/`` is the FFV2 transform codec:
+``ffv2.native.NativeFFV2Encoder``, ``PipelinedFFV2Encoder`` and
+``NativeFFV2Decoder`` run its device front and back (``ffv2.device``: the
+lapped filters on K19, the float64 transforms, the PVQ quantizer on K18)
+around the native Daala coder.
 """
+
+__version__ = "0.1.0"      # the JAX package's; FFV2's debug OSD prints it

@@ -7,9 +7,12 @@ runtime's slice CRC, which the port's encoders put in their trailers
 
 The C++ FFV1 codec (``native/ffv1_runtime.cpp``, a copy of the JAX
 package's runtime) is the port's byte-exactness oracle: the same bitstream
-as the scalar Python oracle, slice-threaded.  It builds with g++ on first
-use into ``build/native/<hash>/`` at the root of the checkout, keyed by a
-hash of the source and the flags.
+as the scalar Python oracle, slice-threaded.  It links into one library
+with the FFV2 runtime (``native/ffv2_runtime.cpp``, bound by
+``ffv2/native.py``), as the JAX package's ``native/Makefile`` links the
+two.  The library builds with g++ on first use into
+``build/native/<hash>/`` at the root of the checkout, keyed by a hash of
+the sources and the flags.
 """
 
 from __future__ import annotations
@@ -26,7 +29,8 @@ import numpy as np
 from .params import FFV1Params
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG, "native", "ffv1_runtime.cpp")
+_SRC = [os.path.join(_PKG, "native", f)
+        for f in ("ffv1_runtime.cpp", "ffv2_runtime.cpp")]
 _BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "native")
 _CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-pthread"]
 
@@ -63,8 +67,9 @@ class FFV1ParamsC(ctypes.Structure):
 
 def library_path() -> str:
     h = hashlib.sha256(" ".join(_CXX_FLAGS).encode())
-    with open(_SRC, "rb") as f:
-        h.update(f.read())
+    for src in _SRC:
+        with open(src, "rb") as f:
+            h.update(f.read())
     return os.path.join(_BUILD_ROOT, h.hexdigest()[:16], "libffv1rt.so")
 
 
@@ -78,7 +83,7 @@ def build() -> str:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
     try:
-        res = subprocess.run(["g++", *_CXX_FLAGS, "-o", tmp, _SRC],
+        res = subprocess.run(["g++", *_CXX_FLAGS, "-o", tmp, *_SRC],
                              capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError("g++ failed:\n" + res.stdout + res.stderr)

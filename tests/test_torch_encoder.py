@@ -84,7 +84,8 @@ def test_torch_encoder_runs_plain_versions_on_cpu():
     no kernel launches (so no CUDA build is needed); between them the
     range path (K2 or K6), the Golomb-Rice path and the hybrid lane
     coder's encoder reach every kernel but the row sort's and the tools'
-    (K8-K17, on no encoder path)."""
+    (K8-K17, on no encoder path) and FFV2's (K18, K19: on no FFV1
+    path)."""
     w, h = 32, 24
     reached = set()
     for coder, emission in ((1, False), (1, True), (0, False), (1, None)):
@@ -101,8 +102,9 @@ def test_torch_encoder_runs_plain_versions_on_cpu():
         reached.update(enc.kernels)
     off_path = {name for name, k in _build.KERNELS.items()
                 if k.source.rsplit("/", 1)[1] in ("sort.cu", "prims.cu",
-                                                  "probes.cu")}
-    assert len(off_path) == 10
+                                                  "probes.cu", "ffv2_quant.cu",
+                                                  "ffv2_lap.cu")}
+    assert len(off_path) == 13
     assert reached == set(_build.KERNELS) - off_path
 
 

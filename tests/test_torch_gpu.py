@@ -3,8 +3,9 @@ PyTorch version, and the encoder's packets equal NativeFFV1Codec's (the
 port's own copy), for the range and the Golomb-Rice coder, deep and RGB
 formats, shape banks, the emission_pack kernel and the emission-order walk
 (K6), and for encode_batch; the row sort (K8, K9) and the tool kernels
-(K10-K17) equal their plain versions, and the device conversions equal
-their numpy models.
+(K10-K17) equal their plain versions, the device conversions equal
+their numpy models, and FFV2's K18 and K19 equal their plain versions and
+a 1080p FFV2 packet and its decode equal the host path's.
 
 Needs an NVIDIA GPU and nvcc; skips itself elsewhere.  The machine with
 the card has no jax, so run this file without the repository's
@@ -881,3 +882,73 @@ def test_torch_gpu_conversions_match_numpy_models():
         sc, sd = pa.plane_context_diff(pa._wrap16(torch.as_tensor(
             pl.astype(np.int32), device="cuda")), qt, 8, False)
         assert torch.equal(fc, sc) and torch.equal(fd, sd)
+
+
+def _ffv2_frame(w, h, planes, depth, seed):
+    """Moving ramps plus seeded noise, as chip_smoke.py's FFV2 phase."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    mx = (1 << depth) - 1
+    return [np.clip((xx * (p + 2) + yy * 3) * (mx + 1) // (4 * w + 3 * h)
+                    + rng.randint(-30, 30, (h, w)), 0, mx).astype(np.int32)
+            for p in range(planes)]
+
+
+@pytest.mark.parametrize("forward", [True, False])
+def test_torch_gpu_ffv2_lap_matches_plain(forward):
+    """K19 on whole planes (pre: horizontal then vertical; post: the
+    reverse) == its plain version, on Q12 content and on hostile int32
+    with INT_MIN / INT_MAX."""
+    from ffmpeg_ffv2_tpu_torch.ffv2 import device as dv
+    rng = np.random.RandomState(forward)
+    for c in (rng.randint(-2600, 2600, (3, 192, 320)),
+              rng.randint(-2 ** 31, 2 ** 31, (2, 128, 256), dtype=np.int64)):
+        c = c.astype(np.int32)
+        c[0, :4] = -2 ** 31
+        c[-1, -4:] = 2 ** 31 - 1
+        dev = torch.as_tensor(c, device="cuda")
+        _build.reset_counts()
+        dv.lap_frame(dev, 64, forward)
+        torch.cuda.synchronize()
+        k = _build.KERNELS["lap_pre" if forward else "lap_post"]
+        assert k.launches == 2 and k.plain_calls == 0
+        plain = dv.lap_frame(torch.as_tensor(c), 64, forward)
+        assert torch.equal(dev.cpu(), plain)
+
+
+@pytest.mark.parametrize("n,qp", [(64, 16), (64, 31), (32, 8), (8, 1)])
+def test_torch_gpu_ffv2_pvq_matches_plain(n, qp):
+    """K18 (dc, pulses, split sums) == its plain version on a frame's
+    streams and on bands with ties and zeros."""
+    from ffmpeg_ffv2_tpu_torch.ffv2 import device as dv
+    from ffmpeg_ffv2_tpu_torch.ffv2 import dsp
+    x = np.stack(_ffv2_frame(128, 128, 3, 8, n))
+    streams = dv.encode_front(x, 8, n=n, device="cpu")
+    streams[0, 1:] = 7                          # every position tied
+    streams[1, 1:] = 0                          # zero bands
+    streams[2, 1::2] = -3
+    bands = dsp.band_starts(n)
+    got = dv.quantize_t(torch.as_tensor(streams, device="cuda"), qp, bands,
+                        n)
+    ref = dv.quantize_plain(torch.as_tensor(streams), qp, bands, n)
+    for a, b in zip(got, ref):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_torch_gpu_ffv2_1080p_packet_matches_host():
+    """A 1080p yuv444p qp-16 frame through the card (K19, float64
+    transforms, K18) == encode_host's packet; the card decode ==
+    decode_host."""
+    from ffmpeg_ffv2_tpu_torch.ffv2 import FFV2Config
+    from ffmpeg_ffv2_tpu_torch.ffv2.native import (NativeFFV2Decoder,
+                                                   NativeFFV2Encoder)
+    w, h = 1920, 1080
+    frame = _ffv2_frame(w, h, 3, 8, 1)
+    enc = NativeFFV2Encoder(w, h, "yuv444p", FFV2Config(qp=16))
+    _build.reset_counts()
+    pkt = enc.encode(frame)
+    assert [_build.KERNELS[k].launches for k in ("pvq", "lap_pre")] == [1, 2]
+    assert pkt == enc.encode_host(frame)
+    dec = NativeFFV2Decoder(w, h)
+    for a, b in zip(dec.decode(pkt), dec.decode_host(pkt)):
+        assert np.array_equal(a, b)
