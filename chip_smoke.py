@@ -115,7 +115,22 @@ per frame and their wall seconds:
    through PipelinedFFV2Encoder(depth=2); K18 once a frame, K19 twice an
    encode and twice a decode; every packet byte-identical to the port's
    host path (encode_host) of the same frame, every card decode equal to
-   decode_host, the pipelined packets equal to the sequential ones.
+   decode_host, the pipelined packets equal to the sequential ones;
+19. the multi-device encoders (parallel/) as worlds of ranks that share
+   the card (parallel.world.spawn_world): a gloo world of 4 ranks on a
+   (2, 2) mesh, two lanes (lane 1's frames phase 3's rolled 7 columns):
+   1080p yuv420p range, FFV1Config(level=3, coder=1, slices=30,
+   gop_size=3), 3 frames (15 slices a rank), rice 2 frames, and 720x486
+   yuv422p10 at 24 slices (two shape banks of 12, 6 a rank) 2 frames;
+   then a 1-rank NCCL world on the range frames; every packet of every
+   lane equal to the single-device port's (timed on one rank) and the
+   native codec's and decoded losslessly, each rank's path kernels
+   launched and no plain version run; then a gloo world of 2 ranks:
+   the SB-banded FFV2 front of a 3840x2160 yuv444p qp-16 frame (34 SB
+   rows padded, 17 a rank) equal to encode_front_q, and its packet
+   through encode(front_q=) equal to encode() and encode_host(), K18 and
+   K19 launched on each rank.  Each world's transport, step ms by rank
+   (host clock) beside encode() on one rank, and the gathers' ms.
 
 The launch counts of a path are reset just before its frames and read just
 after (in phase 14, around each case's one call of its op). The line
@@ -131,7 +146,9 @@ K5: the live cells a lane walks) at the cycles a link measured in phase
 1) and the time of one
 PyTorch call computing the same function where there is one; beside the
 kernels, ``batch`` (phase 16's rows), ``conversions`` (phase 17's
-times) and ``ffv2`` (phase 18's stage times, frame times, transforms).
+times), ``ffv2`` (phase 18's stage times, frame times, transforms) and
+``parallel`` (phase 19's worlds: transports, step, gather and stage ms
+by rank, launches by rank).
 The last line is {"ok": true, "device": {...}}. Any failure raises and
 exits non-zero without those lines. Exits non-zero at once
 when torch sees no CUDA device.
@@ -1239,11 +1256,11 @@ FFV2_QP = 16                # bench.py's FFV2 qp
 FP64_FLOPS = 67e12          # H100 SXM FP64 tensor-core peak, data sheet
 
 
-def synth_ffv2_frames(n, depth, planes=3, seed=4):
+def synth_ffv2_frames(n, depth, planes=3, seed=4, w=None, h=None):
     """Moving sawtooth ramps (a plane's slope its own) plus seeded noise
     whose amplitude grows across four column bands (0 at the left), so a
-    frame codes a mix of smooth and busy superblocks."""
-    w, h = W, H
+    frame codes a mix of smooth and busy superblocks; W x H unless given."""
+    w, h = w or W, h or H
     rng = np.random.RandomState(seed)
     yy, xx = np.mgrid[0:h, 0:w]
     mx = (1 << depth) - 1
@@ -1416,6 +1433,223 @@ def ffv2_checks(out, card, device="cuda") -> tuple:
                           encode_ms=enc_ms, decode_ms=dec_ms,
                           cases=[c[0] for c in cases], packet_bytes=sizes,
                           psnr_db=psnr, transforms=tx)
+
+
+PAR_UHD = (3840, 2160)       # phase 19's FFV2 frame: 34 SB rows padded
+PAR_REPS = 4                 # its front's calls, the first cold
+
+
+def _compact(frame, bits=8):
+    """Planes in their sample width (uint8 / uint16): what a world's ranks
+    are sent."""
+    dt = np.uint8 if bits <= 8 else np.uint16
+    return [np.ascontiguousarray(pl, dtype=dt) for pl in frame]
+
+
+def _shifted(frames, dx=7):
+    """Lane 1's frames: lane 0's, every plane rolled dx columns."""
+    return [[np.roll(pl, dx, axis=1) for pl in fr] for fr in frames]
+
+
+def _rank_counts(label, results, kernels):
+    """Each rank's launch counts after its part of the main path: every
+    kernel of ``kernels`` launched, no plain version run."""
+    for r in results:
+        if r is None:
+            continue
+        missing = [k for k in kernels if r["launches"][k] <= 0]
+        if missing or any(r["plain"].values()):
+            raise AssertionError(
+                f"{label}: rank {r['rank']} launched {r['launches']} with "
+                f"plain calls {r['plain']} (kernels {list(kernels)})")
+    return [{k: r["launches"][k] for k in kernels} for r in results if r]
+
+
+def _world_ffv1_checks(label, results, case, card, device):
+    """One FFV1 case of a world against the single-device port (timed on
+    this process, one rank's worth: encode() of the same frames) and the
+    native codec, and its lossless decode; returns the case's numbers."""
+    from ffmpeg_ffv2_tpu_torch.ffv1.device_coder import DeviceFFV1Encoder
+    from ffmpeg_ffv2_tpu_torch.ffv1.native import NativeFFV1Codec
+    r0 = results[0]
+    for r in results:
+        if r["digests"] != r0["digests"]:
+            raise AssertionError(f"{label}: rank {r['rank']}'s packets "
+                                 "differ from rank 0's")
+    lanes = case["lanes"]
+    one_ms = []
+    for b, frames in enumerate(lanes):
+        frames = [[pl.astype(np.int32) for pl in fr] for fr in frames]
+        enc = DeviceFFV1Encoder(case["width"], case["height"],
+                                case["pix_fmt"], case["cfg"], device=device)
+        nat, dec = NativeFFV1Codec(enc.p), NativeFFV1Codec(enc.p)
+        gop = case["cfg"].gop_size
+        for t, fr in enumerate(frames):
+            key = gop == 0 or t % gop == 0
+            t0 = time.perf_counter()
+            pkt = enc.encode(fr)
+            one_ms.append((time.perf_counter() - t0) * 1e3)
+            got = r0["packets"][t][b]
+            if got != pkt or got != nat.encode(fr, key):
+                raise AssertionError(f"{label} lane {b} frame {t}: the "
+                                     "sharded packet differs from the "
+                                     "single-device port's or the native "
+                                     "codec's")
+            for a, x in zip(dec.decode(got), fr):
+                if not np.array_equal(a, x):
+                    raise AssertionError(f"{label} lane {b} frame {t}: "
+                                         "decode is not lossless")
+    counts = _rank_counts(label, results, r0["kernels"])
+    frame_ms = [[round(x, 2) for x in r["frame_ms"]] for r in results]
+    gather_ms = [[round(st["gather"], 2) for st in r["stage_ms"]]
+                 for r in results]
+    log(f"phase 19: {label}: {len(results)} rank(s) "
+        f"({results[0]['transport']}"
+        f", mesh ({len(lanes)}, {len(results) // len(lanes)})), "
+        f"{len(lanes)} lanes x {len(r0['packets'])} frames "
+        f"{case['width']}x{case['height']} {case['pix_fmt']} "
+        f"({case['cfg'].slices} slices, coder {case['cfg'].coder}, "
+        f"{r0['units']} shape bank(s)): every packet equal to the "
+        f"single-device port's and the native codec's, decoded losslessly; "
+        f"launches by rank {counts}, plain calls 0")
+    log(f"phase 19: {label}: step ms by rank (host clock; every lane's "
+        f"frame a step) {frame_ms}, of which the gathers {gather_ms}; "
+        f"encode() of the same frames on one rank "
+        f"{[round(x, 2) for x in one_ms]} [{card}]")
+    return dict(ranks=len(results), lanes=len(lanes),
+                transport=results[0]["transport"], frame_ms=frame_ms,
+                gather_ms=gather_ms, stage_ms=[r["stage_ms"] for r in
+                                               results],
+                single_device_ms=one_ms, launches=counts)
+
+
+def parallel_checks(frames, card, device="cuda", nccl="nccl") -> tuple:
+    """Phase 19: the sharded encoders (parallel/) as worlds of ranks that
+    share this card (parallel.world.spawn_world; ``device`` "cpu" and
+    ``nccl`` "gloo" in a CPU rehearsal).  FFV1: a gloo world of 4 ranks on
+    a (2, 2) mesh (1080p yuv420p range 3 frames and rice 2 on two lanes,
+    lane 1 shifted; 720x486 yuv422p10 in two shape banks, 2 frames), then
+    a 1-rank NCCL world on the range frames; FFV2: a gloo world of 2
+    ranks, the SB-banded front of a 3840x2160 yuv444p frame and its packet
+    through encode(front_q=).  Returns (the path's launches summed over
+    the ranks, by path; the phase's numbers)."""
+    from functools import reduce
+    from ffmpeg_ffv2_tpu_torch.ffv1.params import FFV1Config
+    from ffmpeg_ffv2_tpu_torch.ffv2 import FFV2Config, dsp
+    from ffmpeg_ffv2_tpu_torch.ffv2 import device as dv
+    from ffmpeg_ffv2_tpu_torch.ffv2.native import NativeFFV2Encoder
+    from ffmpeg_ffv2_tpu_torch.parallel.world import run_cases, spawn_world
+    w, h = frames[0][0].shape[::-1]
+    lane0 = [_compact(fr) for fr in frames[:3]]
+    lanes = [lane0, _shifted(lane0)]
+    sd = [_compact(fr, 10) for fr in synth_sd_frames(2, *SD)]
+    base = dict(kind="ffv1", mesh=(2, 2), pix_fmt="yuv420p", width=w,
+                height=h)
+    ffv1 = {
+        "range": dict(base, lanes=lanes,
+                      cfg=FFV1Config(level=3, coder=1, slices=30,
+                                     gop_size=3)),
+        "rice": dict(base, lanes=[x[:2] for x in lanes],
+                     cfg=FFV1Config(level=3, coder=0, slices=30,
+                                    gop_size=3)),
+        "sd banks": dict(base, width=SD[0], height=SD[1],
+                         pix_fmt="yuv422p10", lanes=[sd, _shifted(sd)],
+                         cfg=FFV1Config(level=3, coder=1, slices=24,
+                                        slicecrc=1, gop_size=3)),
+    }
+    cases = [dict(c, name=k) for k, c in ffv1.items()]
+    out, launches = {}, {}
+
+    def total(results):
+        return reduce(lambda a, r: {k: a.get(k, 0) + v for k, v in
+                                    r["launches"].items()},
+                      [r for r in results if r], {})
+
+    t0 = time.perf_counter()
+    res = spawn_world(run_cases, 4, "gloo", 600, cases, device)
+    world_s = time.perf_counter() - t0
+    for i, c in enumerate(cases):
+        rs = [r[i] for r in res]
+        out[c["name"]] = _world_ffv1_checks(f"parallel {c['name']}", rs, c,
+                                            card, device)
+        launches[f"parallel {c['name']}"] = total(rs)
+    out["gloo_world_s"] = world_s
+    log(f"phase 19: the 4-rank gloo world: {world_s:.1f} s wall, spawn "
+        f"and process-group start included [{card}]")
+
+    one = dict(ffv1["range"], name="range nccl", mesh=(1, 1),
+               lanes=lanes[:1])
+    t0 = time.perf_counter()
+    rs = [r[0] for r in spawn_world(run_cases, 1, nccl, 300, [one], device)]
+    out["range nccl"] = _world_ffv1_checks("parallel range nccl", rs, one,
+                                           card, device)
+    out["range nccl"]["world_s"] = time.perf_counter() - t0
+    launches["parallel range nccl"] = total(rs)
+
+    # FFV2: the 3840x2160 front banded over 2 ranks (17 SB rows each)
+    uw, uh = PAR_UHD
+    qp = FFV2_QP
+    frame = _compact(synth_ffv2_frames(1, 8, w=uw, h=uh)[0])
+    enc = NativeFFV2Encoder(uw, uh, "yuv444p", FFV2Config(qp=qp), device)
+    padded = enc._pad(frame).astype(np.uint8)
+    bands = list(dsp.band_starts(dsp.SB_SIZE))
+    fcases = [dict(kind="ffv2", name="front", mesh=(1, 2), planes=padded,
+                   depth=8, qp=qp, reps=PAR_REPS),
+              dict(kind="ffv2", name="packet", mesh=(1, 2), packet=True,
+                   width=uw, height=uh, pix_fmt="yuv444p", qp=qp,
+                   planes=frame, reps=2)]
+    t0 = time.perf_counter()
+    res = spawn_world(run_cases, 2, "gloo", 300, fcases, device)
+    world_s = time.perf_counter() - t0
+    one_ms = []
+    for _ in range(PAR_REPS):
+        t0 = time.perf_counter()
+        ref = dv.encode_front_q(padded, 8, qp, bands, device=device)
+        one_ms.append((time.perf_counter() - t0) * 1e3)
+    front, packet = ([r[i] for r in res] for i in range(2))
+    for rs in (front, packet):
+        if any(r["digest"] != rs[0]["digest"] for r in rs):
+            raise AssertionError(f"ffv2 {rs[0]['name']}: the ranks' results "
+                                 "differ")
+    if not all(np.array_equal(a, b) for a, b in zip(front[0]["result"],
+                                                     ref)):
+        raise AssertionError("ffv2: the sharded front differs from "
+                             "encode_front_q")
+    enc_ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        pkt = enc.encode(frame)
+        enc_ms.append((time.perf_counter() - t0) * 1e3)
+    if packet[0]["result"] != pkt or pkt != enc.encode_host(frame):
+        raise AssertionError("ffv2: the packet through the sharded front "
+                             "differs from encode() or encode_host()")
+    counts = _rank_counts("parallel ffv2", front + packet,
+                          ("pvq", "lap_pre"))
+    launches["parallel ffv2"] = total(front + packet)
+    stages = [{k: round(v, 2) for k, v in r["stage_ms"].items()}
+              for r in front]
+    log(f"phase 19: parallel ffv2: 2 ranks ({front[0]['transport']}), "
+        f"{uw}x{uh} yuv444p qp {qp} ({padded.shape[1] // dsp.SB_SIZE} SB "
+        f"rows, {padded.shape[1] // dsp.SB_SIZE // 2} a rank): the sharded "
+        "front equals encode_front_q on every array, its packet equals "
+        f"encode() and encode_host() ({len(pkt)} bytes); launches by rank "
+        f"{counts}, plain calls 0")
+    log(f"phase 19: parallel ffv2: the sharded front's ms by rank (host "
+        f"clock, {PAR_REPS} calls, the first cold) "
+        f"{[[round(x, 2) for x in r['ms']] for r in front]}, the last's "
+        f"stages {stages}; encode_front_q on one rank "
+        f"{[round(x, 2) for x in one_ms]}; the packet through the sharded "
+        f"front {[[round(x, 2) for x in r['ms']] for r in packet]}, "
+        f"encode() {[round(x, 2) for x in enc_ms]}; world {world_s:.1f} s "
+        f"wall [{card}]")
+    out["ffv2"] = dict(ranks=2, transport=front[0]["transport"],
+                       front_ms=[r["ms"] for r in front],
+                       front_stage_ms=[r["stage_ms"] for r in front],
+                       single_device_front_ms=one_ms,
+                       packet_ms=[r["ms"] for r in packet],
+                       encode_ms=enc_ms, launches=counts,
+                       world_s=world_s)
+    return launches, out
 
 
 class Phase:
@@ -1696,6 +1930,11 @@ def main() -> int:
     with Phase(18):
         launches["ffv2"], ffv2 = ffv2_checks(kernels, card)
 
+    # 19. the sharded encoders: worlds of ranks sharing this card
+    with Phase(19):
+        by_path, parallel = parallel_checks(frames, card)
+        launches.update(by_path)
+
     for k in kernels.values():
         k["launches"] = launches[k["path"]][k["kernel"]]
         k["launches_by_path"] = {label: launches[label][k["kernel"]]
@@ -1710,7 +1949,7 @@ def main() -> int:
              "probe_taa_rows", "pvq", "lap_pre", "lap_post"]
     print(json.dumps({"kernels": [kernels[n] for n in order],
                       "batch": batch, "conversions": conversions,
-                      "ffv2": ffv2}), flush=True)
+                      "ffv2": ffv2, "parallel": parallel}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

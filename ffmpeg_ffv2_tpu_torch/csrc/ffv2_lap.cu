@@ -12,7 +12,9 @@
 // slab samples into registers, runs the 32-tap lifting there (every array
 // index a constant once the loops unroll) and stores the slab back in
 // place.  The slabs of two boundaries do not overlap while sb >= 32, so
-// the threads of a launch write disjoint words.  A launch filters one
+// the threads of a launch write disjoint words; a launch that crosses one
+// boundary (the sharded front's 32-row halo slabs, sb = 16) may take sb
+// down to 16.  A launch filters one
 // direction; the prefilter is the horizontal launch (across vertical
 // boundaries, along rows) then the vertical one, the postfilter the
 // reverse, one after the other on one stream.  In the vertical launch a
@@ -144,9 +146,13 @@ __global__ void __launch_bounds__(THREADS)
 template <bool FWD>
 cudaError_t launch(int* c, int P, int H, int W, int sb, int vertical,
                    cudaStream_t stream) {
-  if (sb < RADIUS || P < 0 || H < 0 || W < 0) return cudaErrorInvalidValue;
+  if (sb < HALF || P < 0 || H < 0 || W < 0) return cudaErrorInvalidValue;
   const int extent = vertical ? H : W;
   const int nb = extent > 0 ? (extent - 1) / sb : 0;
+  // every slab inside the extent, and two slabs apart (a halo's 32-row
+  // slab has one boundary at sb = 16)
+  if ((nb > 1 && sb < RADIUS) || (nb > 0 && nb * sb + HALF > extent))
+    return cudaErrorInvalidValue;
   const int lines = vertical ? W : H;
   const long long total = (long long)P * nb * lines;
   if (total > 0)

@@ -326,6 +326,18 @@ def grow_layout(rows: int, tiles: int, caps: dict) -> None:
         max(rows + 2048, caps["cellrows"] + 1), caps["cellrows_max"])
 
 
+def shape_banks(crop_plan) -> list:
+    """The slice ids of each shape bank of a frame's crop plan
+    (``host.build_crop_plan``), banks in order of their first slice: the
+    slices whose rects have equal (w, h) in every plane.  A uniform
+    geometry has one bank of every slice."""
+    groups = {}
+    for si in range(len(crop_plan[0])):
+        sig = tuple((prects[si][2], prects[si][3]) for prects in crop_plan)
+        groups.setdefault(sig, []).append(si)
+    return list(groups.values())
+
+
 # the kernels each path's frame launches (chip_smoke.py and the card tests
 # check that a path went through all of its kernels)
 RANGE_KERNELS = ("place", "adapt", "emission_pack", "expand", "rac_render")
@@ -405,18 +417,14 @@ class DeviceFFV1Encoder:
         if slice_subset is None:
             # the batched stream layout needs one slice shape: a
             # non-uniform geometry splits into banks of equal shapes
-            groups = {}
-            for si in range(p.slice_count):
-                sig = tuple((prects[si][2], prects[si][3])
-                            for prects in full_plan)
-                groups.setdefault(sig, []).append(si)
+            groups = shape_banks(full_plan)
             if len(groups) > 1:
                 self.banks = [
                     DeviceFFV1Encoder(width, height, pix_fmt, self.cfg,
                                       device=device,
                                       emission_order=emission_order,
                                       params=p, slice_subset=g)
-                    for g in groups.values()]
+                    for g in groups]
                 self.extradata = self.banks[0].extradata
                 return
             slice_subset = range(p.slice_count)

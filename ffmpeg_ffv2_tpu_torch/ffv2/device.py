@@ -186,15 +186,57 @@ def lap_dir_plain(c: torch.Tensor, sb: int, forward: bool,
             c[..., x0 - h:x0 + h] = filt[i]
 
 
+def _check_slabs(extent: int, sb: int) -> None:
+    """Raise unless the slabs [b - 16, b + 16) of the boundaries b = sb, 2
+    sb, ... below ``extent`` lie inside it and are disjoint: two slabs
+    meet where sb < 32 and a direction crosses two boundaries or more (a
+    halo's 32-row slab, sb = 16, has one boundary)."""
+    h = LAP_RADIUS // 2
+    nb = (extent - 1) // sb if extent > 0 else 0
+    if nb > 1 and sb < LAP_RADIUS:
+        raise ValueError(f"lap: sb {sb} < {LAP_RADIUS} makes the slabs of "
+                         "two boundaries overlap")
+    if nb and (sb < h or nb * sb + h > extent):
+        raise ValueError(f"lap: a boundary's slab leaves the extent {extent} "
+                         f"at sb {sb}")
+
+
+def _lap_launch(k, c: torch.Tensor, sb: int, vertical: bool) -> None:
+    """One K19 launch on CUDA planes ``c`` [P, H, W], unless the direction
+    crosses no boundary."""
+    P, H, W = c.shape
+    extent, lines = (H, W) if vertical else (W, H)
+    if P * lines * ((extent - 1) // sb if extent else 0):
+        k.launch(c.data_ptr(), P, H, W, sb, int(vertical),
+                 _build.stream_handle(c))
+
+
+def lap_dir(c: torch.Tensor, sb: int, forward: bool,
+            vertical: bool) -> torch.Tensor:
+    """One direction of the lapped filter (``_jx_frame_ver`` when
+    ``vertical``, else ``_jx_frame_hor``) on int32 planes ``c`` [P, H, W],
+    in place, and returned: K19 (one ``lap_pre`` / ``lap_post`` launch)
+    for a CUDA tensor, ``lap_dir_plain`` for a CPU tensor.  The sharded
+    front (``parallel/ffv2.py``) filters its band and its halo slabs one
+    direction at a time."""
+    _check_slabs(c.shape[-2] if vertical else c.shape[-1], sb)
+    k = _build.KERNELS["lap_pre" if forward else "lap_post"]
+    if k.plain_for(c.device):
+        lap_dir_plain(c, sb, forward, vertical)
+        return c
+    k.check("c", c, c.shape, c.device)
+    _lap_launch(k, c, sb, vertical)
+    return c
+
+
 def lap_frame(c: torch.Tensor, sb: int, forward: bool) -> torch.Tensor:
     """The lapped filter across the SB boundaries of int32 planes ``c``
     [P, H, W], in place, and returned: the prefilter (``forward``) is the
     horizontal direction then the vertical, the postfilter the reverse.
     K19 (``lap_pre`` / ``lap_post``, one launch a direction that crosses a
     boundary) for a CUDA tensor, the plain version for a CPU tensor."""
-    if sb < LAP_RADIUS:
-        raise ValueError(f"lap: sb {sb} < {LAP_RADIUS} makes the slabs of "
-                         "two boundaries overlap")
+    _check_slabs(c.shape[-2], sb)
+    _check_slabs(c.shape[-1], sb)
     k = _build.KERNELS["lap_pre" if forward else "lap_post"]
     order = (False, True) if forward else (True, False)
     if k.plain_for(c.device):
@@ -202,12 +244,8 @@ def lap_frame(c: torch.Tensor, sb: int, forward: bool) -> torch.Tensor:
             lap_dir_plain(c, sb, forward, vertical)
         return c
     k.check("c", c, c.shape, c.device)
-    P, H, W = c.shape
     for vertical in order:
-        extent, lines = (H, W) if vertical else (W, H)
-        if P * lines * ((extent - 1) // sb if extent else 0):
-            k.launch(c.data_ptr(), P, H, W, sb, int(vertical),
-                     _build.stream_handle(c))
+        _lap_launch(k, c, sb, vertical)
     return c
 
 

@@ -227,9 +227,14 @@ class NativeFFV2Encoder:
         lib.ffv2rt_enc_golomb(h, self.cfg.qp)
         return h
 
-    def encode(self, planes, mark=dv.no_mark) -> bytes:
+    def encode(self, planes, mark=dv.no_mark, front_q=None) -> bytes:
         """Encode one frame on the session's device; ``mark`` is called
-        after each stage (``device.no_mark``)."""
+        after each stage (``device.no_mark``).  ``front_q`` optionally
+        replaces the device front (``device.encode_front_q``) with a
+        drop-in of the JAX package's contract, ``front_q(padded, depth,
+        qp, bands)`` -> numpy (dc, pulses, igain): the SB-banded
+        ``parallel.ffv2.encode_front_q_sharded``, for one; the packet stays
+        byte-identical.  A split tree (block_size != 64) takes no front."""
         padded = self._pad(planes)
         h = self._open()
         mark("host pad + header")
@@ -240,7 +245,8 @@ class NativeFFV2Encoder:
                 # Q12, lapped prefilter, transform, zigzag, PVQ pulses and
                 # gain split sums on the device: ~1 byte a coefficient
                 # comes down
-                self._code_stage_into(h, self._front_stage(padded, mark))
+                self._code_stage_into(h, self._front_stage(padded, mark,
+                                                           front_q))
                 mark("host Daala coder")
             return self._done(h)
         finally:
@@ -275,16 +281,22 @@ class NativeFFV2Encoder:
         finally:
             lib.ffv2rt_enc_destroy(h)
 
-    def _front_stage(self, padded, mark=dv.no_mark):
+    def _front_stage(self, padded, mark=dv.no_mark, front_q=None):
         """Device stage of the q-path: Q12/lapping/transform/PVQ on the
         device plus the integer-cbrt gain fold on the host — everything up
         to the serial Daala EC.  Returns the (dc, cg, pulses, geometry)
         tuple ``_code_stage_into`` consumes; a pure function of the frame,
         so frames can be staged ahead of the entropy coder."""
         ph, pw = padded.shape[1:]
-        dc, pulses, igain = dv.encode_front_q(
-            padded, self.fmt.bits, self.cfg.qp, list(dsp.band_starts(SB)),
-            device=self.device, mark=mark)
+        bands = list(dsp.band_starts(SB))
+        if front_q is None:
+            dc, pulses, igain = dv.encode_front_q(
+                padded, self.fmt.bits, self.cfg.qp, bands,
+                device=self.device, mark=mark)
+        else:
+            dc, pulses, igain = front_q(padded, self.fmt.bits, self.cfg.qp,
+                                        bands)
+            mark("front_q")
         cg = icbrt_array(np.asarray(igain))
         mark("host icbrt")
         return (np.ascontiguousarray(dc, dtype=np.int64),
@@ -410,17 +422,18 @@ class PipelinedFFV2Encoder:
         finally:
             enc.lib.ffv2rt_enc_destroy(h)
 
-    def encode_stream(self, frames):
+    def encode_stream(self, frames, front_q=None):
         """Encode an iterable of frames; returns packets in order.  Keeps
         at most ``depth`` frames in flight: frame t's EC overlaps frame
-        t+1's device front."""
+        t+1's device front.  ``front_q`` as in
+        ``NativeFFV2Encoder.encode``."""
         enc = self.enc
         if enc.cfg.block_size != SB:
             return [enc.encode(f) for f in frames]
         pend = collections.deque()
         out = []
         for planes in frames:
-            fr = enc._front_stage(enc._pad(planes))
+            fr = enc._front_stage(enc._pad(planes), front_q=front_q)
             pend.append(self.pool.submit(self._code_one, fr))
             while len(pend) >= self.depth:
                 out.append(pend.popleft().result())

@@ -1,0 +1,185 @@
+"""Multi-device FFV1 encoder on torch.distributed: frames in, packets out.
+
+The counterpart of ``ffmpeg_ffv2_tpu/parallel/ffv1.py``.
+``ParallelFFV1Encoder`` runs the port's device FFV1 pipeline on every rank
+of a ("data", "slice") mesh (``slices.make_mesh``):
+
+* the **slice axis** shards FFV1 slices, independent coding units by
+  format design: rank (d, s) encodes the s-th contiguous block of each
+  shape bank's slices with its own ``DeviceFFV1Encoder`` (``slice_subset``)
+  through the port's kernels (range: K1, K2 + emission_pack or K6, K3,
+  K4; Golomb-Rice: K1, K5, the ladder), with no communication; the raw
+  slice payloads then ride one gather over the slice group and one over
+  the data group (``gather_slice_bytes``), and the host lays out the
+  3-byte size and CRC trailers;
+* the **data axis** carries independent streams: lane d encodes its own
+  frame sequence, its coder state carried across frames by the
+  sub-encoders of the ranks (d, *).
+
+Each sub-encoder grows its own caps: the bytes do not depend on them, so
+no collective runs inside the retry loop, and every rank calls the same
+collectives in the same order.  Every packet equals the single-device
+``DeviceFFV1Encoder``'s for the lane's frames.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ffv1.device_coder import DeviceFFV1Encoder, shape_banks
+from ..ffv1.host import build_crop_plan
+from ..ffv1.params import FFV1Config, params_from_config
+from ..ffv1.rice import no_mark
+from .slices import all_gather_cat, gather_slice_bytes
+
+
+class _BankUnit:
+    """One uniform-geometry slice bank on this rank: the sub-encoder of
+    its block of the bank's slices (slice_subset), with its own caps and
+    carried coder state.  A uniform frame has one unit of every slice."""
+
+    def __init__(self, bank_ids, crop_plan, width, height, pix_fmt, cfg, p,
+                 mesh, device, emission_order):
+        n_shards = mesh.shape["slice"]
+        if len(bank_ids) % n_shards:
+            raise ValueError(
+                f"bank of {len(bank_ids)} slices not divisible by "
+                f"slice-axis size {n_shards} (slice shapes "
+                f"{[pr[bank_ids[0]][2:] for pr in crop_plan]})")
+        n = len(bank_ids) // n_shards
+        # shard s's block: what P("slice") gives shard s of the bank's
+        # slice order
+        self.blocks = [list(bank_ids[s * n:(s + 1) * n])
+                       for s in range(n_shards)]
+        self.enc = DeviceFFV1Encoder(width, height, pix_fmt, cfg,
+                                     device=device,
+                                     emission_order=emission_order,
+                                     params=p,
+                                     slice_subset=self.blocks[mesh.s])
+        self.state_shape = (mesh.shape["data"], n_shards,
+                            self.enc.n_chain_rows + 1,
+                            4 if self.enc.golomb else 32)
+
+
+class ParallelFFV1Encoder:
+    """Sharded FFV1 encode over a ("data", "slice") mesh of ranks.
+
+    Parameters
+    ----------
+    width, height, pix_fmt, cfg : like ``DeviceFFV1Encoder``.
+    mesh : this rank's ``slices.Mesh``; every slice bank's count must be
+        divisible by the slice-axis size (uniform frames have one bank of
+        cfg.slices).
+    device : "cuda" (the kernels) by default; "cpu" runs their plain
+        versions (tests).
+    emission_order : K6 in place of K2 and emission_pack, as
+        ``DeviceFFV1Encoder``'s.
+
+    ``encode_batch(frames)`` takes one frame per data lane a call, on
+    every rank; lane d's frames form an independent stream.  All lanes
+    share the keyframe flag a call (aligned GOPs).  Every rank returns
+    every lane's packet.
+    """
+
+    def __init__(self, width: int, height: int, pix_fmt: str,
+                 cfg: FFV1Config, mesh, device="cuda",
+                 emission_order: bool = False):
+        if set(getattr(mesh, "shape", ())) != {"data", "slice"}:
+            raise ValueError('mesh must have axes ("data", "slice")')
+        self.mesh = mesh
+        self.data = int(mesh.shape["data"])
+        self.n_shards = int(mesh.shape["slice"])
+        if cfg.slices % self.n_shards:
+            raise ValueError(
+                f"slices={cfg.slices} not divisible by slice-axis size "
+                f"{self.n_shards}")
+        self.cfg = cfg
+        p = self.p = params_from_config(cfg, pix_fmt, width, height)
+        plan = build_crop_plan(p)
+        self.units = [_BankUnit(ids, plan, width, height, pix_fmt, cfg, p,
+                                mesh, device, emission_order)
+                      for ids in shape_banks(plan)]
+        enc0 = self.units[0].enc
+        self.kernels = enc0.kernels
+        self.extradata = enc0.extradata
+        # the global slice id of each row of a gathered lane: shard s's
+        # blocks, unit by unit
+        self._slice_of = [si for s in range(self.n_shards)
+                          for u in self.units for si in u.blocks[s]]
+        self.picture_number = 0
+
+    # -- codec state ---------------------------------------------------------
+
+    def state(self) -> list:
+        """The carried coder state, one numpy array per unit in the JAX
+        ``_BankUnit._state`` layout: [data, n_shards, chain_rows + 1, 32]
+        uint8 (range) or [..., 4] int32 (Golomb-Rice), chain_rows the rows
+        of one shard's block.  Gathered from every rank of the mesh; every
+        rank calls it."""
+        out = []
+        for u in self.units:
+            t = torch.as_tensor(u.enc.state())
+            parts = all_gather_cat(t[None], self.mesh.group).cpu().numpy()
+            out.append(parts.reshape(u.state_shape))
+        return out
+
+    def load_state(self, tables, picture_number: int):
+        """Continue the lanes' streams from ``tables`` (``state()``'s
+        layout, one array per unit: this package's, or the JAX
+        ``_BankUnit._state``): rank (d, s) takes its slab [d, s]."""
+        if len(tables) != len(self.units):
+            raise ValueError(f"load_state: {len(self.units)} units, got "
+                             f"{len(tables)} tables")
+        d, s = self.mesh.d, self.mesh.s
+        for u, t in zip(self.units, tables):
+            t = np.asarray(t)
+            if t.shape != u.state_shape:
+                raise ValueError(f"load_state: expected {u.state_shape}, "
+                                 f"got {t.shape}")
+            u.enc.load_state(t[d, s], picture_number)
+        self.picture_number = int(picture_number)
+
+    # -- public API ----------------------------------------------------------
+
+    def encode_batch(self, frames, force_keyframe=None,
+                     mark=no_mark) -> list:
+        """Encode one frame per data lane (len(frames) == the mesh's data
+        size; rank (d, *) encodes frames[d]); returns every lane's packet,
+        on every rank, byte-identical to the single-device encoder run per
+        lane.  ``mark`` is called after the local encode, after the
+        gathers and after the packets' assembly."""
+        if len(frames) != self.data:
+            raise ValueError(
+                f"need {self.data} frames (one per data lane), got "
+                f"{len(frames)}")
+        gop = self.cfg.gop_size
+        keyframe = gop == 0 or self.picture_number % gop == 0
+        if force_keyframe is not None:
+            keyframe = bool(force_keyframe)
+        enc0 = self.units[0].enc
+        planes = enc0.upload(frames[self.mesh.d])
+        local = [data for u in self.units
+                 for data in u.enc._encode_frame_data(planes, keyframe)]
+        mark("encode")
+        cap = max(len(x) for x in local)
+        by = np.zeros((len(local), cap), np.uint8)
+        for i, x in enumerate(local):
+            by[i, :len(x)] = np.frombuffer(x, np.uint8)
+        ln = np.array([len(x) for x in local], np.int64)
+        by, ln = gather_slice_bytes(torch.from_numpy(by),
+                                    torch.from_numpy(ln), self.mesh)
+        by, ln = gather_slice_bytes(by, ln, self.mesh, axis="data")
+        by_h, ln_h = by.cpu().numpy(), ln.cpu().numpy()
+        mark("gather")
+        n = len(self._slice_of)
+        pkts = []
+        for d in range(self.data):
+            chunks = [None] * self.p.slice_count
+            for j, si in enumerate(self._slice_of):
+                k = d * n + j
+                chunks[si] = by_h[k, :ln_h[k]].tobytes()
+            pkts.append(enc0._finish_packet(chunks))
+        self.picture_number += 1
+        mark("assemble")
+        return pkts

@@ -4,8 +4,10 @@ port's own copy), for the range and the Golomb-Rice coder, deep and RGB
 formats, shape banks, the emission_pack kernel and the emission-order walk
 (K6), and for encode_batch; the row sort (K8, K9) and the tool kernels
 (K10-K17) equal their plain versions, the device conversions equal
-their numpy models, and FFV2's K18 and K19 equal their plain versions and
-a 1080p FFV2 packet and its decode equal the host path's.
+their numpy models, FFV2's K18 and K19 equal their plain versions and
+a 1080p FFV2 packet and its decode equal the host path's, and the
+multi-device encoder on a 2-rank gloo world sharing the card equals the
+single-device port (``-k parallel``).
 
 Needs an NVIDIA GPU and nvcc; skips itself elsewhere.  The machine with
 the card has no jax, so run this file without the repository's
@@ -952,3 +954,34 @@ def test_torch_gpu_ffv2_1080p_packet_matches_host():
     dec = NativeFFV2Decoder(w, h)
     for a, b in zip(dec.decode(pkt), dec.decode_host(pkt)):
         assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("coder", [1, 0])
+def test_torch_gpu_parallel_matches_single_device(coder):
+    """A 2-rank gloo world on cuda:0 (``parallel.world.spawn_world``):
+    ParallelFFV1Encoder on a (1, 2) mesh, 320x192 yuv420p, 12 slices, key
+    then two inter frames: every packet equals the single-device port's
+    and the native codec's, and each rank launched its path's kernels with
+    no plain call."""
+    from ffmpeg_ffv2_tpu_torch.parallel.world import run_cases, spawn_world
+    w, h = 320, 192
+    cfg = FFV1Config(level=3, coder=coder, slices=12, slicecrc=1)
+    p = params_from_config(cfg, "yuv420p", w, h)
+    rng = np.random.RandomState(11)
+    frames = [_frame(p, w, h, t, rng, True) for t in range(3)]
+    keys = [True, False, False]
+    case = dict(kind="ffv1", name="gpu", mesh=(1, 2), width=w, height=h,
+                pix_fmt="yuv420p", cfg=cfg, lanes=[frames], keyframes=keys)
+    res = [r[0] for r in spawn_world(run_cases, 2, "gloo", 300, [case],
+                                     "cuda")]
+    enc = dc.DeviceFFV1Encoder(w, h, "yuv420p", cfg, device="cuda")
+    nat = NativeFFV1Codec(p)
+    for t, key in enumerate(keys):
+        want = enc.encode(frames[t], force_keyframe=key)
+        assert want == nat.encode(frames[t], key)
+        assert res[0]["packets"][t][0] == want, t
+    for r in res:
+        assert r["digests"] == res[0]["digests"]
+        assert r["transport"] == "gloo"
+        assert all(r["launches"][k] > 0 for k in enc.kernels), r["launches"]
+        assert not any(r["plain"].values()), r["plain"]

@@ -103,7 +103,9 @@ def test_torch_port_imports_without_jax():
         "'ffv1.tpu_encoder', 'ffv1.twopass', 'ops.sort', "
         "'tools.microbench_sort', 'tools.microbench_prims', 'tools.probes', "
         "'ffv2.codec', 'ffv2.device', 'ffv2.dsp', 'ffv2.entropy', "
-        "'ffv2.native', 'ffv2.osd', 'ffv2.pvq', 'ffv2.tables'):\n"
+        "'ffv2.native', 'ffv2.osd', 'ffv2.pvq', 'ffv2.tables', "
+        "'parallel.slices', 'parallel.ffv1', 'parallel.ffv2', "
+        "'parallel.world'):\n"
         "    assert 'ffmpeg_ffv2_tpu_torch.' + m in names, m\n"
         "assert not any(m.split('.')[0] in ('jax', 'ffmpeg_ffv2_tpu') "
         "for m, v in sys.modules.items() if v is not None)\n"
