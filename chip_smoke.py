@@ -12,8 +12,8 @@ per frame and their wall seconds:
 1. the build of the CUDA kernels from csrc/ (one nvcc per source, all
    started together), of the native C++ FFV1 codec, the oracle (g++), and
    of tools/latency.cu, whose chains give the SM cycles a link of K4's
-   (and K7's) coder step, of K2's table lookup and of K5's row on this
-   card;
+   (and K7's) coder step, of K2's table lookup, of K5's row, of the
+   ladder's climb and of a level of K18's argmax on this card;
 2. range, 1920x1080 yuv420p, FFV1Config(level=3, coder=1, slices=30): K1-K4
    and emission_pack each against its plain PyTorch version on the card, on
    the inputs frame 0 gives it (K2 and K4 plain versions on a stated cut:
@@ -25,8 +25,10 @@ per frame and their wall seconds:
    equal the native codec's and decode back to the input exactly, K1-K4
    and emission_pack must have launched and no plain version may have run;
 4. Golomb-Rice, the same frames with coder=0: K5 (vlc) against its plain
-   version (on a cut) and the ladder kernel against its plain loop (on the
-   frame's events), K1 again on the rice cells, and the stage times;
+   version (on a cut) and the ladder kernels (chunk maps, carries,
+   replay: one launcher call) against their plain loop (on the frame's
+   events), with their device time and their chain beside the serial
+   walk's, K1 again on the rice cells, and the stage times;
 5. Golomb-Rice: 8 frames through encode(), checked as in phase 3, with K1,
    K5 and the ladder kernel launched and no plain version run;
 6. rgb48 1920x1080 (16-bit RGB film scans), FFV1Config(level=3, coder=1,
@@ -105,7 +107,9 @@ per frame and their wall seconds:
    encode_batch at B = 3, every packet equal to the native codec's on
    the numpy model's planes;
 18. FFV2 (ffv2/native.py): K18 (pvq) against its plain version on every
-   (row, band) of a 1920x1080 yuv444p frame 0 at FFV2Config(qp=16), K19
+   (row, band) of a 1920x1080 yuv444p frame 0 at FFV2Config(qp=16), with
+   its device time and each class of band lengths timed alone (one
+   launch a class), K19
    (lap_pre, lap_post) against theirs on the whole frame, the float64
    transforms timed, the encode and decode stage times (CUDA events);
    then, counts reset: 3 frames of 1080p yuv444p qp 16 (moving ramps and
@@ -143,7 +147,9 @@ longest dependent chain at one step per SM clock, and for K2, K4-K7
 the work's longest chain of dependent links (K4: the longest slice's
 steps; K7: the lanes' steps; K2, K6: the lookups a slot's hits need;
 K5: the live cells a lane walks) at the cycles a link measured in phase
-1) and the time of one
+1; for the ladder and K18 also the device time of their kernels alone,
+which a sleep kernel ahead of the timed call keeps free of host work) and
+the time of one
 PyTorch call computing the same function where there is one; beside the
 kernels, ``batch`` (phase 16's rows), ``conversions`` (phase 17's
 times), ``ffv2`` (phase 18's stage times, frame times, transforms) and
@@ -753,6 +759,8 @@ def rice_checks(out, inputs, clock_mhz, cycles, bits=8, suffix="",
     from ffmpeg_ffv2_tpu_torch.ffv1 import rice
     from ffmpeg_ffv2_tpu_torch.ffv1 import vlc
     from ffmpeg_ffv2_tpu_torch.tools import latency
+    from ffmpeg_ffv2_tpu_torch import _build
+    from ffmpeg_ffv2_tpu_torch.tools.kernel_times import device_ms
     pb = rice.rice_pb(bits)
 
     k5 = inputs["k5"]
@@ -795,7 +803,11 @@ def rice_checks(out, inputs, clock_mhz, cycles, bits=8, suffix="",
 
     # the ladder: kernel and plain loop on frame 0's events, each lane
     # walked as far as its event count; bound: per event its count and
-    # three flags read and its index written, plus the counts
+    # three flags read and its index written, plus the counts; chains: a
+    # lane's events one after the other (the serial walk), and the chunked
+    # kernels' (a chunk's climbs in its map, the lookups of the carries,
+    # a chunk's climbs in the replay) at the measured cycles of a climb
+    # and of a lookup
     kl = inputs["kl"]
     n_ev = kl[4]
     L, E = kl[0].shape
@@ -803,13 +815,25 @@ def rice_checks(out, inputs, clock_mhz, cycles, bits=8, suffix="",
     got = rice.run_index_scan(*kl)
     ref, plain_ms = cuda_ms_once(lambda: rice.run_index_scan_plain(*kl))
     err = max_abs_err([got[live_ev]], [ref[live_ev]])
-    events = int(n_ev.sum())
+    events, longest = int(n_ev.sum()), int(n_ev.max())
+    C = _build.load().ffv2_ladder_chunk()
+    carries = max(-(-longest // C) - 1, 0)
+    walk = min(C, longest)
+    climb, lookup = cycles[latency.LADDER_CLIMB], cycles[latency.LOOKUP]
     entry(out, "ladder", path, err,
           cuda_ms(lambda: rice.run_index_scan(*kl), 5), plain_ms, None,
-          bound(events * (4 + 3 + 4) + L * 4, events * 10, int(n_ev.max()),
+          bound(events * (4 + 3 + 4) + L * 4, events * 10, longest,
                 clock_mhz), key="ladder" + suffix,
+          device_ms=device_ms(lambda: rice.run_index_scan(*kl), 5),
+          device_launches_a_call=_build.device_launches(
+              lambda: rice.run_index_scan(*kl)),
           shape=f"{L} slices, ev_cap {E} slots",
-          events=events, max_events=int(n_ev.max()))
+          events=events, max_events=longest, chunk=C,
+          climb_cycles=climb, lookup_cycles=lookup,
+          serial_chain_latency_ms=longest * climb / (clock_mhz * 1e3),
+          chunked_chain=dict(maps=walk, carries=carries, replay=walk),
+          chunked_chain_latency_ms=((2 * walk * climb + carries * lookup)
+                                    / (clock_mhz * 1e3)))
 
 
 def lanes_checks(out, enc, frame, clock_mhz, cycles):
@@ -1275,14 +1299,16 @@ def synth_ffv2_frames(n, depth, planes=3, seed=4, w=None, h=None):
     return frames
 
 
-def ffv2_checks(out, card, device="cuda") -> tuple:
+def ffv2_checks(out, card, device="cuda", clock_mhz=None,
+                cycles=None) -> tuple:
     """Phase 18: FFV2 through ffv2/native.py at 1080p.  K18 and K19
     against their plain versions on frame 0 (on the card), the transforms
     and the stage times; then the main path with the launch counts reset
     (3 yuv444p frames, 1 gbrp10, 1 yuv444p split tree, each decoded on the
     card, the 3 frames again pipelined), checked against the host paths.
     Returns the path's launch counts and the phase's numbers.  ``device``
-    is the card's, or "cpu" in a rehearsal with the plain versions."""
+    is the card's, or "cpu" in a rehearsal with the plain versions;
+    ``clock_mhz`` and ``cycles`` (phase 1's) give K18's chain bound."""
     import torch
     from ffmpeg_ffv2_tpu_torch import _build
     from ffmpeg_ffv2_tpu_torch.ffv2 import FFV2Config
@@ -1291,6 +1317,9 @@ def ffv2_checks(out, card, device="cuda") -> tuple:
     from ffmpeg_ffv2_tpu_torch.ffv2.native import (NativeFFV2Decoder,
                                                    NativeFFV2Encoder,
                                                    PipelinedFFV2Encoder)
+    from ffmpeg_ffv2_tpu_torch.tools import latency
+    from ffmpeg_ffv2_tpu_torch.tools.kernel_times import (device_ms,
+                                                          pvq_classes)
     n, qp = dsp.SB_SIZE, FFV2_QP
     cfg = FFV2Config(qp=qp)
     frames = synth_ffv2_frames(FFV2_FRAMES, 8)
@@ -1321,8 +1350,12 @@ def ffv2_checks(out, card, device="cuda") -> tuple:
         ref, plain_ms = cuda_ms_once(lambda: plain_lap(src.clone(), forward))
         scratch = src.clone()
         ms = cuda_ms(lambda: dv.lap_frame(scratch, n, forward), 5)
+        k = _build.KERNELS[key]
+        before = k.launches
+        dv.lap_frame(scratch, n, forward)
         entry(out, key, "ffv2", max_abs_err([got], [ref]), ms, plain_ms,
-              None, lap_bound, launches_a_call=2, lines=lines)
+              None, lap_bound, launches_a_call=k.launches - before,
+              lines=lines)
     streams = dv.encode_front_t(x, 8, n, n)
     bands = dsp.band_starts(n)
     NB = streams.shape[0]
@@ -1333,11 +1366,34 @@ def ffv2_checks(out, card, device="cuda") -> tuple:
     nbands, plen = len(bands) - 1, bands[-1] - bands[0]
     # every (row, band) runs its qp steps (a band of 2 or more positions
     # never runs out of candidates below the qp - 1 cap), about 8 integer
-    # operations (one a division) a position a step
+    # operations a position a step; the chain: qp steps of a warp's
+    # argmax, 5 butterfly levels at the measured cycles of a level (the
+    # positions' scores not counted); the classes as the launcher assigns
+    # them, each timed alone
+    on_card = device != "cpu"
+    level = cycles[latency.K18_LEVEL] if cycles else None
+    by_class = []
+    for items, i, j in (pvq_classes(bands) if on_card else ()):
+        sub = bands[i:j + 1]
+        by_class.append(dict(
+            bands=list(range(i, j)),
+            lengths=[b - a for a, b in zip(sub, sub[1:])],
+            positions_a_lane=items,
+            ms=cuda_ms(lambda: dv.quantize_t(streams, qp, sub, n), 5),
+            bound_ms=bound(0, NB * (sub[-1] - sub[0]) * qp * 8)["bound_ms"]))
     entry(out, "pvq", "ffv2", max_abs_err(got, ref), ms, plain_ms, None,
           bound(NB * (n * n * 4 + plen + 4 + nbands * 12),
                 NB * plen * qp * 8),
-          rows=NB, bands=nbands, qp=qp)
+          rows=NB, bands=nbands, qp=qp,
+          device_ms=(device_ms(lambda: dv.quantize_t(streams, qp, bands, n),
+                               5) if on_card else None),
+          device_launches_a_call=(_build.device_launches(
+              lambda: dv.quantize_t(streams, qp, bands, n))
+              if on_card else None),
+          argmax_level_cycles=level,
+          chain_latency_ms=(qp * 5 * level / (clock_mhz * 1e3)
+                            if level else None),
+          classes=by_class)
     blocks = dv.blocks_of(pre, n)
     coeffs = dv.tx_batch_t(blocks, dsp.TX_DCT, False)
     tx = {}
@@ -1928,7 +1984,9 @@ def main() -> int:
 
     # 18. FFV2: K18, K19, the transforms, then its main path
     with Phase(18):
-        launches["ffv2"], ffv2 = ffv2_checks(kernels, card)
+        launches["ffv2"], ffv2 = ffv2_checks(kernels, card,
+                                             clock_mhz=clock_mhz,
+                                             cycles=cycles)
 
     # 19. the sharded encoders: worlds of ranks sharing this card
     with Phase(19):

@@ -12,7 +12,10 @@ import every module on machines with no nvcc.
 Each kernel is a :class:`Kernel`: its wrapper calls it only for CUDA
 tensors, and ``launches`` counts the launches that the launcher accepted.
 ``plain_calls`` counts the wrapper's calls that took the plain PyTorch
-version, which it does only for CPU tensors.
+version, which it does only for CPU tensors.  The library also answers a
+few plain C queries (``_QUERIES``): the ladder's scratch size and chunk,
+K18's class of a band length, and the device launches that the launchers
+of several kernels made (``device_launches``).
 """
 
 from __future__ import annotations
@@ -36,9 +39,16 @@ LIB_NAME = "libffv2_torch_kernels.so"
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+I64 = ctypes.c_longlong
 
 _lock = threading.Lock()
 _lib = None
+# the library's plain C queries: (symbol, argtypes, restype)
+_QUERIES = (("ffv2_kernel_launches", [], I64),
+            ("ffv2_ladder_scratch_bytes", [I, I], I64),
+            ("ffv2_ladder_chunk", [], I),
+            ("ffv2_pvq_class_of", [I], I),
+            ("ffv2_pvq_class_items", [I], I))
 
 
 def _sources() -> list[str]:
@@ -107,6 +117,10 @@ def load() -> ctypes.CDLL:
             lib = ctypes.CDLL(build())
             lib.ffv2_error_string.argtypes = [I]
             lib.ffv2_error_string.restype = ctypes.c_char_p
+            for name, args, res in _QUERIES:
+                fn = getattr(lib, name)
+                fn.argtypes = args
+                fn.restype = res
             for k in KERNELS.values():
                 fn = getattr(lib, k.symbol)
                 fn.argtypes = k.argtypes
@@ -188,7 +202,7 @@ KERNELS = {k.name: k for k in (
     Kernel("vlc", "ffv2_vlc", [P, P, P, P, P, P, I, I, I, I, P, P, P],
            "ffmpeg_ffv2_tpu_torch/csrc/vlc.cu",
            "ffmpeg_ffv2_tpu/ffv1/device_rice.py:448"),
-    Kernel("ladder", "ffv2_ladder", [P, P, P, I, I, P, P],
+    Kernel("ladder", "ffv2_ladder", [P, P, P, P, P, I, I, P, P, I64, P],
            "ffmpeg_ffv2_tpu_torch/csrc/ladder.cu",
            "ffmpeg_ffv2_tpu/ffv1/device_rice.py:124 (a lax.scan; no Pallas "
            "counterpart)"),
@@ -242,6 +256,15 @@ KERNELS = {k.name: k for k in (
            "ffmpeg_ffv2_tpu_torch/csrc/probes.cu",
            "tools/probe_mosaic.py:99"),
 )}
+
+
+def device_launches(fn) -> int:
+    """The kernel launches that the multi-kernel launchers (ladder, pvq)
+    made while fn() ran, as the library counts them."""
+    lib = load()
+    before = lib.ffv2_kernel_launches()
+    fn()
+    return lib.ffv2_kernel_launches() - before
 
 
 def reset_counts() -> None:

@@ -6,9 +6,11 @@ interleaved per line, one run-index ladder per slice): ``plan_runs_plane``,
 ``build_rice_streams``, ``VLC_INIT``, ``vlc_code_word``, ``vlc_update``,
 ``build_vlc_s0``, ``writeback_vlc``, ``ladder_step``, ``run_index_scan``,
 ``ladder_fields``, ``rice_elements`` and ``assemble_bits``.  Plain torch,
-except ``run_index_scan``, which launches the CUDA kernel
+except ``run_index_scan``, which launches the CUDA kernels of
 ``csrc/ladder.cu`` on CUDA tensors and runs the sequential loop
-``run_index_scan_plain`` on CPU tensors.
+``run_index_scan_plain`` on CPU tensors.  ``run_index_scan_chunked_plain``
+is the kernels' algorithm (chunk maps, carries, replay) in plain torch,
+for the tests.
 
 Semantics (ffv1enc_template.c:46-76 run mode, put_vlc_symbol, the
 bitstream.c log2 run ladder): a pixel in run mode with a zero residual is
@@ -33,6 +35,14 @@ LOG2_RUN_T = np.asarray(LOG2_RUN, np.int32)                  # (41,)
 LADDER_P = np.concatenate(
     [[0], np.cumsum(1 << LOG2_RUN_T.astype(np.int64))]).astype(np.int32)
 VLC_INIT = np.array([0, 4, 0, 1], np.int32)  # drift, error_sum, bias, count
+# the ladder kernels' climb: for t < LADDER_SMALL (= P[24]) one entry
+# k | P[k] << 6 | P[max(k - 1, 0)] << 16, k the largest j with P[j] <= t
+LADDER_SMALL = int(LADDER_P[24])
+_K_SMALL = (np.searchsorted(LADDER_P, np.arange(LADDER_SMALL), side="right")
+            - 1).astype(np.int32)
+LADDER_TABLE = (_K_SMALL | LADDER_P[_K_SMALL] << 6
+                | LADDER_P[np.maximum(_K_SMALL - 1, 0)] << 16).astype(np.int32)
+LADDER_CHUNK = 128      # run_index_scan_chunked_plain's default chunk
 
 _K_LADDER = _build.KERNELS["ladder"]
 
@@ -227,6 +237,75 @@ def run_index_scan_plain(ev_count, ev_flush, ev_valid, ev_reset, n_ev):
     return out
 
 
+def ladder_climb(c, fl, i, pi):
+    """The ladder kernels' step (``csrc/ladder.cu`` ``climb``), elementwise:
+    the state (i, pi = P[i]) after an event of count ``c`` (clamped to
+    [0, 2^26]) and flags ``fl`` (bit 0 flush, 1 valid, 2 reset).  The
+    climb is one table entry below P[24] = 540 and the closed form k = 16
+    + floor(log2(t - 284)) past it (P[j] = 284 + 2^(j - 16) for j >= 24),
+    capped at 40."""
+    tab = torch.as_tensor(LADDER_TABLE, device=c.device)
+    t = c + torch.where((fl & 4) != 0, 0, pi)
+    e = tab[torch.clamp(t, max=LADDER_SMALL - 1).long()]
+    log2 = torch.frexp(torch.clamp(t - 284, min=1).double())[1] - 1
+    kb = torch.clamp(16 + log2, max=40).to(I32)
+    big = t >= LADDER_SMALL
+    k = torch.where(big, kb, e & 63)
+    pk = torch.where(big, 284 + (1 << (kb - 16).clamp(min=0)),
+                     (e >> 6) & 1023)
+    pk1 = torch.where(big, torch.where(kb > 24,
+                                       284 + (1 << (kb - 17).clamp(min=0)),
+                                       412), e >> 16)
+    keep = (fl & 1) != 0
+    valid = (fl & 2) != 0
+    ni = torch.where(keep, k, torch.clamp(k - 1, min=0))
+    npi = torch.where(keep, pk, pk1)
+    return torch.where(valid, ni, i), torch.where(valid, npi, pi)
+
+
+def run_index_scan_chunked_plain(ev_count, ev_flush, ev_valid, ev_reset,
+                                 n_ev, chunk: int = LADDER_CHUNK):
+    """``csrc/ladder.cu``'s algorithm in plain torch, for the tests: each
+    lane's first n_ev events cut into chunks of ``chunk``; (1) each chunk
+    but the last as a map of the 41 start states (a walk of each), (2)
+    the maps applied in order to index 0, each chunk's carry-in, (3) each
+    chunk replayed from its carry-in.  Every step is ``ladder_climb``.
+    Same arguments and result as ``run_index_scan`` (slots at or past
+    n_ev unspecified: 0 here)."""
+    L, E = ev_count.shape
+    dev = ev_count.device
+    nch = max(-(-E // chunk), 1)
+    pad = nch * chunk - E
+    live = (torch.arange(E, device=dev)[None, :]
+            < n_ev.clamp(0, E)[:, None])
+    c = torch.where(live, ev_count.clamp(0, 1 << 26), 0).to(I32)
+    fl = ((ev_flush.to(I32) | ev_valid.to(I32) << 1 | ev_reset.to(I32) << 2)
+          * live)
+    c = torch.nn.functional.pad(c, (0, pad)).reshape(L, nch, chunk)
+    fl = torch.nn.functional.pad(fl, (0, pad)).reshape(L, nch, chunk)
+    P = torch.as_tensor(LADDER_P, device=dev)
+    # 1. chunk maps: (L, nch, 41) end state of each start state
+    s = torch.arange(41, dtype=I32, device=dev).expand(L, nch, 41)
+    i, pi = s.clone(), P[s.long()]
+    for p in range(chunk):
+        i, pi = ladder_climb(c[:, :, p, None], fl[:, :, p, None], i, pi)
+    maps = i
+    # 2. carries: each chunk's index on entry
+    carry = torch.zeros((L, nch), dtype=I32, device=dev)
+    for k in range(1, nch):
+        carry[:, k] = maps[:, k - 1].gather(
+            1, carry[:, k - 1, None].long())[:, 0]
+    # 3. replay from the carries
+    i, pi = carry, P[carry.long()]
+    out = torch.zeros((L, nch, chunk), dtype=I32, device=dev)
+    for p in range(chunk):
+        f = fl[:, :, p]
+        out[:, :, p] = torch.where((f & 6) == 6, 0, i)
+        i, pi = ladder_climb(c[:, :, p], f, i, pi)
+    out = out.reshape(L, nch * chunk)[:, :E]
+    return torch.where(live, out, 0)
+
+
 def run_index_scan(ev_count, ev_flush, ev_valid, ev_reset, n_ev):
     """The run index each event climbs from (after its plane's reset).
 
@@ -236,7 +315,9 @@ def run_index_scan(ev_count, ev_flush, ev_valid, ev_reset, n_ev):
     one below it otherwise (ffv1enc_template.c:60-64).  n_ev: (L,) int32,
     each lane's number of events (at most E counted); the walk stops
     there and the entries at or past it are unspecified.  Launches
-    ``csrc/ladder.cu`` on CUDA tensors; returns (L, E) int32."""
+    ``csrc/ladder.cu`` on CUDA tensors (one launcher call, one count on
+    the kernel: three device launches, the chunk maps, the carries and
+    the replay); returns (L, E) int32."""
     dev = ev_count.device
     L, E = ev_count.shape
     _K_LADDER.check("ev_count", ev_count, (L, E), dev)
@@ -247,11 +328,14 @@ def run_index_scan(ev_count, ev_flush, ev_valid, ev_reset, n_ev):
     if _K_LADDER.plain_for(dev):
         return run_index_scan_plain(ev_count, ev_flush, ev_valid, ev_reset,
                                     n_ev)
-    flags = (ev_flush.to(I32) | (ev_valid.to(I32) << 1)
-             | (ev_reset.to(I32) << 2))
     out = torch.empty((L, E), dtype=I32, device=dev)
-    _K_LADDER.launch(ev_count.data_ptr(), flags.data_ptr(), n_ev.data_ptr(),
-                     L, E, out.data_ptr(), _build.stream_handle(ev_count))
+    nbytes = _build.load().ffv2_ladder_scratch_bytes(L, E)
+    scratch = torch.empty((max(nbytes, 1),), dtype=torch.uint8, device=dev)
+    _K_LADDER.launch(ev_count.data_ptr(), ev_flush.data_ptr(),
+                     ev_valid.data_ptr(), ev_reset.data_ptr(),
+                     n_ev.data_ptr(), L, E, out.data_ptr(),
+                     scratch.data_ptr(), nbytes,
+                     _build.stream_handle(ev_count))
     return out
 
 

@@ -1,11 +1,11 @@
 """CUDA-event times of the range path's kernels K4 (rac_render), K2
 (adapt), emission_pack, K6 (adapt_emission), K3 (expand) and K1 (place),
-of K1 and K5 (vlc) on the Golomb-Rice path, and of K7 (rac_lanes, the
-hybrid lane coder), at the main path's shapes, for the checkout at
-``--root``:
+of K1, K5 (vlc) and the ladder on the Golomb-Rice path, of K7 (rac_lanes,
+the hybrid lane coder) and of FFV2's K18 (pvq), at the main path's
+shapes, for the checkout at ``--root``:
 
     python3 ffmpeg_ffv2_tpu_torch/tools/kernel_times.py [--root DIR]
-        [--cases range,rgb48,bgr0_v4,rice,rice16,rice_bgr0,lanes]
+        [--cases range,rgb48,bgr0_v4,rice,rice16,rice_bgr0,lanes,ffv2]
 
 ``--root`` (default: this checkout) is the root of a checkout of the
 repository, whose ``ffmpeg_ffv2_tpu_torch`` and ``chip_smoke.py`` are
@@ -26,7 +26,18 @@ K5 on frame 0 of 1080p yuv420p (``coder=0``; ``rice`` with K1 too), of
 the same frame in 16 bits (``yuv420p16``, x << 8 | x, the params forced
 to Golomb-Rice: pb = 16; ``rice16``) and of 1080p bgr0 (``chip_smoke.synth_rgb_frames``, coding
 depth 9; ``rice_bgr0``); ``lanes`` times K7 on the lane matrices that
-``TPUCoderFFV1Encoder`` (``coder=1``) plans for yuv420p frame 0.  For
+``TPUCoderFFV1Encoder`` (``coder=1``) plans for yuv420p frame 0.  The
+``rice`` and ``rice16`` cases also time the ladder (``run_index_scan``)
+on frame 0's events, with the device time of each kernel and torch op of
+one call, and ``rice16`` the whole frame: ``encode()`` of frame 0 as an
+inter frame after a key frame, ``FRAME_REPS`` times (host clock).  ``ffv2`` times K18 (``quantize_t``) on the streams of
+``chip_smoke.synth_ffv2_frames`` frame 0 (1920x1080 yuv444p, qp
+``chip_smoke.FFV2_QP``, 64x64 blocks): every band, then each run of
+bands of one class (``pvq_classes``, where the checkout's library names
+the classes) alone, with the device time of one
+call, and each class's device time (``device_ms``) at each qp of
+``QP_SWEEP`` (at qp 0 only the set-up runs: loads, sums, stores; each
+step adds one pulse search).  For
 K1 and K3 it also prints the device time of each kernel and torch op
 that one wrapper call runs (``torch.profiler``, ms a call by name), and
 the layout stage and K1 together (the encoder's own ``front``
@@ -47,12 +58,56 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 
 REPS = 9                    # timed runs a kernel, after a warm-up
 LAYOUT_REPS = 101           # timed runs of the layout stage and K1
+FRAME_REPS = 7              # timed inter frames of the rice16 case
+QP_SWEEP = (0, 1, 2, 4, 8, 16, 32)
+
+
+def device_ms(fn, reps: int) -> float:
+    """Median device time of fn()'s kernels over reps runs, after one
+    warm-up: a sleep kernel (~1 ms) keeps the card busy while the host
+    enqueues the start event, fn()'s launches and the stop event, so the
+    span between the events holds fn()'s kernels and none of its host
+    work or launch latency."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    times.sort()
+    return times[len(times) // 2]
 CASES = ("range", "rgb48", "bgr0_v4", "rice", "rice16", "rice_bgr0",
-         "lanes")
+         "lanes", "ffv2")
+
+
+def pvq_classes(bands) -> list:
+    """K18's classes of band lengths as its launcher assigns them (the
+    library's ``ffv2_pvq_class_of``), as runs of consecutive bands:
+    [(positions a lane, first band, last band + 1)]."""
+    from ffmpeg_ffv2_tpu_torch import _build
+    lib = _build.load()
+    runs = []
+    for i, (a, b) in enumerate(zip(bands, bands[1:])):
+        c = lib.ffv2_pvq_class_of(b - a)
+        if c < 0:
+            raise ValueError(f"K18 refuses a band of {b - a} positions")
+        if runs and runs[-1][0] == c:
+            runs[-1] = (c, runs[-1][1], i + 1)
+        else:
+            runs.append((c, i, i + 1))
+    return [(lib.ffv2_pvq_class_items(c), i, j) for c, i, j in runs]
 
 
 def main() -> int:
@@ -78,6 +133,7 @@ def main() -> int:
     from ffmpeg_ffv2_tpu_torch.ffv1 import expand as ex
     from ffmpeg_ffv2_tpu_torch.ffv1 import host
     from ffmpeg_ffv2_tpu_torch.ffv1 import rac
+    from ffmpeg_ffv2_tpu_torch.ffv1 import rice
     from ffmpeg_ffv2_tpu_torch.ffv1 import vlc
     from ffmpeg_ffv2_tpu_torch.ffv1.params import (CODER_GOLOMB, FFV1Config,
                                                    params_from_config)
@@ -147,6 +203,16 @@ def main() -> int:
         rows = cs.chain_rows(k5[1].tolist(), k5[3].tolist())
         return dict(code_bits=enc.code_bits, k5_ms=ms, chain_rows=rows,
                     k5_ns_a_row=ms * 1e6 / rows)
+
+    def ladder_fields(inputs):
+        kl = inputs["kl"]
+        n_ev = kl[4]
+        sp = split(lambda: rice.run_index_scan(*kl))
+        return dict(ladder_ms=cs.cuda_ms(lambda: rice.run_index_scan(*kl),
+                                         REPS),
+                    ladder_device_ms=sum(sp.values()), ladder_split=sp,
+                    ladder_events=int(n_ev.sum()),
+                    ladder_max_events=int(n_ev.max()))
 
     def pack_fields(walk, n_words, fill):
         """The packing of K2's slot words of ``walk`` into ``n_words``
@@ -220,6 +286,7 @@ def main() -> int:
                                cfg, yuv)
         print(json.dumps(dict(card=card, root=root, pix="yuv420p",
                               coder="rice", **k5_fields(enc, inputs),
+                              **ladder_fields(inputs),
                               **k1_fields(enc, inputs, yuv))), flush=True)
         del enc, inputs
     if "rice16" in todo:
@@ -229,9 +296,18 @@ def main() -> int:
         deep = [x << 8 | x for x in yuv]
         enc, inputs = cs.probe("kernel_times rice16", "yuv420p16", cs.W,
                                cs.H, cfg, deep, params=p16)
+        enc.encode(deep, force_keyframe=True)
+        frame_ms = []
+        for _ in range(FRAME_REPS):
+            t0 = time.perf_counter()
+            enc.encode(deep)
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
         print(json.dumps(dict(card=card, root=root, pix="yuv420p16",
-                              coder="rice", **k5_fields(enc, inputs))),
-              flush=True)
+                              coder="rice", **k5_fields(enc, inputs),
+                              **ladder_fields(inputs),
+                              inter_frame_ms=frame_ms,
+                              inter_frame_median_ms=sorted(frame_ms)[
+                                  FRAME_REPS // 2])), flush=True)
         del enc, inputs
     if "rice_bgr0" in todo:
         rgb = cs.synth_rgb_frames(1)[0]
@@ -252,6 +328,37 @@ def main() -> int:
                               coder="hybrid range", k7_ms=ms,
                               k7_steps=steps, k7_lanes=lanes,
                               k7_ns_a_step=ms * 1e6 / steps)), flush=True)
+    if "ffv2" in todo:
+        from ffmpeg_ffv2_tpu_torch.ffv2 import FFV2Config
+        from ffmpeg_ffv2_tpu_torch.ffv2 import device as dv
+        from ffmpeg_ffv2_tpu_torch.ffv2 import dsp
+        from ffmpeg_ffv2_tpu_torch.ffv2.native import NativeFFV2Encoder
+        n, qp = dsp.SB_SIZE, cs.FFV2_QP
+        enc = NativeFFV2Encoder(cs.W, cs.H, "yuv444p", FFV2Config(qp=qp),
+                                "cuda")
+        x = dv.upload(enc._pad(cs.synth_ffv2_frames(1, 8)[0]), 8, "cuda")
+        streams = dv.encode_front_t(x, 8, n, n)
+        bands = dsp.band_starts(n)
+        sp = split(lambda: dv.quantize_t(streams, qp, bands, n))
+        classes = []
+        # a checkout whose library cannot name K18's classes (before its
+        # class query) is timed as a whole call only
+        labelled = hasattr(_build.load(), "ffv2_pvq_class_of")
+        for items, i, j in pvq_classes(bands) if labelled else ():
+            sub = bands[i:j + 1]
+            classes.append(dict(
+                bands=list(range(i, j)), positions_a_lane=items,
+                ms=cs.cuda_ms(lambda: dv.quantize_t(streams, qp, sub, n),
+                              REPS),
+                device_ms_by_qp={q: device_ms(lambda: dv.quantize_t(
+                    streams, q, sub, n), REPS) for q in QP_SWEEP}))
+        print(json.dumps(dict(
+            card=card, root=root, pix="yuv444p", coder="ffv2", qp=qp,
+            rows=int(streams.shape[0]),
+            k18_ms=cs.cuda_ms(lambda: dv.quantize_t(streams, qp, bands, n),
+                              REPS),
+            k18_device_ms=sum(sp.values()), k18_split=sp,
+            k18_classes=classes)), flush=True)
     return 0
 
 

@@ -11,7 +11,14 @@
 //   3  K5's row, vlc.cu's chain_row (copied below) on inputs that differ
 //      from link to link (16 rows of a table in shared memory, live and
 //      not): bias -> the folded value -> drift + v, halved by a flag -> the
-//      drift tests -> the selects of bias and drift.
+//      drift tests -> the selects of bias and drift;
+//   4  the ladder's climb (csrc/ladder.cu's climb, copied below) on counts
+//      and flags that differ from link to link: the table entry of t =
+//      count + P[i] (or the closed form past it), the selects of the next
+//      index and its P;
+//   5  one level of K18's argmax butterfly (csrc/ffv2_quant.cu, the order
+//      without division): three shuffles, two 64-bit products, the
+//      compares and the selects.
 // Built and run by tools/latency.py; not a kernel of any encoder path.
 
 #include <cuda_runtime.h>
@@ -42,13 +49,55 @@ __device__ __forceinline__ int chain_row(int4 p, int half, int count,
   return (int)((unsigned)(u - hm) << 2) | (sgn & 2) | (int)live;
 }
 
+// ladder.cu's climb (with its 540-entry table in shared memory).
+__device__ __forceinline__ void climb(const int* tab, int c, int fl, int& i,
+                                      int& pi) {
+  const int t = c + ((fl & 4) ? 0 : pi);
+  const int e = tab[min(t, 539)];
+  const int kb = min(47 - __clz(max(t - 284, 1)), 40);
+  const bool big = t >= 540;
+  const int k = big ? kb : (e & 63);
+  const int pk = big ? 284 + (1 << (kb - 16)) : ((e >> 6) & 1023);
+  const int pk1 = big ? (kb > 24 ? 284 + (1 << (kb - 17)) : 412) : (e >> 16);
+  const bool keep = fl & 1;
+  const int ni = keep ? k : max(k - 1, 0);
+  const int np = keep ? pk : pk1;
+  const bool valid = fl & 2;
+  i = valid ? ni : i;
+  pi = valid ? np : pi;
+}
+
+// ffv2_quant.cu's butterfly level on (a, b, i), the order without division.
+__device__ __forceinline__ void argmax_level(int& a, int& b, int& i,
+                                             int off) {
+  const int oa = __shfl_xor_sync(0xffffffffu, a, off);
+  const int ob = __shfl_xor_sync(0xffffffffu, b, off);
+  const int oi = __shfl_xor_sync(0xffffffffu, i, off);
+  const long long cl = (long long)oa * b, cr = (long long)a * ob;
+  if (cl > cr || (cl == cr && oi < i)) {
+    a = oa;
+    b = ob;
+    i = oi;
+  }
+}
+
 template <int K>
 __global__ void chain(const int* in, int n, long long* cyc, int* sink) {
   __shared__ unsigned char tab[1024];
   __shared__ int4 rows[16];
   __shared__ int words[16][32];
+  __shared__ int ltab[540];
+  __shared__ int2 events[16];
   for (int i = threadIdx.x; i < 1024; i += blockDim.x)
     tab[i] = (unsigned char)(in[i] & 0xFF);
+  // the climb's table entries (any values in range: the chain's cost
+  // does not depend on them) and 16 events: counts below and above 540,
+  // every flag pattern
+  for (int i = threadIdx.x; i < 540; i += blockDim.x)
+    ltab[i] = (in[i] & 15) | (in[i] & 511) << 6 | (in[i + 1] & 511) << 16;
+  if (threadIdx.x < 16)
+    events[threadIdx.x] = make_int2(in[256 + threadIdx.x] & 0x3FFF,
+                                    threadIdx.x & 7);
   // K5's rows: 8-bit values, counts 2..121, three in four live, no halving
   if (threadIdx.x < 16) {
     const int r = in[128 + threadIdx.x];
@@ -59,6 +108,7 @@ __global__ void chain(const int* in, int n, long long* cyc, int* sink) {
   int x = in[threadIdx.x] & 0xFF;
   const int a = in[64] | 1, b = in[65], off = in[66] & 0x100;
   int drift = 0, bias = 0;
+  int li = 0, lpi = 0, ca = x, cb = 1 + (x & 63), ci = threadIdx.x;
   const long long t0 = clock64();
 #pragma unroll 1
   for (int i = 0; i < n; i += 16) {
@@ -75,6 +125,11 @@ __global__ void chain(const int* in, int n, long long* cyc, int* sink) {
         words[u][threadIdx.x] = chain_row(p, 0x80, x, drift, bias);
         x = p.y;
       }
+      if (K == 4) {
+        const int2 ev = events[u];
+        climb(ltab, ev.x, ev.y, li, lpi);
+      }
+      if (K == 5) argmax_level(ca, cb, ci, 1 << (u % 5));
       if (K == 2) {
         x = x * a + b;
         // a loop, so that the block is branched over, not predicated
@@ -85,19 +140,22 @@ __global__ void chain(const int* in, int n, long long* cyc, int* sink) {
   }
   const long long t1 = clock64();
   if (threadIdx.x == 0) cyc[K] = t1 - t0;
-  sink[threadIdx.x] += x + drift + bias + words[threadIdx.x & 15][0];
+  sink[threadIdx.x] += x + drift + bias + words[threadIdx.x & 15][0] + li +
+                       lpi + ca + cb + ci;
 }
 
 }  // namespace
 
-// cyc[0..3]: the cycles of n links of each chain (n a multiple of 16);
+// cyc[0..5]: the cycles of n links of each chain (n a multiple of 16);
 // in: 1024 ints (table bytes, in[64..66] the operands, in[128..143] K5's
-// rows).
+// rows, in[256..271] the ladder's counts).
 extern "C" cudaError_t ffv2_latency(const int* in, int n, long long* cyc,
                                     int* sink, cudaStream_t stream) {
   chain<0><<<1, 32, 0, stream>>>(in, n, cyc, sink);
   chain<1><<<1, 32, 0, stream>>>(in, n, cyc, sink);
   chain<2><<<1, 32, 0, stream>>>(in, n, cyc, sink);
   chain<3><<<1, 32, 0, stream>>>(in, n, cyc, sink);
+  chain<4><<<1, 32, 0, stream>>>(in, n, cyc, sink);
+  chain<5><<<1, 32, 0, stream>>>(in, n, cyc, sink);
   return cudaGetLastError();
 }

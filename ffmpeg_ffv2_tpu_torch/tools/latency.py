@@ -1,6 +1,7 @@
 """SM cycles a link of the dependent chains that bound the serial kernels
 (``latency.cu``): K2's and K6's table lookup, K4's coder step (K7's
-too), a branch on a value just computed, and K5's row.  ``build()``
+too), a branch on a value just computed, K5's row, the ladder's climb and
+a level of K18's argmax butterfly.  ``build()``
 compiles ``latency.cu`` with nvcc into ``build/latency/`` (keyed by its
 source and flags); ``measure()`` runs each chain for 2^14 links in one
 warp and returns the cycles a link by chain.  Needs a CUDA card;
@@ -14,8 +15,8 @@ import os
 import subprocess
 
 CHAINS = ("IADD3 LDS.U8", "IMAD IADD SHF LOP3", "IMAD ISETP BRA",
-          "K5 row")
-LOOKUP, K4_STEP, BRANCH, K5_ROW = CHAINS
+          "K5 row", "ladder climb", "K18 argmax level")
+LOOKUP, K4_STEP, BRANCH, K5_ROW, LADDER_CLIMB, K18_LEVEL = CHAINS
 LINKS = 1 << 14
 
 

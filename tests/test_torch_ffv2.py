@@ -210,8 +210,14 @@ def _band_cases(L, seed):
     return np.stack(rows).astype(np.int32)
 
 
-@pytest.mark.parametrize("L", [15, 33, 129, 513])
-@pytest.mark.parametrize("qp", [1, 8, 31])
+# every band length of n = 4..64 (dsp.band_starts: 16 at n = 4, then 15,
+# 8, 8, 32, 32, 32, 128, 128, 128, 512, 512, 512 and the last band with
+# its phantom position: 33, 129, 513, 2049)
+BAND_LENGTHS = [8, 15, 16, 32, 33, 128, 129, 512, 513, 2049]
+
+
+@pytest.mark.parametrize("L", BAND_LENGTHS)
+@pytest.mark.parametrize("qp", [1, 2, 8, 16, 31, 127])
 def test_torch_ffv2_pvq_plain_matches_jax(L, qp):
     """K18's plain pulse search against ``_pvq_band_device``: ties (equal
     magnitudes), zero bands, two equal maxima, an 18-bit band."""
@@ -219,6 +225,135 @@ def test_torch_ffv2_pvq_plain_matches_jax(L, qp):
     ref = np.asarray(jtpu._pvq_band_device(jtpu.jnp.asarray(band), qp))
     got = dv._pvq_band_plain(torch.from_numpy(band).to(torch.int64), qp)
     assert np.array_equal(got.numpy(), ref)
+
+
+def _jax_beats(a, b, a2, b2):
+    """JAX's pair order (tpu.py:270-274) on int32 scores: 1 where (a, b)
+    beats (a2, b2) on q = a // b, then the int32 cross products r * b2
+    against r2 * b; -1 where it loses; 0 on a tie (the index decides)."""
+    q, q2 = a // b, a2 // b2
+    r, r2 = a - q * b, a2 - q2 * b2
+    c = (r * b2).astype(np.int32).astype(np.int64)       # int32 wrap
+    c2 = (r2 * b).astype(np.int32).astype(np.int64)
+    return np.where(q != q2, np.sign(q - q2), np.sign(c - c2))
+
+
+def _reachable(rng, size):
+    """Score pairs of one pulse step s < 128 under the prescale: a = (xy +
+    ax)^2 with xy <= 255 s, ax < 256; b in [1, (s + 1)^2].  Half of them
+    at the edges (s = 127, xy = 255 s, ax = 255, b = (s + 1)^2)."""
+    s = rng.randint(0, 128, size)
+    s[: size // 2] = 127
+    out = []
+    for _ in range(2):
+        xy = (rng.random_sample(size) * (255 * s + 1)).astype(np.int64)
+        ax = rng.randint(0, 256, size)
+        b = 1 + (rng.random_sample(size) * (s + 1) ** 2).astype(np.int64)
+        edge = rng.random_sample(size) < 0.25
+        xy = np.where(edge, 255 * s, xy)
+        ax = np.where(edge, 255, ax)
+        b = np.where(rng.random_sample(size) < 0.25, (s + 1) ** 2, b)
+        out += [(xy + ax) ** 2, b]
+    return out
+
+
+def test_torch_ffv2_pvq_order_without_division():
+    """K18 compares a / b against a2 / b2 as a * b2 against a2 * b in 64
+    bits, with no division: on the range the prescale and qp <= 128 allow
+    that is JAX's (q, r * b_other) order exactly, and no int32 product in
+    JAX's order wraps (4M seeded pairs, half at the edges)."""
+    rng = np.random.RandomState(17)
+    a, b, a2, b2 = _reachable(rng, 1 << 22)
+    assert a.max() < 1 << 31 and b.max() <= 1 << 14
+    assert ((a % b) * b2).max() < 1 << 31
+    assert np.array_equal(_jax_beats(a, b, a2, b2), np.sign(a * b2 - a2 * b))
+    # equal fractions with other terms: a tie in both orders
+    k = rng.randint(1, 100, 1 << 16)
+    b = rng.randint(1, 163, 1 << 16)
+    a = rng.randint(0, 200000, 1 << 16) * b // b
+    assert not _jax_beats(a * k, b * k, a, b).any()
+
+
+def _pvq_fraction_order(band_abs, qp):
+    """The greedy search of K18's kernel as numpy: JAX's prescale, then each
+    step's winner the largest a / b (compared exactly by cross products
+    in int64), the lowest index among equals; stop with no candidate."""
+    out = []
+    for row in band_abs.astype(np.int64):
+        m = np.float32(max(int(row.max()), 1)).view(np.int32)
+        ax = row >> max((int(m) >> 23) - 126 - 8, 0)
+        y = np.zeros_like(ax)
+        xy = yy = 0
+        for _ in range(qp):
+            cand = y < qp - 1
+            a = np.where(cand, (xy + ax) ** 2, -1)
+            b = np.where(cand, yy + 2 * y + 1, 1)
+            w = int(np.argmax(a / b))
+            while True:
+                key = a * b[w] - a[w] * b
+                if not (key > 0).any():
+                    break
+                w = int(np.flatnonzero(key > 0)[np.argmax(
+                    (a / b)[key > 0])])
+            w = int(np.flatnonzero(key == 0)[0])
+            if a[w] < 0:
+                break
+            y[w] += 1
+            xy += int(ax[w])
+            yy = int(b[w])
+        out.append(y)
+    return np.stack(out)
+
+
+def _pvq_zero_and_list(band_abs, qp):
+    """K18's fast steps as numpy: each step the best position with no pulse
+    is the largest prescaled magnitude (then the lowest index), key ax <<
+    12 | 4095 - p, the positions with pulses a list scored in full, and
+    the winner the better of the two by exact cross products."""
+    out = []
+    for row in band_abs.astype(np.int64):
+        m = np.float32(max(int(row.max()), 1)).view(np.int32)
+        ax = row >> max((int(m) >> 23) - 126 - 8, 0)
+        L = len(ax)
+        y = np.zeros_like(ax)
+        xy = yy = 0
+        for _ in range(qp):
+            best = None                              # (a, b, index)
+            zero = (y == 0) & (qp >= 2)
+            if zero.any():
+                key = np.where(zero, ax << 12 | (4095 - np.arange(L)), -1)
+                p = 4095 - int(key.max() & 4095)
+                best = ((xy + int(ax[p])) ** 2, yy + 1, p)
+            for p in np.flatnonzero((y > 0) & (y < qp - 1)):
+                c = ((xy + int(ax[p])) ** 2, yy + 2 * int(y[p]) + 1, int(p))
+                if best is None or (c[0] * best[1], -c[2]) > (
+                        best[0] * c[1], -best[2]):
+                    best = c
+            if best is None:
+                break
+            y[best[2]] += 1
+            xy += int(ax[best[2]])
+            yy = best[1]
+        out.append(y)
+    return np.stack(out)
+
+
+@pytest.mark.parametrize("L", [15, 129, 2049])
+@pytest.mark.parametrize("qp", [127, 128])
+def test_torch_ffv2_pvq_fraction_order_matches_jax(L, qp):
+    """The search in K18's order (no division) == ``_pvq_band_device`` at
+    the largest qp that order takes: ties, 8-bit maxima everywhere (the
+    largest scores), an 18-bit band (prescaled), zeros; and so does the
+    kernel's way of finding each step's winner in that order (the
+    positions with no pulse by their largest magnitude, the others in
+    full)."""
+    rng = np.random.RandomState(L + qp)
+    band = np.stack([np.full(L, 255), rng.randint(0, 256, L),
+                     rng.randint(0, 1 << 18, L), np.zeros(L, np.int64),
+                     np.r_[255, np.zeros(L - 1, np.int64)]]).astype(np.int32)
+    ref = np.asarray(jtpu._pvq_band_device(jtpu.jnp.asarray(band), qp))
+    assert np.array_equal(_pvq_fraction_order(band, qp), ref)
+    assert np.array_equal(_pvq_zero_and_list(band, qp), ref)
 
 
 def test_torch_ffv2_upload_widens_16_bit_words():

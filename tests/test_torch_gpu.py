@@ -580,6 +580,37 @@ def test_torch_gpu_ladder_matches_plain():
     assert torch.equal(got[live], ref[live])
 
 
+def test_torch_gpu_ladder_chunked_lanes():
+    """The ladder's three kernels (chunk maps, carries, replay) against the
+    per-event loop and the chunked plain version: a 60000-event lane
+    (469 chunks, past one 256-map tile of the carries), a lane of 0
+    events, lanes ending mid-chunk and on a chunk's edge; counts across
+    the climb table's edge and past P[40]; one launch counted."""
+    rng = np.random.RandomState(6)
+    L, E = 6, 60000
+    cnt = rng.randint(0, 700, (L, E))
+    cnt[:, ::97] = rng.randint(530, 560, cnt[:, ::97].shape)
+    cnt[:, ::1009] = 1 << 25
+    cnt = torch.as_tensor(cnt.astype(np.int32))
+    fl = torch.as_tensor(rng.rand(L, E) < 0.2)
+    va = torch.as_tensor(rng.rand(L, E) < 0.95)
+    rs = torch.as_tensor(rng.rand(L, E) < 0.002) & va
+    n_ev = torch.as_tensor(np.array([E, 0, 129, 256, 1, 12345], np.int32))
+    live = torch.arange(E)[None, :] < n_ev[:, None]
+    args = [t.cuda() for t in (cnt, fl, va, rs, n_ev)]
+    _build.reset_counts()
+    got = rice.run_index_scan(*args)
+    torch.cuda.synchronize()
+    k = _build.KERNELS["ladder"]
+    assert k.launches == 1 and k.plain_calls == 0
+    assert _build.device_launches(lambda: rice.run_index_scan(*args)) == 3
+    got = got.cpu()
+    ref = rice.run_index_scan_plain(cnt, fl, va, rs, n_ev)
+    assert torch.equal(got[live], ref[live])
+    chunked = rice.run_index_scan_chunked_plain(cnt, fl, va, rs, n_ev)
+    assert torch.equal(got[live], chunked[live])
+
+
 @pytest.mark.parametrize("pix,wh,level,coder,emission", [
     ("yuv444p16", (96, 64), 3, 1, False), ("gray16", (96, 64), 3, 1, True),
     ("rgb48", (96, 64), 3, 1, False), ("rgb48", (96, 64), 4, 1, True),
@@ -918,23 +949,43 @@ def test_torch_gpu_ffv2_lap_matches_plain(forward):
         assert torch.equal(dev.cpu(), plain)
 
 
-@pytest.mark.parametrize("n,qp", [(64, 16), (64, 31), (32, 8), (8, 1)])
+@pytest.mark.parametrize("n,qp", [(n, qp) for n in (8, 16, 32, 64)
+                                  for qp in (1, 2, 8, 16, 31, 127, 200)])
 def test_torch_gpu_ffv2_pvq_matches_plain(n, qp):
     """K18 (dc, pulses, split sums) == its plain version on a frame's
-    streams and on bands with ties and zeros."""
+    streams and on bands with ties and zeros, over every band class of
+    n = 8..64 (one kernel launch a class), at qp up to 127 (the order
+    without division) and 200 (JAX's division order), and on a band
+    holding INT_MIN (the division order at any qp)."""
     from ffmpeg_ffv2_tpu_torch.ffv2 import device as dv
     from ffmpeg_ffv2_tpu_torch.ffv2 import dsp
+    from ffmpeg_ffv2_tpu_torch.tools.kernel_times import pvq_classes
     x = np.stack(_ffv2_frame(128, 128, 3, 8, n))
     streams = dv.encode_front(x, 8, n=n, device="cpu")
     streams[0, 1:] = 7                          # every position tied
     streams[1, 1:] = 0                          # zero bands
     streams[2, 1::2] = -3
+    streams[3, 1:n * n // 2] = -2 ** 31         # magnitudes that stay < 0
+    streams[4, 1:] = 255                        # the largest fast scores
     bands = dsp.band_starts(n)
-    got = dv.quantize_t(torch.as_tensor(streams, device="cuda"), qp, bands,
-                        n)
+    t = torch.as_tensor(streams, device="cuda")
+    got = dv.quantize_t(t, qp, bands, n)
     ref = dv.quantize_plain(torch.as_tensor(streams), qp, bands, n)
     for a, b in zip(got, ref):
         assert torch.equal(a.cpu(), b)
+    classes = {items for items, _, _ in pvq_classes(bands)}
+    assert (_build.device_launches(lambda: dv.quantize_t(t, qp, bands, n))
+            == len(classes))
+
+
+def test_torch_gpu_ffv2_pvq_refuses_long_band():
+    """K18's classes end at 2080 positions (n = 64's longest band holds
+    2049): a longer band is refused, not launched."""
+    from ffmpeg_ffv2_tpu_torch.ffv2 import device as dv
+    t = torch.zeros((3, 48 * 48), dtype=torch.int32, device="cuda")
+    dv.quantize_t(t, 16, [0, 2080], 48)
+    with pytest.raises(RuntimeError, match="pvq kernel"):
+        dv.quantize_t(t, 16, [0, 2081], 48)
 
 
 def test_torch_gpu_ffv2_1080p_packet_matches_host():
