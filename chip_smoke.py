@@ -110,16 +110,18 @@ per frame and their wall seconds:
    (row, band) of a 1920x1080 yuv444p frame 0 at FFV2Config(qp=16), with
    its device time and each class of band lengths timed alone (one
    launch a class), K19
-   (lap_pre, lap_post) against theirs on the whole frame, the float64
+   (lap_pre, lap_post) against theirs on the whole frame, with its
+   device time alone and its launches a call, the float64
    transforms timed, the encode and decode stage times (CUDA events);
    then, counts reset: 3 frames of 1080p yuv444p qp 16 (moving ramps and
    seeded noise), 1 of gbrp10 (the 16-bit upload), 1 of yuv444p with
    block_size=0 (the split tree: mixed leaf sizes through K19 and the
    transforms), every packet decoded on the card, and the 3 frames again
-   through PipelinedFFV2Encoder(depth=2); K18 once a frame, K19 twice an
-   encode and twice a decode; every packet byte-identical to the port's
-   host path (encode_host) of the same frame, every card decode equal to
-   decode_host, the pipelined packets equal to the sequential ones;
+   through PipelinedFFV2Encoder(depth=2); K18 once a frame, K19 once an
+   encode and once a decode (one launch over its tile table a call);
+   every packet byte-identical to the port's host path (encode_host) of
+   the same frame, every card decode equal to decode_host, the pipelined
+   packets equal to the sequential ones;
 19. the multi-device encoders (parallel/) as worlds of ranks that share
    the card (parallel.world.spawn_world): a gloo world of 4 ranks on a
    (2, 2) mesh, two lanes (lane 1's frames phase 3's rolled 7 columns):
@@ -978,12 +980,13 @@ def sort_tools_checks(out, card) -> dict:
         extra = {k: r[k] for k in (
             "compare_exchanges", "network_substages", "ms_per_pass",
             "library_ms_per_pass", "mode", "W", "Lc", "R", "kernels",
-            "profiled_ms", "profiled_kernels") if k in r}
+            "profiled_ms", "profiled_kernels", "device_ms") if k in r}
         entry(out, name, path, max(x["max_abs_err"] for x in rs), r["ms"],
               r["plain_ms"], r["library_ms"], bnd, shape=r["name"], **extra)
         out[name]["shapes"] = [
             {k: x[k] for k in ("name", "launches", "ms", "profiled_ms",
-                               "plain_ms", "library_ms", "bound_ms",
+                               "device_ms", "plain_ms", "library_ms",
+                               "bound_ms",
                                "max_abs_err", "mode", "W", "Lc", "R",
                                "kernels", "profiled_kernels") if k in x}
             for x in rs]
@@ -1355,7 +1358,10 @@ def ffv2_checks(out, card, device="cuda", clock_mhz=None,
         dv.lap_frame(scratch, n, forward)
         entry(out, key, "ffv2", max_abs_err([got], [ref]), ms, plain_ms,
               None, lap_bound, launches_a_call=k.launches - before,
-              lines=lines)
+              lines=lines, tiles=len(dv.lap_tiles(ph, pw, n, "frame")) * P,
+              device_ms=(device_ms(lambda: dv.lap_frame(scratch, n,
+                                                        forward), 5)
+                         if device != "cpu" else None))
     streams = dv.encode_front_t(x, 8, n, n)
     bands = dsp.band_starts(n)
     NB = streams.shape[0]
@@ -1453,7 +1459,7 @@ def ffv2_checks(out, card, device="cuda", clock_mhz=None,
     finally:
         pipe.close()
     n_q = FFV2_FRAMES * 2 + 1              # the q-path frames, pipelined too
-    want = dict(pvq=n_q, lap_pre=2 * (n_q + 1), lap_post=2 * len(cases))
+    want = dict(pvq=n_q, lap_pre=n_q + 1, lap_post=len(cases))
     got_counts = {k: launches[k] for k in want}
     if got_counts != want:
         raise AssertionError(f"ffv2: launches {got_counts}, expected {want}")

@@ -213,12 +213,12 @@ KERNELS = {k.name: k for k in (
            "ffmpeg_ffv2_tpu_torch/csrc/ffv2_quant.cu",
            "ffmpeg_ffv2_tpu/ffv2/tpu.py:233 _pvq_band_device + :293 "
            "_quantize_streams (XLA, a lax.scan; no Pallas counterpart)"),
-    Kernel("lap_pre", "ffv2_lap_pre", [P, I, I, I, I, I, P],
+    Kernel("lap_pre", "ffv2_lap_pre", [P, P, I, I, I, I, P],
            "ffmpeg_ffv2_tpu_torch/csrc/ffv2_lap.cu",
            "ffmpeg_ffv2_tpu/ffv2/tpu.py:77 _jx_lap_prefilter (as "
            "_jx_frame_hor/_jx_frame_ver :122-150 apply it; XLA, no Pallas "
            "counterpart)"),
-    Kernel("lap_post", "ffv2_lap_post", [P, I, I, I, I, I, P],
+    Kernel("lap_post", "ffv2_lap_post", [P, P, I, I, I, I, P],
            "ffmpeg_ffv2_tpu_torch/csrc/ffv2_lap.cu",
            "ffmpeg_ffv2_tpu/ffv2/tpu.py:100 _jx_lap_postfilter (as "
            "_jx_frame_ver/_jx_frame_hor :122-150 apply it; XLA, no Pallas "

@@ -201,52 +201,112 @@ def _check_slabs(extent: int, sb: int) -> None:
                          f"at sb {sb}")
 
 
-def _lap_launch(k, c: torch.Tensor, sb: int, vertical: bool) -> None:
-    """One K19 launch on CUDA planes ``c`` [P, H, W], unless the direction
-    crosses no boundary."""
+LAP_ROLE_H = 1       # a tile's first 32 columns: a vertical boundary's slab
+LAP_ROLE_V = 2       # a tile's 32 rows: a horizontal boundary's slab
+LAP_MODES = ("frame", "hor", "ver")
+_LAP_PIECE = 64      # a band tile's widest piece, a row tile's tallest
+
+
+def _lap_pieces(lo: int, hi: int) -> list:
+    return [(a, min(_LAP_PIECE, hi - a)) for a in range(lo, hi, _LAP_PIECE)]
+
+
+@functools.lru_cache(maxsize=None)
+def lap_tiles(H: int, W: int, sb: int, mode: str) -> np.ndarray:
+    """K19's tiles of an [H, W] plane: int32 [n, 5] rows (y0, x0, h, w,
+    role), read-only, covering the union of the slabs that ``mode``
+    filters exactly once (``csrc/ffv2_lap.cu``).
+
+    ``mode`` "frame" (both directions), "hor" (across the vertical
+    boundaries, along rows) or "ver" (across the horizontal ones).  Band
+    tiles (``LAP_ROLE_V``): a horizontal slab's 32 rows times a piece of
+    at most 64 columns, the columns cut at every vertical slab's start
+    ("frame"; such a piece starts with the slab and adds ``LAP_ROLE_H``)
+    or every 64 ("ver").  Row tiles (``LAP_ROLE_H`` alone): up to 64 rows
+    outside every horizontal slab ("frame"; all rows in "hor") times one
+    vertical slab's 32 columns.  Raises ``ValueError`` where the slabs
+    leave the plane or overlap (``_check_slabs``)."""
+    if mode not in LAP_MODES:
+        raise ValueError(f"lap: mode {mode!r} is not one of {LAP_MODES}")
+    r, h = LAP_RADIUS, LAP_RADIUS // 2
+    xs = ys = []
+    if mode != "ver":
+        _check_slabs(W, sb)
+        xs = [b - h for b in range(sb, W, sb)]
+    if mode != "hor":
+        _check_slabs(H, sb)
+        ys = [b - h for b in range(sb, H, sb)]
+    tiles = []
+    cuts = sorted({0, W, *xs})
+    for y in ys:
+        for a, b in zip(cuts, cuts[1:]):
+            for i, (x, w) in enumerate(_lap_pieces(a, b)):
+                slab = i == 0 and a in xs
+                tiles.append((y, x, r, w,
+                              LAP_ROLE_V | (LAP_ROLE_H if slab else 0)))
+    gaps = sorted({0, H, *ys, *(y + r for y in ys)})
+    for a, b in zip(gaps, gaps[1:]):
+        if a in ys:                            # a horizontal slab's rows
+            continue
+        for y, hh in _lap_pieces(a, b):
+            tiles.extend((y, x, hh, r, LAP_ROLE_H) for x in xs)
+    out = np.array(tiles, dtype=np.int32).reshape(-1, 5)
+    out.flags.writeable = False
+    return out
+
+
+_lap_tables = {}
+
+
+def _lap_table_on(H: int, W: int, sb: int, mode: str, device) -> torch.Tensor:
+    """``lap_tiles`` on ``device``, uploaded once a device."""
+    key = (H, W, sb, mode, device)
+    t = _lap_tables.get(key)
+    if t is None:
+        t = _lap_tables[key] = torch.as_tensor(
+            lap_tiles(H, W, sb, mode).copy(), device=device)
+    return t
+
+
+def _lap(c: torch.Tensor, sb: int, forward: bool, mode: str) -> torch.Tensor:
+    """K19 over ``lap_tiles``' ``mode`` on int32 planes ``c`` [P, H, W], in
+    place: one launch for a CUDA tensor (none where no boundary is
+    crossed), the plain version of each direction in the filter's order
+    for a CPU tensor."""
+    lap_tiles(c.shape[-2], c.shape[-1], sb, mode)      # the slabs' checks
+    k = _build.KERNELS["lap_pre" if forward else "lap_post"]
+    if k.plain_for(c.device):
+        dirs = {"frame": (False, True), "hor": (False,), "ver": (True,)}[mode]
+        for vertical in dirs if forward else dirs[::-1]:
+            lap_dir_plain(c, sb, forward, vertical)
+        return c
+    k.check("c", c, c.shape, c.device)
     P, H, W = c.shape
-    extent, lines = (H, W) if vertical else (W, H)
-    if P * lines * ((extent - 1) // sb if extent else 0):
-        k.launch(c.data_ptr(), P, H, W, sb, int(vertical),
+    tab = _lap_table_on(H, W, sb, mode, c.device)
+    if P and tab.shape[0]:
+        k.launch(c.data_ptr(), tab.data_ptr(), tab.shape[0], P, H, W,
                  _build.stream_handle(c))
+    return c
 
 
 def lap_dir(c: torch.Tensor, sb: int, forward: bool,
             vertical: bool) -> torch.Tensor:
     """One direction of the lapped filter (``_jx_frame_ver`` when
     ``vertical``, else ``_jx_frame_hor``) on int32 planes ``c`` [P, H, W],
-    in place, and returned: K19 (one ``lap_pre`` / ``lap_post`` launch)
-    for a CUDA tensor, ``lap_dir_plain`` for a CPU tensor.  The sharded
-    front (``parallel/ffv2.py``) filters its band and its halo slabs one
-    direction at a time."""
-    _check_slabs(c.shape[-2] if vertical else c.shape[-1], sb)
-    k = _build.KERNELS["lap_pre" if forward else "lap_post"]
-    if k.plain_for(c.device):
-        lap_dir_plain(c, sb, forward, vertical)
-        return c
-    k.check("c", c, c.shape, c.device)
-    _lap_launch(k, c, sb, vertical)
-    return c
+    in place, and returned: K19 (one ``lap_pre`` / ``lap_post`` launch
+    over the "ver" or "hor" tiles) for a CUDA tensor, ``lap_dir_plain``
+    for a CPU tensor.  The sharded front (``parallel/ffv2.py``) filters
+    its band and its halo slabs one direction at a time."""
+    return _lap(c, sb, forward, "ver" if vertical else "hor")
 
 
 def lap_frame(c: torch.Tensor, sb: int, forward: bool) -> torch.Tensor:
     """The lapped filter across the SB boundaries of int32 planes ``c``
     [P, H, W], in place, and returned: the prefilter (``forward``) is the
     horizontal direction then the vertical, the postfilter the reverse.
-    K19 (``lap_pre`` / ``lap_post``, one launch a direction that crosses a
-    boundary) for a CUDA tensor, the plain version for a CPU tensor."""
-    _check_slabs(c.shape[-2], sb)
-    _check_slabs(c.shape[-1], sb)
-    k = _build.KERNELS["lap_pre" if forward else "lap_post"]
-    order = (False, True) if forward else (True, False)
-    if k.plain_for(c.device):
-        for vertical in order:
-            lap_dir_plain(c, sb, forward, vertical)
-        return c
-    k.check("c", c, c.shape, c.device)
-    for vertical in order:
-        _lap_launch(k, c, sb, vertical)
-    return c
+    K19 (``lap_pre`` / ``lap_post``, one launch over the "frame" tiles)
+    for a CUDA tensor, the plain version for a CPU tensor."""
+    return _lap(c, sb, forward, "frame")
 
 
 # ---------------------------------------------------------------------------

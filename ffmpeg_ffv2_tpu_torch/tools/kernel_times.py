@@ -1,11 +1,13 @@
 """CUDA-event times of the range path's kernels K4 (rac_render), K2
 (adapt), emission_pack, K6 (adapt_emission), K3 (expand) and K1 (place),
 of K1, K5 (vlc) and the ladder on the Golomb-Rice path, of K7 (rac_lanes,
-the hybrid lane coder) and of FFV2's K18 (pvq), at the main path's
-shapes, for the checkout at ``--root``:
+the hybrid lane coder), of FFV2's K18 (pvq) and K19 (lap), and of the
+tool kernel K11 (rowcx), at the main path's shapes, for the checkout at
+``--root``:
 
     python3 ffmpeg_ffv2_tpu_torch/tools/kernel_times.py [--root DIR]
-        [--cases range,rgb48,bgr0_v4,rice,rice16,rice_bgr0,lanes,ffv2]
+        [--cases range,rgb48,bgr0_v4,rice,rice16,rice_bgr0,lanes,ffv2,
+                 lap,rowcx]
 
 ``--root`` (default: this checkout) is the root of a checkout of the
 repository, whose ``ffmpeg_ffv2_tpu_torch`` and ``chip_smoke.py`` are
@@ -37,7 +39,17 @@ bands of one class (``pvq_classes``, where the checkout's library names
 the classes) alone, with the device time of one
 call, and each class's device time (``device_ms``) at each qp of
 ``QP_SWEEP`` (at qp 0 only the set-up runs: loads, sums, stores; each
-step adds one pulse search).  For
+step adds one pulse search).  ``lap`` times K19 on that frame's Q12
+planes (``lap_frame``, pre and post, sb 64) and on a rank's band of
+phase 19's 3840x2160 frame (``lap_dir``: the band's horizontal
+direction, its two 32-row halo slabs at sb 16, its vertical direction);
+``rowcx`` times K11 at ``tools/microbench_pallas.py``'s shapes
+(``ROWCX_SHAPES``).  Each gives its launches a call, the CUDA-event ms
+around the wrapper, the device time alone (``device_ms``), the host's
+enqueue time alone (``host_ms``), the kernels' ``-Xptxas -v``
+registers, spills and shared memory (``ptxas_of``) and counts of chosen
+SASS instructions (``sass_counts``; MUFU.RCP is a division by a value
+known only at run time).  For
 K1 and K3 it also prints the device time of each kernel and torch op
 that one wrapper call runs (``torch.profiler``, ms a call by name), and
 the layout stage and K1 together (the encoder's own ``front``
@@ -56,6 +68,7 @@ import argparse
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -89,7 +102,80 @@ def device_ms(fn, reps: int) -> float:
     times.sort()
     return times[len(times) // 2]
 CASES = ("range", "rgb48", "bgr0_v4", "rice", "rice16", "rice_bgr0",
-         "lanes", "ffv2")
+         "lanes", "ffv2", "lap", "rowcx")
+ROWCX_SHAPES = ((2048, 64), (512, 64))   # tools/microbench_pallas.py's
+
+
+def host_ms(fn, reps: int) -> float:
+    """Median host time of enqueueing fn() (its Python, ctypes and launch
+    calls) while a sleep kernel keeps the card busy, so no call waits on
+    the card."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(2_000_000)
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    times.sort()
+    return times[len(times) // 2]
+
+
+def ptxas_of(lib_path: str, name: str) -> dict:
+    """{kernel: registers, spills, shared bytes} from the ``-Xptxas -v``
+    lines of the build log beside ``lib_path``, for the entry functions
+    whose mangled name holds ``name``."""
+    log = os.path.join(os.path.dirname(lib_path), "build.log")
+    out, fn = {}, None
+    with open(log) as f:
+        for line in f:
+            m = re.search(r"(?:Compiling entry function|Function properties "
+                          r"for) '?(\w+)'?", line)
+            if m:
+                fn = m.group(1) if name in m.group(1) else None
+                continue
+            if fn is None:
+                continue
+            d = out.setdefault(fn, {})
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                d["spill_stores"], d["spill_loads"] = map(int, m.groups())
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                d["registers"] = int(m.group(1))
+                m = re.search(r"(\d+) bytes smem", line)
+                d["smem_bytes"] = int(m.group(1)) if m else 0
+    return out
+
+
+def sass_counts(lib_path: str, name: str, ops) -> dict:
+    """{function: {op: count}} of the SASS instructions ``ops`` (e.g.
+    "MUFU.RCP", a division by a value known only at run time) in the
+    library's functions whose mangled name holds ``name``
+    (``cuobjdump -sass``); empty where the toolkit has no cuobjdump."""
+    from ffmpeg_ffv2_tpu_torch import _build
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    text = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True).stdout
+    out, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            fn = m.group(1) if name in m.group(1) else None
+            if fn:
+                out[fn] = {op: 0 for op in ops}
+            continue
+        if fn:
+            for op in ops:
+                if re.search(r"\b" + re.escape(op) + r"\b", line):
+                    out[fn][op] += 1
+    return out
 
 
 def pvq_classes(bands) -> list:
@@ -359,6 +445,67 @@ def main() -> int:
                               REPS),
             k18_device_ms=sum(sp.values()), k18_split=sp,
             k18_classes=classes)), flush=True)
+    if "lap" in todo:
+        from ffmpeg_ffv2_tpu_torch.ffv2 import FFV2Config
+        from ffmpeg_ffv2_tpu_torch.ffv2 import device as dv
+        from ffmpeg_ffv2_tpu_torch.ffv2 import dsp
+        from ffmpeg_ffv2_tpu_torch.ffv2.native import NativeFFV2Encoder
+        n = dsp.SB_SIZE
+        calls = {}
+        for (w, h) in ((cs.W, cs.H), cs.PAR_UHD):
+            enc = NativeFFV2Encoder(w, h, "yuv444p", FFV2Config(qp=16),
+                                    "cuda")
+            x = dv.upload(enc._pad(cs.synth_ffv2_frames(1, 8, w=w, h=h)[0]),
+                          8, "cuda")
+            q12 = ((x << 4) - 2048).contiguous()
+            if (w, h) == (cs.W, cs.H):
+                for fwd in (True, False):
+                    calls[f"lap_frame {'pre' if fwd else 'post'} "
+                          f"{tuple(q12.shape)}"] = (
+                        "lap_pre" if fwd else "lap_post", q12.clone(),
+                        lambda c, f=fwd: dv.lap_frame(c, n, f))
+                continue
+            # phase 19's three lap_dir calls of a rank's band (2 ranks)
+            band = q12[:, :q12.shape[1] // 2].contiguous()
+            halo = torch.cat([band[:, :32], band[:, -32:]]).contiguous()
+            for label, c, sb, vert in (("band horizontal", band, n, False),
+                                       ("halo slabs", halo, 16, True),
+                                       ("band vertical", band, n, True)):
+                calls[f"lap_dir {label} {tuple(c.shape)}"] = (
+                    "lap_pre", c.clone(),
+                    lambda c, s=sb, v=vert: dv.lap_dir(c, s, True, v))
+        res = {}
+        for label, (kname, c, fn) in calls.items():
+            k = _build.KERNELS[kname]
+            before = k.launches
+            fn(c)
+            res[label] = dict(launches_a_call=k.launches - before,
+                              ms=cs.cuda_ms(lambda: fn(c), REPS),
+                              device_ms=device_ms(lambda: fn(c), REPS),
+                              host_ms=host_ms(lambda: fn(c), REPS))
+        print(json.dumps(dict(card=card, root=root, case="lap", sb=n,
+                              calls=res, ptxas=ptxas_of(
+                                  _build.library_path(), "lap"),
+                              sass=sass_counts(_build.library_path(), "lap",
+                                               ("MUFU.RCP", "IMAD.HI")))),
+              flush=True)
+    if "rowcx" in todo:
+        from ffmpeg_ffv2_tpu_torch.tools import microbench_prims as mp
+        res = {}
+        for R, reps in ROWCX_SHAPES:
+            x = torch.arange(R * mp.LANES, dtype=torch.int32,
+                             device="cuda").reshape(R, mp.LANES)
+            res[f"({R}, 128) x{reps}"] = dict(
+                ms=cs.cuda_ms(lambda: mp.rowcx(x, reps), REPS),
+                device_ms=device_ms(lambda: mp.rowcx(x, reps), REPS),
+                host_ms=host_ms(lambda: mp.rowcx(x, reps), REPS))
+        print(json.dumps(dict(card=card, root=root, case="rowcx", shapes=res,
+                              ptxas=ptxas_of(_build.library_path(),
+                                             "rowcx"),
+                              sass=sass_counts(_build.library_path(),
+                                               "rowcx", ("SHFL.BFLY",
+                                                         "BAR.SYNC")))),
+              flush=True)
     return 0
 
 

@@ -6,8 +6,10 @@ Counterpart of ``tools/microbench_pallas.py`` (``roll_kernel``,
 input ``arange(R * 128).reshape(R, 128)``.  ``roll``, ``rowcx`` and
 ``transpose`` launch ``csrc/prims.cu`` on CUDA tensors and take the plain
 versions (``*_plain``, the JAX bodies written with torch's calls) on CPU
-tensors.  Per case: the kernel's time for all reps and per pass, the
-plain version's (its comparison run), the library's (the plain version's
+tensors.  Per case: the kernel's time for all reps and per pass (CUDA
+events around the wrapper; and ``device_ms``, the device time alone
+behind a sleep kernel, ``kernel_times.device_ms``), the plain version's
+(its comparison run), the library's (the plain version's
 calls, warmed, for all reps; and one call, ``torch.roll``, ``torch.
 minimum`` + ``torch.maximum`` or ``.T.contiguous()``, for one pass), the
 bound and exactness against the plain version.
@@ -24,6 +26,7 @@ import torch
 
 from .. import _build
 from . import bound_ms, device_label, device_ms, device_ms_once, launches_of
+from .kernel_times import device_ms as device_ms_alone
 
 LANES = 128
 _K10 = _build.KERNELS["roll"]
@@ -132,10 +135,13 @@ def run_case(name, prim, R, reps, device="cuda", timing_reps=20) -> dict:
     err = int((got.long() - ref.long()).abs().max())
     passes = reps * per_rep
     ms = device_ms(lambda: kern_fn(x, reps), timing_reps, device)
+    alone = (device_ms_alone(lambda: kern_fn(x, reps), timing_reps)
+             if torch.device(device).type == "cuda" else None)
     nbytes, ops = 2 * x.numel() * 4, passes * x.numel()
     bnd, by = bound_ms(nbytes, ops)
     return dict(name=name, kernel=K.name, shape=[R, LANES], reps=reps,
                 passes=passes, launches=launches[K.name], ms=ms,
+                device_ms=alone,
                 ms_per_pass=ms / passes, plain_ms=plain_ms,
                 library_ms=device_ms(lambda: plain_fn(x, reps), timing_reps,
                                      device),
@@ -152,7 +158,9 @@ def run(cases=CASES, device="cuda") -> list:
 
 def line(r: dict) -> str:
     el = r["shape"][0] * r["shape"][1]
-    return (f"{r['name']:42s} [{r['device']}] {r['ms']:8.4f} ms total, "
+    alone = ("" if r["device_ms"] is None
+             else f" (device alone {r['device_ms']:.4f})")
+    return (f"{r['name']:42s} [{r['device']}] {r['ms']:8.4f} ms total{alone}, "
             f"{r['ms_per_pass'] * 1e3:8.3f} us/pass, "
             f"{el / r['ms_per_pass'] / 1e6:8.2f} Gelem/s/pass; plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms "

@@ -815,7 +815,9 @@ def test_torch_gpu_sort_matches_plain(B, M, n, num_keys, kernel):
 
 @pytest.mark.parametrize("prim,R,reps", [
     ("roll", 512, 64), ("roll", 2050, 9), ("rowcx", 2048, 64),
-    ("rowcx", 128, 4), ("transpose", 512, 32), ("transpose", 64, 3)])
+    ("rowcx", 128, 4), ("rowcx", 256, 8), ("rowcx", 512, 64),
+    ("rowcx", 2048, 9), ("rowcx", 1024, 1), ("transpose", 512, 32),
+    ("transpose", 64, 3)])
 def test_torch_gpu_prims_match_plain(prim, R, reps):
     wrapper, plain, K = mp.PRIMS[prim][:3]
     rng = np.random.RandomState(R + reps)
@@ -927,26 +929,62 @@ def _ffv2_frame(w, h, planes, depth, seed):
             for p in range(planes)]
 
 
-@pytest.mark.parametrize("forward", [True, False])
-def test_torch_gpu_ffv2_lap_matches_plain(forward):
-    """K19 on whole planes (pre: horizontal then vertical; post: the
-    reverse) == its plain version, on Q12 content and on hostile int32
-    with INT_MIN / INT_MAX."""
-    from ffmpeg_ffv2_tpu_torch.ffv2 import device as dv
-    rng = np.random.RandomState(forward)
-    for c in (rng.randint(-2600, 2600, (3, 192, 320)),
-              rng.randint(-2 ** 31, 2 ** 31, (2, 128, 256), dtype=np.int64)):
+def _lap_inputs(rng, shapes):
+    """Q12 content, then hostile int32, each with INT_MIN / INT_MAX rows."""
+    (p0, h0, w0), (p1, h1, w1) = shapes
+    for c in (rng.randint(-2600, 2600, (p0, h0, w0)),
+              rng.randint(-2 ** 31, 2 ** 31, (p1, h1, w1), dtype=np.int64)):
         c = c.astype(np.int32)
         c[0, :4] = -2 ** 31
         c[-1, -4:] = 2 ** 31 - 1
+        yield c
+
+
+@pytest.mark.parametrize("sb", [64, 32])
+@pytest.mark.parametrize("forward", [True, False])
+def test_torch_gpu_ffv2_lap_matches_plain(forward, sb):
+    """K19 on whole planes (pre: horizontal then vertical; post: the
+    reverse; one launch over the tile table a call) == its plain version,
+    on Q12 content and on hostile int32 with INT_MIN / INT_MAX."""
+    from ffmpeg_ffv2_tpu_torch.ffv2 import device as dv
+    rng = np.random.RandomState(forward)
+    for c in _lap_inputs(rng, ((3, 192, 320), (2, 128, 256))):
         dev = torch.as_tensor(c, device="cuda")
         _build.reset_counts()
-        dv.lap_frame(dev, 64, forward)
+        dv.lap_frame(dev, sb, forward)
         torch.cuda.synchronize()
         k = _build.KERNELS["lap_pre" if forward else "lap_post"]
-        assert k.launches == 2 and k.plain_calls == 0
-        plain = dv.lap_frame(torch.as_tensor(c), 64, forward)
+        assert k.launches == 1 and k.plain_calls == 0
+        plain = dv.lap_frame(torch.as_tensor(c), sb, forward)
         assert torch.equal(dev.cpu(), plain)
+
+
+@pytest.mark.parametrize("sb,shapes", [
+    (64, ((3, 192, 320), (2, 128, 216))),
+    (32, ((3, 96, 160), (1, 64, 96))),
+    (16, ((6, 32, 320), (2, 32, 96))),        # the halo slabs
+])
+@pytest.mark.parametrize("vertical", [False, True])
+@pytest.mark.parametrize("forward", [True, False])
+def test_torch_gpu_ffv2_lap_dir_matches_plain(forward, vertical, sb, shapes):
+    """K19 one direction at a time (``lap_dir``, as the sharded front runs
+    it: one launch over the "hor" or "ver" tiles) == ``lap_dir_plain``, at
+    sb 64, 32 and the 32-row halo slabs' sb 16."""
+    from ffmpeg_ffv2_tpu_torch.ffv2 import device as dv
+    if sb == 16 and not vertical:
+        shapes = tuple((p, w, h) for p, h, w in shapes)   # one boundary
+    rng = np.random.RandomState(sb + 2 * vertical + forward)
+    for c in _lap_inputs(rng, shapes):
+        dev = torch.as_tensor(c, device="cuda")
+        _build.reset_counts()
+        dv.lap_dir(dev, sb, forward, vertical)
+        torch.cuda.synchronize()
+        k = _build.KERNELS["lap_pre" if forward else "lap_post"]
+        assert k.launches == 1 and k.plain_calls == 0
+        plain = torch.tensor(c)
+        dv.lap_dir_plain(plain, sb, forward, vertical)
+        assert torch.equal(dev.cpu(), plain)
+        assert not torch.equal(plain, torch.as_tensor(c))
 
 
 @pytest.mark.parametrize("n,qp", [(n, qp) for n in (8, 16, 32, 64)
@@ -1000,7 +1038,7 @@ def test_torch_gpu_ffv2_1080p_packet_matches_host():
     enc = NativeFFV2Encoder(w, h, "yuv444p", FFV2Config(qp=16))
     _build.reset_counts()
     pkt = enc.encode(frame)
-    assert [_build.KERNELS[k].launches for k in ("pvq", "lap_pre")] == [1, 2]
+    assert [_build.KERNELS[k].launches for k in ("pvq", "lap_pre")] == [1, 1]
     assert pkt == enc.encode_host(frame)
     dec = NativeFFV2Decoder(w, h)
     for a, b in zip(dec.decode(pkt), dec.decode_host(pkt)):
