@@ -110,7 +110,8 @@ def build() -> str:
 
 
 def load() -> ctypes.CDLL:
-    """Build if needed, then load the library once per process."""
+    """Build if needed, then load the library once per process and bind
+    every kernel's launcher onto its ``Kernel``."""
     global _lib
     with _lock:
         if _lib is None:
@@ -122,9 +123,7 @@ def load() -> ctypes.CDLL:
                 fn.argtypes = args
                 fn.restype = res
             for k in KERNELS.values():
-                fn = getattr(lib, k.symbol)
-                fn.argtypes = k.argtypes
-                fn.restype = I
+                k.bind(lib)
             _lib = lib
         return _lib
 
@@ -141,6 +140,16 @@ class Kernel:
         self.replaces = replaces
         self.launches = 0
         self.plain_calls = 0
+        self._fn = None              # the bound launcher, set by bind()
+
+    def bind(self, lib):
+        """Bind the launcher of ``lib`` (its argument and result types)
+        onto this kernel; returns it."""
+        fn = getattr(lib, self.symbol)
+        fn.argtypes = self.argtypes
+        fn.restype = I
+        self._fn = fn
+        return fn
 
     def plain_for(self, device) -> bool:
         """Whether the wrapper takes the plain version: True (and counted)
@@ -155,8 +164,8 @@ class Kernel:
     def check(self, name: str, t, shape, device, dtype=torch.int32):
         """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape``
         on ``device``."""
-        if (t.dtype != dtype or tuple(t.shape) != tuple(shape)
-                or not t.is_contiguous() or t.device != device):
+        if (t.dtype != dtype or t.shape != tuple(shape) or t.device != device
+                or not t.is_contiguous()):
             raise ValueError(
                 f"{self.name}: {name} must be a contiguous {dtype} "
                 f"{tuple(shape)} tensor on {device}, got {t.dtype} "
@@ -165,11 +174,12 @@ class Kernel:
 
     def launch(self, *args) -> None:
         """Call the launcher (pointers and the stream as ints); raise if
-        CUDA refused the launch."""
-        lib = load()
-        err = getattr(lib, self.symbol)(*args)
-        if err != 0:
-            msg = lib.ffv2_error_string(err).decode()
+        CUDA refused the launch.  Once bound, a launch takes no lock and
+        no lookup."""
+        fn = self._fn or self.bind(load())
+        err = fn(*args)
+        if err:
+            msg = load().ffv2_error_string(err).decode()
             raise RuntimeError(f"{self.name} kernel: CUDA error {err}: {msg}")
         self.launches += 1
 
@@ -274,5 +284,7 @@ def reset_counts() -> None:
 
 
 def stream_handle(t) -> int:
-    """The current CUDA stream of tensor ``t``'s device, as an int."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current CUDA stream of tensor ``t``'s device, as an int.  The
+    device's index, not its ``torch.device``, is the cheaper public route
+    (``tools/kernel_times.py``'s host split, PERF.md §6)."""
+    return torch.cuda.current_stream(t.get_device()).cuda_stream

@@ -6,11 +6,20 @@
 // (a lane roll by 1 << (i % 7) along axis 1, then + 1), rowcx_kernel (the
 // min and max of row blocks b = 1 << (i % 8) apart) and transpose_kernel
 // (x = x.T + 1; x = x.T + 1).  The TPU kernels hold the whole (R, 128)
-// array in VMEM and make every rep a pass over it there; here each block
-// holds the part of the array that its reps touch in shared memory, and
-// every rep is a pass over that copy (nothing is folded into closed form):
-// - roll: rows are independent, ROLL_ROWS rows a block, one thread a lane,
-//   ping-pong between two shared buffers;
+// array in VMEM and make every rep a pass over it there; here each warp or
+// block holds the part of the array that its reps touch on chip, and every
+// rep is a pass over that copy (nothing is folded into closed form):
+// - roll: rows are independent, so a warp takes one row and holds it in
+//   registers, lane l elements l + 32 k in v[k] (k < 4), loaded and stored
+//   as four coalesced 128-byte rows.  A roll by s < 32 is one
+//   __shfl_sync from lane (l - s) & 31 a register; lane l < s takes
+//   element l - s + 32 k from register k - 1 of that lane, the others from
+//   register k.  s = 32 and 64 rename the registers (v[k] <- v[k - s/32]),
+//   no shuffle.  The seven rolls s = 1 .. 64 run as one unrolled round,
+//   the reps % 7 left over after them: no shared memory, no barrier and
+//   no division between reps.  Bound on this card: the launch, then the
+//   chain of 64 dependent passes (a shuffle's latency each for s < 32);
+//   the 1 MB of (2048, 128) move in well under a microsecond;
 // - rowcx: columns are independent, so a warp takes one column of a
 //   256-row span and holds it in registers, lane l rows l + 32 k (k < 8).
 //   A block stages CX_COLS columns of the span in shared memory with
@@ -35,7 +44,8 @@
 namespace {
 
 constexpr int LANES = 128;
-constexpr int ROLL_ROWS = 4;
+constexpr int ROLL_WARPS = 4;            // rows a block, a warp each
+constexpr int ROLL_REGS = LANES / 32;    // elements a lane
 constexpr int CX_COLS = 8;               // columns a block, a warp each
 constexpr int CX_SPAN = 256;             // rows a warp
 constexpr int CX_REGS = CX_SPAN / 32;    // rows a lane
@@ -46,22 +56,58 @@ __device__ __forceinline__ int wrap_add(int a, int b) {
   return (int)((unsigned)a + (unsigned)b);
 }
 
-__global__ void roll_kernel(const int* __restrict__ x, int R, int reps,
-                            int* __restrict__ out) {
-  __shared__ int buf[2][ROLL_ROWS][LANES];
-  const int l = threadIdx.x, r = threadIdx.y;
-  const long long row = (long long)blockIdx.x * ROLL_ROWS + r;
-  const bool in = row < R;
-  buf[0][r][l] = in ? x[row * LANES + l] : 0;
-  __syncthreads();
-  int cur = 0;
-  for (int i = 0; i < reps; ++i) {
-    const int sh = 1 << (i % 7);
-    buf[cur ^ 1][r][l] = wrap_add(buf[cur][r][(l - sh) & (LANES - 1)], 1);
-    cur ^= 1;
-    __syncthreads();
+// one rep over a warp's row in registers: roll by s = 1 << SH, then + 1
+template <int SH>
+__device__ __forceinline__ void roll_pass(int (&v)[ROLL_REGS], int lane) {
+  int u[ROLL_REGS];
+  if constexpr (SH < 5) {
+    constexpr int s = 1 << SH;
+    const bool wrapped = lane < s;
+#pragma unroll
+    for (int k = 0; k < ROLL_REGS; ++k)
+      u[k] = __shfl_sync(0xffffffffu, v[k], (lane - s) & 31);
+#pragma unroll
+    for (int k = 0; k < ROLL_REGS; ++k)
+      v[k] = wrap_add(wrapped ? u[(k + ROLL_REGS - 1) % ROLL_REGS] : u[k], 1);
+  } else {
+    constexpr int d = 1 << (SH - 5);     // registers the row moves by
+#pragma unroll
+    for (int k = 0; k < ROLL_REGS; ++k) u[k] = v[k];
+#pragma unroll
+    for (int k = 0; k < ROLL_REGS; ++k)
+      v[k] = wrap_add(u[(k + ROLL_REGS - d) % ROLL_REGS], 1);
   }
-  if (in) out[row * LANES + l] = buf[cur][r][l];
+}
+
+__global__ void __launch_bounds__(ROLL_WARPS * 32)
+    roll_kernel(const int* __restrict__ x, int R, int reps,
+                int* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const long long row =
+      (long long)blockIdx.x * ROLL_WARPS + (threadIdx.x >> 5);
+  if (row >= R) return;                  // a whole warp: no shuffle left
+  int v[ROLL_REGS];
+#pragma unroll
+  for (int k = 0; k < ROLL_REGS; ++k) v[k] = x[row * LANES + lane + 32 * k];
+  int i = 0;
+  for (; i + 7 <= reps; i += 7) {
+    roll_pass<0>(v, lane);
+    roll_pass<1>(v, lane);
+    roll_pass<2>(v, lane);
+    roll_pass<3>(v, lane);
+    roll_pass<4>(v, lane);
+    roll_pass<5>(v, lane);
+    roll_pass<6>(v, lane);
+  }
+  const int tail = reps - i;
+  if (tail > 0) roll_pass<0>(v, lane);
+  if (tail > 1) roll_pass<1>(v, lane);
+  if (tail > 2) roll_pass<2>(v, lane);
+  if (tail > 3) roll_pass<3>(v, lane);
+  if (tail > 4) roll_pass<4>(v, lane);
+  if (tail > 5) roll_pass<5>(v, lane);
+#pragma unroll
+  for (int k = 0; k < ROLL_REGS; ++k) out[row * LANES + lane + 32 * k] = v[k];
 }
 
 // one pass of distance b = 1 << SH over a warp's column in registers
@@ -164,7 +210,7 @@ __global__ void transpose_kernel(const int* __restrict__ x, int W, int reps,
 extern "C" cudaError_t ffv2_roll(const int* x, int R, int reps, int* out,
                                  cudaStream_t stream) {
   if (R > 0)
-    roll_kernel<<<(R + ROLL_ROWS - 1) / ROLL_ROWS, dim3(LANES, ROLL_ROWS), 0,
+    roll_kernel<<<(R + ROLL_WARPS - 1) / ROLL_WARPS, ROLL_WARPS * 32, 0,
                   stream>>>(x, R, reps, out);
   return cudaGetLastError();
 }

@@ -9,8 +9,17 @@
 // - K13: out = v + max(v); one block reduces the whole (R, 128) array;
 // - K14: out (1, 128) = row max(v[0]) mod 4 of v, read from a shared-memory
 //   scratch copy of v;
-// - K15: block i sums tab[16 i .. 16 i + 16) from device memory (the table
-//   may exceed the 64 KB of __constant__) and writes x[i] * 0 + sum;
+// - K15: row i of out is x[i] * 0 + the sum of tab[16 i .. 16 i + 16),
+//   read from device memory (the table may exceed the 64 KB of
+//   __constant__).  Its work (16 words in, 128 out a row) is nanoseconds,
+//   so what bounds it on this card is the launch itself.  So a warp takes
+//   a row and the grid is one block of up to 32 warps (more blocks of 32
+//   only past G = 32): lanes l and l + 16 load word l of the row's 16 (one
+//   64-byte load), four __shfl_xor_sync steps add them up in every lane
+//   (unsigned, so the sum wraps as jnp's int32 does), and lane l writes
+//   words l + 32 k of the row, k < 4 (each a coalesced 128-byte store, so
+//   any 4-byte aligned x and out will do).  No shared memory, no barrier;
+//   nvcc drops the read of x, since x * 0 is 0 for every x;
 // - K16: out = roll(v, (128 - max(v[0]) mod 128) mod 128) along the lanes;
 //   every block reduces row 0 itself, so blocks need no order;
 // - K17: out[r, l] = v[r, idx[l]] for idx in [0, 128).
@@ -26,6 +35,8 @@ namespace {
 
 constexpr int LANES = 128;
 constexpr int ROWS = 8;            // rows a block for K16 and K17
+constexpr int PF_WORDS = 16;       // K15's table words a row
+constexpr int PF_WARPS = 32;       // K15's rows a block, a warp each
 
 __device__ __forceinline__ int floor_mod(int a, int m) {
   const int r = a % m;
@@ -76,14 +87,22 @@ __global__ void scalar_in_ds_kernel(const int* __restrict__ v, int R,
   out[threadIdx.x] = scr[m * LANES + threadIdx.x];
 }
 
-__global__ void big_prefetch_kernel(const int* __restrict__ tab,
-                                    const int* __restrict__ x,
-                                    int* __restrict__ out) {
-  const int i = blockIdx.x;
-  unsigned acc = 0;
-  for (int r = 0; r < 16; ++r) acc += (unsigned)tab[i * 16 + r];
-  const int at = i * LANES + threadIdx.x;
-  out[at] = (int)((unsigned)x[at] * 0u + acc);
+__global__ void __launch_bounds__(PF_WARPS * 32)
+    big_prefetch_kernel(const int* __restrict__ tab,
+                        const int* __restrict__ x, int G,
+                        int* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const long long i = (long long)blockIdx.x * PF_WARPS + (threadIdx.x >> 5);
+  if (i >= G) return;                    // a whole warp: no shuffle left
+  unsigned sum = (unsigned)tab[i * PF_WORDS + (lane & (PF_WORDS - 1))];
+#pragma unroll
+  for (int o = PF_WORDS / 2; o; o >>= 1)
+    sum += __shfl_xor_sync(0xffffffffu, sum, o);
+  const long long row = i * LANES;
+#pragma unroll
+  for (int k = 0; k < LANES / 32; ++k)
+    out[row + lane + 32 * k] =
+        (int)((unsigned)x[row + lane + 32 * k] * 0u + sum);
 }
 
 __global__ void roll_dynamic_kernel(const int* __restrict__ v, int R,
@@ -132,8 +151,12 @@ extern "C" cudaError_t ffv2_probe_scalar_in_ds(const int* v, int R, int* out,
 extern "C" cudaError_t ffv2_probe_big_prefetch(const int* tab, int n_tab,
                                                const int* x, int G, int* out,
                                                cudaStream_t stream) {
-  if (n_tab < 16 * G) return cudaErrorInvalidValue;
-  if (G > 0) big_prefetch_kernel<<<G, LANES, 0, stream>>>(tab, x, out);
+  if (n_tab < (long long)PF_WORDS * G) return cudaErrorInvalidValue;
+  if (G > 0) {
+    const int blocks = (G + PF_WARPS - 1) / PF_WARPS;
+    const int threads = 32 * (G < PF_WARPS ? G : PF_WARPS);
+    big_prefetch_kernel<<<blocks, threads, 0, stream>>>(tab, x, G, out);
+  }
   return cudaGetLastError();
 }
 

@@ -2,12 +2,12 @@
 (adapt), emission_pack, K6 (adapt_emission), K3 (expand) and K1 (place),
 of K1, K5 (vlc) and the ladder on the Golomb-Rice path, of K7 (rac_lanes,
 the hybrid lane coder), of FFV2's K18 (pvq) and K19 (lap), and of the
-tool kernel K11 (rowcx), at the main path's shapes, for the checkout at
-``--root``:
+tool kernels K11 (rowcx), K10 (roll) and K15 (big prefetch), at the main
+path's shapes, for the checkout at ``--root``:
 
     python3 ffmpeg_ffv2_tpu_torch/tools/kernel_times.py [--root DIR]
         [--cases range,rgb48,bgr0_v4,rice,rice16,rice_bgr0,lanes,ffv2,
-                 lap,rowcx]
+                 lap,rowcx,prefetch,roll]
 
 ``--root`` (default: this checkout) is the root of a checkout of the
 repository, whose ``ffmpeg_ffv2_tpu_torch`` and ``chip_smoke.py`` are
@@ -44,14 +44,22 @@ planes (``lap_frame``, pre and post, sb 64) and on a rank's band of
 phase 19's 3840x2160 frame (``lap_dir``: the band's horizontal
 direction, its two 32-row halo slabs at sb 16, its vertical direction);
 ``rowcx`` times K11 at ``tools/microbench_pallas.py``'s shapes
-(``ROWCX_SHAPES``).  Each gives its launches a call, the CUDA-event ms
-around the wrapper, the device time alone (``device_ms``), the host's
+(``ROWCX_SHAPES``), ``roll`` K10 at them (``ROLL_SHAPES``) and
+``prefetch`` K15 (``probes.big_prefetch``) on ``tools/probe_mosaic.py``'s
+tables of 12K, 32K and 128K words at G = 4; these two also time the
+launch floor, an empty kernel launched through the checkout's own
+``Kernel.launch`` (``empty_kernel``), and split a call's host enqueue
+into its parts (``host_split_us``: a shape check, ``empty_like``, the
+stream handle, the launch).  Each gives its
+launches a call, the CUDA-event ms around the wrapper, the device time
+alone (``device_ms``), the host's
 enqueue time alone (``host_ms``), the kernels' ``-Xptxas -v``
 registers, spills and shared memory (``ptxas_of``) and counts of chosen
 SASS instructions (``sass_counts``; MUFU.RCP is a division by a value
 known only at run time).  For
 K1 and K3 it also prints the device time of each kernel and torch op
 that one wrapper call runs (``torch.profiler``, ms a call by name), and
+K1's and K3's device time alone and host enqueue, and
 the layout stage and K1 together (the encoder's own ``front``
 or ``rice_front`` on frame 0, stopped by its ``mark`` hook after K1:
 the median and quartiles of ``LAYOUT_REPS`` runs, and the device time
@@ -102,8 +110,24 @@ def device_ms(fn, reps: int) -> float:
     times.sort()
     return times[len(times) // 2]
 CASES = ("range", "rgb48", "bgr0_v4", "rice", "rice16", "rice_bgr0",
-         "lanes", "ffv2", "lap", "rowcx")
+         "lanes", "ffv2", "lap", "rowcx", "prefetch", "roll")
 ROWCX_SHAPES = ((2048, 64), (512, 64))   # tools/microbench_pallas.py's
+ROLL_SHAPES = ((512, 64), (2048, 64))    # tools/microbench_pallas.py's
+PREFETCH_WORDS = (12, 32, 128)           # K table words, G = 4 rows
+TOOL_REPS = 51              # timed runs of a tool kernel (µs-scale spans)
+HOST_LOOP = 200             # calls a host-clock loop of the host split
+# an empty kernel behind a launcher of K15's arguments, the launch floor
+EMPTY_CU = r"""
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" cudaError_t ffv2_empty(const int*, int, const int*, int, int*,
+                                  cudaStream_t stream) {
+  empty_kernel<<<1, 32, 0, stream>>>();
+  return cudaGetLastError();
+}
+"""
+EMPTY_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-shared",
+               "-Xcompiler", "-fPIC")
 
 
 def host_ms(fn, reps: int) -> float:
@@ -176,6 +200,57 @@ def sass_counts(lib_path: str, name: str, ops) -> dict:
                 if re.search(r"\b" + re.escape(op) + r"\b", line):
                     out[fn][op] += 1
     return out
+
+
+def empty_kernel(_build):
+    """A ``Kernel`` of the timed checkout whose launcher (K15's arguments)
+    starts an empty kernel of one warp: the launch floor of a wrapper.
+    ``EMPTY_CU`` is built under this script's own checkout, named by a
+    hash of its source and flags, and its launcher is set on the timed
+    checkout's loaded library (in memory), so that checkout's own
+    ``Kernel.launch`` (whatever its version) finds it as it finds any
+    launcher."""
+    import ctypes
+    import hashlib
+    import tempfile
+    here = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    h = hashlib.sha256("\0".join([EMPTY_CU, *EMPTY_FLAGS]).encode())
+    out_dir = os.path.join(here, "build", "kernel_times",
+                           h.hexdigest()[:16])
+    so = os.path.join(out_dir, "libffv2_empty.so")
+    if not os.path.exists(so):
+        os.makedirs(out_dir, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+            cu = os.path.join(tmp, "empty.cu")
+            with open(cu, "w") as f:
+                f.write(EMPTY_CU)
+            part = os.path.join(tmp, "libffv2_empty.so")
+            subprocess.run([_build._nvcc(), *EMPTY_FLAGS, "-o", part, cu],
+                           check=True)
+            os.replace(part, so)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    args = [P, I, P, I, P, P]
+    fn = ctypes.CDLL(so).ffv2_empty
+    fn.argtypes, fn.restype = args, I
+    setattr(_build.load(), "ffv2_empty", fn)
+    return _build.Kernel("empty", "ffv2_empty", args, so, "none")
+
+
+def loop_us(fn, n: int = HOST_LOOP, tries: int = 5) -> float:
+    """Host µs a call of fn(), the best of ``tries`` loops of n calls
+    (the card drained between loops)."""
+    import torch
+    best = None
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        us = (time.perf_counter() - t0) * 1e6 / n
+        best = us if best is None else min(best, us)
+    torch.cuda.synchronize()
+    return best
 
 
 def pvq_classes(bands) -> list:
@@ -280,6 +355,8 @@ def main() -> int:
     def k1_fields(enc, inputs, frame):
         k1 = inputs["k1"]
         return dict(k1_ms=cs.cuda_ms(lambda: pl.place(*k1), REPS),
+                    k1_device_ms=device_ms(lambda: pl.place(*k1), REPS),
+                    k1_host_ms=host_ms(lambda: pl.place(*k1), REPS),
                     k1_split=split(lambda: pl.place(*k1)),
                     **layout_k1(enc, frame))
 
@@ -346,6 +423,8 @@ def main() -> int:
             k4_ns_a_step=t4 * 1e6 / live, k2_ms=t2, k6_ms=t6,
             chain_rows=rows, k2_ns_a_row=t2 * 1e6 / rows,
             k6_ns_a_row=t6 * 1e6 / rows, k3_ms=t3,
+            k3_device_ms=device_ms(lambda: ex.expand(*k3), REPS),
+            k3_host_ms=host_ms(lambda: ex.expand(*k3), REPS),
             k3_W=int(k3[0].shape[0]), k3_op_cap=int(k3[5]),
             k3_split=split(lambda: ex.expand(*k3)), **pack,
             **k1_fields(enc, inputs, frame))), flush=True)
@@ -505,6 +584,77 @@ def main() -> int:
                               sass=sass_counts(_build.library_path(),
                                                "rowcx", ("SHFL.BFLY",
                                                          "BAR.SYNC")))),
+              flush=True)
+    if "prefetch" in todo or "roll" in todo:
+        floor = empty_kernel(_build)
+        x4 = torch.zeros((4, 128), dtype=torch.int32, device="cuda")
+        out4 = torch.empty_like(x4)
+        fargs = (x4.data_ptr(), 0, x4.data_ptr(), 4, out4.data_ptr(),
+                 _build.stream_handle(x4))
+
+        def timed(fn):
+            return dict(ms=cs.cuda_ms(fn, TOOL_REPS),
+                        device_ms=device_ms(fn, TOOL_REPS),
+                        host_ms=host_ms(fn, TOOL_REPS))
+        before = floor.launches
+        floor.launch(*fargs)
+        if floor.launches != before + 1:
+            raise AssertionError("the empty kernel's launch was not counted")
+        launch_floor = timed(lambda: floor.launch(*fargs))
+        # the enqueue's parts, host µs a call
+        dev = x4.device
+        host_split_us = dict(
+            check=loop_us(lambda: floor.check("x", x4, (4, 128), dev)),
+            empty_like=loop_us(lambda: torch.empty_like(x4)),
+            stream_handle=loop_us(lambda: _build.stream_handle(x4)),
+            launch_empty=loop_us(lambda: floor.launch(*fargs)))
+    if "prefetch" in todo:
+        from ffmpeg_ffv2_tpu_torch.tools import probes
+        res = {}
+        for n in PREFETCH_WORDS:
+            tab = torch.arange(n * 1024, dtype=torch.int32, device="cuda")
+            k15 = _build.KERNELS["probe_big_prefetch"]
+            before = k15.launches
+            got = probes.big_prefetch(tab, x4)
+            if (k15.launches != before + 1 or int(got[0, 0]) != 120
+                    or not torch.equal(got, probes.big_prefetch_plain(
+                        tab, x4))):
+                raise AssertionError(f"prefetch {n}K: wrong result")
+            res[f"{n}K G=4"] = dict(
+                **timed(lambda: probes.big_prefetch(tab, x4)),
+                call_host_us=loop_us(lambda: probes.big_prefetch(tab, x4)))
+        print(json.dumps(dict(card=card, root=root, case="prefetch",
+                              shapes=res, launch_floor=launch_floor,
+                              host_split_us=host_split_us,
+                              ptxas=ptxas_of(_build.library_path(),
+                                             "big_prefetch"),
+                              sass=sass_counts(_build.library_path(),
+                                               "big_prefetch",
+                                               ("SHFL.BFLY", "BAR.SYNC",
+                                                "LDG.E", "LDG.E.128",
+                                                "STG.E", "STG.E.128")))),
+              flush=True)
+    if "roll" in todo:
+        from ffmpeg_ffv2_tpu_torch.tools import microbench_prims as mp
+        res = {}
+        for R, reps in ROLL_SHAPES:
+            x = torch.arange(R * mp.LANES, dtype=torch.int32,
+                             device="cuda").reshape(R, mp.LANES)
+            if not torch.equal(mp.roll(x, reps), mp.roll_plain(x, reps)):
+                raise AssertionError(f"roll ({R}, 128) x{reps}: wrong")
+            res[f"({R}, 128) x{reps}"] = dict(
+                **timed(lambda: mp.roll(x, reps)),
+                call_host_us=loop_us(lambda: mp.roll(x, reps)))
+        print(json.dumps(dict(card=card, root=root, case="roll", shapes=res,
+                              launch_floor=launch_floor,
+                              host_split_us=host_split_us,
+                              ptxas=ptxas_of(_build.library_path(),
+                                             "roll_kernel"),
+                              sass=sass_counts(_build.library_path(),
+                                               "roll_kernel",
+                                               ("SHFL.IDX", "BAR.SYNC",
+                                                "LDS", "STS", "LDG.E",
+                                                "STG.E")))),
               flush=True)
     return 0
 

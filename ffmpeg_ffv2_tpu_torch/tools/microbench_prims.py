@@ -74,11 +74,12 @@ def transpose_plain(x, reps: int):
 
 def roll(x, reps: int):
     """K10 wrapper: x contiguous int32 (R, 128)."""
-    _K10.check("x", x, (x.shape[0], LANES), x.device)
-    if _K10.plain_for(x.device):
+    R, dev = x.shape[0], x.device
+    _K10.check("x", x, (R, LANES), dev)
+    if _K10.plain_for(dev):
         return roll_plain(x, reps)
     out = torch.empty_like(x)
-    _K10.launch(x.data_ptr(), x.shape[0], reps, out.data_ptr(),
+    _K10.launch(x.data_ptr(), R, reps, out.data_ptr(),
                 _build.stream_handle(x))
     return out
 

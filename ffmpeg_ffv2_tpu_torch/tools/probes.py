@@ -90,16 +90,17 @@ def scalar_in_ds(v):
 def big_prefetch(tab, x):
     """K15 wrapper: tab contiguous int32 (N,) with N >= 16 G, x contiguous
     int32 (G, 128) -> (G, 128)."""
-    G = _rows(_K15, x)
-    _K15.check("tab", tab, (tab.shape[0],), x.device)
-    if tab.shape[0] < 16 * G:
-        raise ValueError(f"big_prefetch: a table of {tab.shape[0]} words "
-                         f"for {G} rows of 16")
-    if _K15.plain_for(x.device):
+    G, n, dev = x.shape[0], tab.shape[0], x.device
+    _K15.check("x", x, (G, LANES), dev)
+    _K15.check("tab", tab, (n,), dev)
+    if n < 16 * G:
+        raise ValueError(f"big_prefetch: a table of {n} words for {G} "
+                         "rows of 16")
+    if _K15.plain_for(dev):
         return big_prefetch_plain(tab, x)
     out = torch.empty_like(x)
-    _K15.launch(tab.data_ptr(), tab.shape[0], x.data_ptr(), G,
-                out.data_ptr(), _build.stream_handle(x))
+    _K15.launch(tab.data_ptr(), n, x.data_ptr(), G, out.data_ptr(),
+                _build.stream_handle(x))
     return out
 
 

@@ -855,6 +855,85 @@ def test_torch_gpu_probes_match_plain():
         assert torch.equal(fn(*args), plain(*args)), fn.__name__
 
 
+def _int32(rng, shape):
+    return rng.randint(-2 ** 31, 2 ** 31, shape,
+                       dtype=np.int64).astype(np.int32)
+
+
+@pytest.mark.parametrize("R", [1, 31, 512, 2050])
+@pytest.mark.parametrize("reps", [0, 1, 7, 9, 64])
+def test_torch_gpu_roll_register_network(R, reps):
+    """K10 (a warp a row in registers, the rolls by shuffles and register
+    renames) equals roll_plain on every element: a row count that fills
+    no block, rounds of 7 rolls, their tail and no rep at all; a row near
+    INT_MAX makes the + 1 wrap."""
+    rng = np.random.RandomState(R * 100 + reps)
+    x = _int32(rng, (R, 128))
+    x[R // 2] = 2 ** 31 - 1 - np.arange(128)
+    x = torch.as_tensor(x, device="cuda")
+    k = _build.KERNELS["roll"]
+    _build.reset_counts()
+    got = mp.roll(x, reps)
+    assert k.launches == 1 and k.plain_calls == 0
+    assert torch.equal(got, mp.roll_plain(x, reps))
+
+
+@pytest.mark.parametrize("G", [1, 4, 33, 100])
+def test_torch_gpu_big_prefetch_wraps(G):
+    """K15 in one block (G <= 32) and in blocks of 32 rows, on a table
+    whose row sums wrap past INT32_MAX, with x 16-byte aligned and 4 bytes
+    off: equal to big_prefetch_plain."""
+    rng = np.random.RandomState(G)
+    tab_h = rng.randint(2 ** 29, 2 ** 31, 16 * G + 3).astype(np.int32)
+    sums = tab_h[:16 * G].astype(np.int64).reshape(G, 16).sum(1)
+    assert sums.max() > 2 ** 31 - 1
+    tab = torch.as_tensor(tab_h, device="cuda")
+    x = torch.as_tensor(_int32(rng, (G, 128)), device="cuda")
+    buf = torch.empty(G * 128 + 1, dtype=torch.int32, device="cuda")
+    buf[1:] = x.reshape(-1)
+    off = buf[1:].view(G, 128)
+    assert off.is_contiguous() and off.data_ptr() % 16 == 4
+    k = _build.KERNELS["probe_big_prefetch"]
+    _build.reset_counts()
+    for xs in (x, off):
+        got = probes.big_prefetch(tab, xs)
+        assert torch.equal(got, probes.big_prefetch_plain(tab, xs))
+        assert got[:, 0].cpu().numpy().tolist() == sums.astype(
+            np.uint32).view(np.int32).tolist()
+    assert k.launches == 2 and k.plain_calls == 0
+
+
+def test_torch_gpu_launch_path():
+    """Once the library is loaded every kernel's launcher is bound onto
+    its Kernel; a launch the launcher refuses (rowcx's cudaErrorInvalidValue
+    for rows that do not split into its blocks, reached past the wrapper's
+    own check) raises and counts nothing, and leaves the card usable; each
+    wrapper call of K10-K17 counts one launch of its kernel."""
+    _build.load()
+    for k in _build.KERNELS.values():
+        assert k._fn is not None and k._fn.argtypes == k.argtypes, k.name
+    k = _build.KERNELS["rowcx"]
+    x = torch.zeros((100, 128), dtype=torch.int32, device="cuda")
+    out = torch.empty_like(x)
+    before = k.launches
+    with pytest.raises(RuntimeError, match="rowcx kernel: CUDA error 1:"):
+        k.launch(x.data_ptr(), 100, 64, out.data_ptr(),
+                 _build.stream_handle(x))
+    assert k.launches == before
+    torch.cuda.synchronize()
+    calls = [(mp.PRIMS[p][2], lambda p=p: mp.PRIMS[p][0](
+        torch.zeros((256, 128), dtype=torch.int32, device="cuda"), 8))
+        for p in mp.PRIMS]
+    calls += [(K, lambda fn=fn, args=args: fn(*args))
+              for _, K, fn, _, args, _, _ in probes.inputs("cuda")]
+    for K, call in calls:
+        for _ in range(3):
+            before = K.launches
+            call()
+            assert K.launches == before + 1, K.name
+    torch.cuda.synchronize()
+
+
 def test_torch_gpu_encode_batch_matches_native():
     """encode_batch at B = 2 on the card (K1, K2, emission_pack, K3 and K4
     on 2 x 4 slices, no plain version) == the native codec frame by frame;
