@@ -33,8 +33,23 @@
 //   2 * b_max rows (b_max = 1 << min(reps - 1, 7)) and R is a multiple of
 //   it, so the rows past R of a short span meet only each other;
 // - transpose: tile (a, b) of x comes back to (a, b) after two transposes,
-//   so a block holds one 32 x 32 tile and transposes it into a second
-//   shared buffer and back, + 1 each time.
+//   so a block holds one 32 x 32 tile B in registers, in a skewed layout:
+//   lane l, register k holds T[l][(l + k) & 31] of the tile T it stands
+//   for.  A transpose of T is then register j of lane l taking register
+//   (32 - j) & 31 of lane (l + j) & 31, then + 1: 31 independent shuffles,
+//   each with one register index for the whole warp, no select.  Register
+//   j only ever trades with register 32 - j (0 and 16 with themselves), so
+//   the block's four warps, one on each of the SM's sub-partitions, each
+//   hold 8 of the 32 registers (four such pairs; the last warp three and
+//   registers 0 and 16) and need no word from each other: no shared
+//   memory, no barrier.  A warp issues a shuffle every 4 cycles at best
+//   (with one warp a tile, a rep's 62 shuffles had 264 cycles of issue
+//   stalls), so the split lets a rep's shuffles issue four at a time.
+//   Each warp starts at T = B^T, the tile one transpose on: register k of
+//   lane l is B[(l + k) & 31][l], which it gathers for its 8 registers
+//   alone (32 rows a load).  T after the reps is (B + 2 reps)^T, whose
+//   register k of lane l is element ((l + k) & 31, l) of the output tile,
+//   stored there the same way.
 // Bound: device memory, each element read and written once (the reps run
 // on chip); at the tool's shapes (0.25-1 MB) launch latency dominates.
 // The + 1 wraps modulo 2^32 as int32 does in jax (unsigned arithmetic).
@@ -50,7 +65,8 @@ constexpr int CX_COLS = 8;               // columns a block, a warp each
 constexpr int CX_SPAN = 256;             // rows a warp
 constexpr int CX_REGS = CX_SPAN / 32;    // rows a lane
 constexpr int TILE = 32;
-constexpr int TILE_ROWS = 8;
+constexpr int TILE_WARPS = 4;            // warps a tile, a sub-partition each
+constexpr int TILE_SLOTS = TILE / TILE_WARPS;   // registers a lane
 
 __device__ __forceinline__ int wrap_add(int a, int b) {
   return (int)((unsigned)a + (unsigned)b);
@@ -183,25 +199,70 @@ __global__ void __launch_bounds__(CX_COLS * 32)
       out[(r0 + sr + 32 * j) * LANES + c0 + sc] = s[sr + 32 * j][sc];
 }
 
-__global__ void transpose_kernel(const int* __restrict__ x, int W, int reps,
-                                 int* __restrict__ out) {
-  __shared__ int a[TILE][TILE + 1], t[TILE][TILE + 1];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const long long r0 = (long long)blockIdx.y * TILE;
-  const int c0 = blockIdx.x * TILE;
-  for (int r = ty; r < TILE; r += TILE_ROWS)
-    a[r][tx] = x[(r0 + r) * W + c0 + tx];
-  __syncthreads();
-  for (int i = 0; i < reps; ++i) {
-    for (int r = ty; r < TILE; r += TILE_ROWS)
-      t[r][tx] = wrap_add(a[tx][r], 1);
-    __syncthreads();
-    for (int r = ty; r < TILE; r += TILE_ROWS)
-      a[r][tx] = wrap_add(t[tx][r], 1);
-    __syncthreads();
+// the register of the skewed layout that slot s of warp G holds: slots
+// 2p and 2p + 1 hold registers j = 4 G + 1 + p and 32 - j, which a
+// transpose swaps; the last warp's slots 6 and 7 hold registers 0 and 16,
+// which it keeps
+template <int G>
+__device__ constexpr int slot_register(int s) {
+  return G == TILE_WARPS - 1 && s >= 6 ? (s & 1) * 16
+         : s & 1                        ? TILE - (4 * G + 1 + (s >> 1))
+                                        : 4 * G + 1 + (s >> 1);
+}
+
+// one rep's transpose of a warp's slots, then + 1: register j of lane l
+// takes register (32 - j) & 31 of lane (l + j) & 31 (src[s] = lane +
+// slot_register(s)), one register index for the whole warp
+template <bool LAST>
+__device__ __forceinline__ void transpose_pass(const int (&v)[TILE_SLOTS],
+                                               int (&w)[TILE_SLOTS],
+                                               const int (&src)[TILE_SLOTS]) {
+#pragma unroll
+  for (int s = 0; s < TILE_SLOTS; ++s) {
+    if (LAST && s == 6)
+      w[s] = wrap_add(v[s], 1);                      // register 0
+    else
+      w[s] = wrap_add(__shfl_sync(0xffffffffu, v[LAST && s == 7 ? s : s ^ 1],
+                                  src[s]),
+                      1);
   }
-  for (int r = ty; r < TILE; r += TILE_ROWS)
-    out[(r0 + r) * W + c0 + tx] = a[r][tx];
+}
+
+// warp G's part of a tile whose row 0, column `lane` is x[at]
+template <int G>
+__device__ __forceinline__ void transpose_part(const int* __restrict__ x,
+                                               int W, int reps,
+                                               int* __restrict__ out,
+                                               int lane, long long at) {
+  // register k of lane l is B[(l + k) & 31][l]
+  int v[TILE_SLOTS], w[TILE_SLOTS], src[TILE_SLOTS];
+#pragma unroll
+  for (int s = 0; s < TILE_SLOTS; ++s) {
+    src[s] = (lane + slot_register<G>(s)) & 31;
+    v[s] = x[at + (long long)src[s] * W];
+  }
+  for (int i = 0; i < reps; ++i) {
+    transpose_pass<G == TILE_WARPS - 1>(v, w, src);
+    transpose_pass<G == TILE_WARPS - 1>(w, v, src);
+  }
+  // register k of lane l now holds element ((l + k) & 31, l) of the tile
+#pragma unroll
+  for (int s = 0; s < TILE_SLOTS; ++s)
+    out[at + (long long)src[s] * W] = v[s];
+}
+
+__global__ void __launch_bounds__(TILE_WARPS * 32)
+    transpose_kernel(const int* __restrict__ x, int W, int reps,
+                     int* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const long long at =
+      (long long)blockIdx.y * TILE * W + (long long)blockIdx.x * TILE + lane;
+  switch (threadIdx.x >> 5) {
+    case 0: transpose_part<0>(x, W, reps, out, lane, at); break;
+    case 1: transpose_part<1>(x, W, reps, out, lane, at); break;
+    case 2: transpose_part<2>(x, W, reps, out, lane, at); break;
+    default: transpose_part<3>(x, W, reps, out, lane, at);
+  }
 }
 
 }  // namespace
@@ -231,7 +292,7 @@ extern "C" cudaError_t ffv2_transpose(const int* x, int R, int W, int reps,
                                       int* out, cudaStream_t stream) {
   if (R % TILE || W % TILE) return cudaErrorInvalidValue;
   if (R > 0 && W > 0)
-    transpose_kernel<<<dim3(W / TILE, R / TILE), dim3(TILE, TILE_ROWS), 0,
+    transpose_kernel<<<dim3(W / TILE, R / TILE), TILE_WARPS * 32, 0,
                        stream>>>(x, W, reps, out);
   return cudaGetLastError();
 }

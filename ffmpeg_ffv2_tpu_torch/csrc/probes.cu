@@ -7,8 +7,13 @@
 // shift and a lane gather.  On Hopper each is a block reduction or an
 // indexed load:
 // - K13: out = v + max(v); one block reduces the whole (R, 128) array;
-// - K14: out (1, 128) = row max(v[0]) mod 4 of v, read from a shared-memory
-//   scratch copy of v;
+// - K14: out (1, 128) = row max(v[0]) mod 4 of v.  One warp: lane l
+//   loads words l + 32 k of row 0 (k < 4, coalesced), five
+//   __shfl_xor_sync steps give the row's max in every lane, and lane l
+//   copies words l + 32 k of row m = max mod 4 from device memory to out.
+//   The TPU body's scratch copy of v is not part of the function, so
+//   nothing is staged: two dependent loads, no shared memory, no barrier,
+//   and any R >= 4;
 // - K15: row i of out is x[i] * 0 + the sum of tab[16 i .. 16 i + 16),
 //   read from device memory (the table may exceed the 64 KB of
 //   __constant__).  Its work (16 words in, 128 out a row) is nanoseconds,
@@ -77,14 +82,15 @@ __global__ void scalar_extract_kernel(const int* __restrict__ v, int n,
     out[e] = (int)((unsigned)v[e] + (unsigned)m);
 }
 
-__global__ void scalar_in_ds_kernel(const int* __restrict__ v, int R,
-                                    int* __restrict__ out) {
-  extern __shared__ int scr[];                      // [R][128]
-  __shared__ int red[4];
-  for (int e = threadIdx.x; e < R * LANES; e += blockDim.x) scr[e] = v[e];
-  __syncthreads();
-  const int m = floor_mod(row0_max(scr, red), 4);
-  out[threadIdx.x] = scr[m * LANES + threadIdx.x];
+__global__ void __launch_bounds__(32)
+    scalar_in_ds_kernel(const int* __restrict__ v, int* __restrict__ out) {
+  const int lane = threadIdx.x;
+  int m = v[lane];
+#pragma unroll
+  for (int k = 1; k < LANES / 32; ++k) m = max(m, v[lane + 32 * k]);
+  const int* row = v + floor_mod(warp_max(m), 4) * LANES;
+#pragma unroll
+  for (int k = 0; k < LANES / 32; ++k) out[lane + 32 * k] = row[lane + 32 * k];
 }
 
 __global__ void __launch_bounds__(PF_WARPS * 32)
@@ -138,12 +144,7 @@ extern "C" cudaError_t ffv2_probe_scalar_extract(const int* v, int R,
 extern "C" cudaError_t ffv2_probe_scalar_in_ds(const int* v, int R, int* out,
                                                cudaStream_t stream) {
   if (R < 4) return cudaErrorInvalidValue;
-  const size_t smem = (size_t)R * LANES * sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(
-      scalar_in_ds_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  scalar_in_ds_kernel<<<1, LANES, smem, stream>>>(v, R, out);
+  scalar_in_ds_kernel<<<1, 32, 0, stream>>>(v, out);
   return cudaGetLastError();
 }
 

@@ -2,12 +2,12 @@
 (adapt), emission_pack, K6 (adapt_emission), K3 (expand) and K1 (place),
 of K1, K5 (vlc) and the ladder on the Golomb-Rice path, of K7 (rac_lanes,
 the hybrid lane coder), of FFV2's K18 (pvq) and K19 (lap), and of the
-tool kernels K11 (rowcx), K10 (roll) and K15 (big prefetch), at the main
-path's shapes, for the checkout at ``--root``:
+tool kernels K10-K17, at the main path's shapes, for the checkout at
+``--root``:
 
     python3 ffmpeg_ffv2_tpu_torch/tools/kernel_times.py [--root DIR]
         [--cases range,rgb48,bgr0_v4,rice,rice16,rice_bgr0,lanes,ffv2,
-                 lap,rowcx,prefetch,roll]
+                 lap,rowcx,prefetch,roll,transpose,in_ds,probes]
 
 ``--root`` (default: this checkout) is the root of a checkout of the
 repository, whose ``ffmpeg_ffv2_tpu_torch`` and ``chip_smoke.py`` are
@@ -46,11 +46,14 @@ direction, its two 32-row halo slabs at sb 16, its vertical direction);
 ``rowcx`` times K11 at ``tools/microbench_pallas.py``'s shapes
 (``ROWCX_SHAPES``), ``roll`` K10 at them (``ROLL_SHAPES``) and
 ``prefetch`` K15 (``probes.big_prefetch``) on ``tools/probe_mosaic.py``'s
-tables of 12K, 32K and 128K words at G = 4; these two also time the
-launch floor, an empty kernel launched through the checkout's own
-``Kernel.launch`` (``empty_kernel``), and split a call's host enqueue
-into its parts (``host_split_us``: a shape check, ``empty_like``, the
-stream handle, the launch).  Each gives its
+tables of 12K, 32K and 128K words at G = 4, ``transpose`` K12 at
+``tools/microbench_pallas.py``'s shapes (``TRANSPOSE_SHAPES``), ``in_ds``
+K14 and ``probes`` K13, K16 and K17 on ``tools/probe_mosaic.py``'s inputs
+(``probes.inputs``); each is checked against its plain version first, and
+these six also time the launch floor, an empty kernel launched through
+the checkout's own ``Kernel.launch`` (``empty_kernel``), and split a
+call's host enqueue into its parts (``host_split_us``: a shape check,
+``empty_like``, the stream handle, the launch).  Each gives its
 launches a call, the CUDA-event ms around the wrapper, the device time
 alone (``device_ms``), the host's
 enqueue time alone (``host_ms``), the kernels' ``-Xptxas -v``
@@ -109,11 +112,19 @@ def device_ms(fn, reps: int) -> float:
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+TOOL_CASES = ("rowcx", "prefetch", "roll", "transpose", "in_ds",
+              "probes")
 CASES = ("range", "rgb48", "bgr0_v4", "rice", "rice16", "rice_bgr0",
-         "lanes", "ffv2", "lap", "rowcx", "prefetch", "roll")
+         "lanes", "ffv2", "lap") + TOOL_CASES
 ROWCX_SHAPES = ((2048, 64), (512, 64))   # tools/microbench_pallas.py's
 ROLL_SHAPES = ((512, 64), (2048, 64))    # tools/microbench_pallas.py's
+TRANSPOSE_SHAPES = ((128, 32), (512, 32))  # tools/microbench_pallas.py's
 PREFETCH_WORDS = (12, 32, 128)           # K table words, G = 4 rows
+# the kernels of the probes case, by their names in _build.KERNELS
+PROBE_KERNELS = ("probe_scalar_extract", "probe_roll_dynamic",
+                 "probe_taa_rows")
+TOOL_SASS = ("SHFL.IDX", "SHFL.BFLY", "BAR.SYNC", "LDS", "STS", "LDG.E",
+             "STG.E")
 TOOL_REPS = 51              # timed runs of a tool kernel (µs-scale spans)
 HOST_LOOP = 200             # calls a host-clock loop of the host split
 # an empty kernel behind a launcher of K15's arguments, the launch floor
@@ -568,24 +579,7 @@ def main() -> int:
                               sass=sass_counts(_build.library_path(), "lap",
                                                ("MUFU.RCP", "IMAD.HI")))),
               flush=True)
-    if "rowcx" in todo:
-        from ffmpeg_ffv2_tpu_torch.tools import microbench_prims as mp
-        res = {}
-        for R, reps in ROWCX_SHAPES:
-            x = torch.arange(R * mp.LANES, dtype=torch.int32,
-                             device="cuda").reshape(R, mp.LANES)
-            res[f"({R}, 128) x{reps}"] = dict(
-                ms=cs.cuda_ms(lambda: mp.rowcx(x, reps), REPS),
-                device_ms=device_ms(lambda: mp.rowcx(x, reps), REPS),
-                host_ms=host_ms(lambda: mp.rowcx(x, reps), REPS))
-        print(json.dumps(dict(card=card, root=root, case="rowcx", shapes=res,
-                              ptxas=ptxas_of(_build.library_path(),
-                                             "rowcx"),
-                              sass=sass_counts(_build.library_path(),
-                                               "rowcx", ("SHFL.BFLY",
-                                                         "BAR.SYNC")))),
-              flush=True)
-    if "prefetch" in todo or "roll" in todo:
+    if set(todo) & set(TOOL_CASES):
         floor = empty_kernel(_build)
         x4 = torch.zeros((4, 128), dtype=torch.int32, device="cuda")
         out4 = torch.empty_like(x4)
@@ -608,54 +602,68 @@ def main() -> int:
             empty_like=loop_us(lambda: torch.empty_like(x4)),
             stream_handle=loop_us(lambda: _build.stream_handle(x4)),
             launch_empty=loop_us(lambda: floor.launch(*fargs)))
+
+        def tool_times(label, K, fn, plain):
+            """fn() checked against plain() and for one launch of K, then
+            its times and host µs a call."""
+            before = K.launches
+            got = fn()
+            if K.launches != before + 1 or not torch.equal(got, plain()):
+                raise AssertionError(f"{label}: wrong result or launches")
+            return dict(**timed(fn), call_host_us=loop_us(fn))
+
+        def tool_line(case, res, names, ops=TOOL_SASS):
+            lib = _build.library_path()
+            print(json.dumps(dict(
+                card=card, root=root, case=case, shapes=res,
+                launch_floor=launch_floor, host_split_us=host_split_us,
+                ptxas={f: d for n in names
+                       for f, d in ptxas_of(lib, n).items()},
+                sass={f: d for n in names
+                      for f, d in sass_counts(lib, n, ops).items()})),
+                flush=True)
     if "prefetch" in todo:
         from ffmpeg_ffv2_tpu_torch.tools import probes
+        k15 = _build.KERNELS["probe_big_prefetch"]
         res = {}
         for n in PREFETCH_WORDS:
             tab = torch.arange(n * 1024, dtype=torch.int32, device="cuda")
-            k15 = _build.KERNELS["probe_big_prefetch"]
-            before = k15.launches
-            got = probes.big_prefetch(tab, x4)
-            if (k15.launches != before + 1 or int(got[0, 0]) != 120
-                    or not torch.equal(got, probes.big_prefetch_plain(
-                        tab, x4))):
+            if int(probes.big_prefetch(tab, x4)[0, 0]) != 120:
                 raise AssertionError(f"prefetch {n}K: wrong result")
-            res[f"{n}K G=4"] = dict(
-                **timed(lambda: probes.big_prefetch(tab, x4)),
-                call_host_us=loop_us(lambda: probes.big_prefetch(tab, x4)))
-        print(json.dumps(dict(card=card, root=root, case="prefetch",
-                              shapes=res, launch_floor=launch_floor,
-                              host_split_us=host_split_us,
-                              ptxas=ptxas_of(_build.library_path(),
-                                             "big_prefetch"),
-                              sass=sass_counts(_build.library_path(),
-                                               "big_prefetch",
-                                               ("SHFL.BFLY", "BAR.SYNC",
-                                                "LDG.E", "LDG.E.128",
-                                                "STG.E", "STG.E.128")))),
-              flush=True)
-    if "roll" in todo:
+            res[f"{n}K G=4"] = tool_times(
+                f"prefetch {n}K", k15, lambda: probes.big_prefetch(tab, x4),
+                lambda: probes.big_prefetch_plain(tab, x4))
+        tool_line("prefetch", res, ("big_prefetch",),
+                  ("SHFL.BFLY", "BAR.SYNC", "LDG.E", "LDG.E.128", "STG.E",
+                   "STG.E.128"))
+    for case, prim, shapes, sass_name in (
+            ("rowcx", "rowcx", ROWCX_SHAPES, "rowcx_kernel"),
+            ("roll", "roll", ROLL_SHAPES, "roll_kernel"),
+            ("transpose", "transpose", TRANSPOSE_SHAPES, "transpose_kernel")):
+        if case not in todo:
+            continue
         from ffmpeg_ffv2_tpu_torch.tools import microbench_prims as mp
+        fn, plain, K = mp.PRIMS[prim][:3]
         res = {}
-        for R, reps in ROLL_SHAPES:
+        for R, reps in shapes:
             x = torch.arange(R * mp.LANES, dtype=torch.int32,
                              device="cuda").reshape(R, mp.LANES)
-            if not torch.equal(mp.roll(x, reps), mp.roll_plain(x, reps)):
-                raise AssertionError(f"roll ({R}, 128) x{reps}: wrong")
-            res[f"({R}, 128) x{reps}"] = dict(
-                **timed(lambda: mp.roll(x, reps)),
-                call_host_us=loop_us(lambda: mp.roll(x, reps)))
-        print(json.dumps(dict(card=card, root=root, case="roll", shapes=res,
-                              launch_floor=launch_floor,
-                              host_split_us=host_split_us,
-                              ptxas=ptxas_of(_build.library_path(),
-                                             "roll_kernel"),
-                              sass=sass_counts(_build.library_path(),
-                                               "roll_kernel",
-                                               ("SHFL.IDX", "BAR.SYNC",
-                                                "LDS", "STS", "LDG.E",
-                                                "STG.E")))),
-              flush=True)
+            label = f"({R}, 128) x{reps}"
+            res[label] = tool_times(f"{case} {label}", K,
+                                    lambda: fn(x, reps),
+                                    lambda: plain(x, reps))
+        tool_line(case, res, (sass_name,))
+    for case, names in (("in_ds", ("probe_scalar_in_ds",)),
+                        ("probes", PROBE_KERNELS)):
+        if case not in todo:
+            continue
+        from ffmpeg_ffv2_tpu_torch.tools import probes
+        res = {}
+        for label, K, fn, plain, a, _, _ in probes.inputs("cuda"):
+            if K.name in names:
+                res[f"{K.name}: {label}"] = tool_times(
+                    label, K, lambda: fn(*a), lambda: plain(*a))
+        tool_line(case, res, [n[len("probe_"):] for n in names])
     return 0
 
 

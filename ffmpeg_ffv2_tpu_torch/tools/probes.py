@@ -76,10 +76,11 @@ def scalar_extract(v):
 
 
 def scalar_in_ds(v):
-    """K14 wrapper: v contiguous int32 (R, 128), 4 <= R <= 256 -> (1, 128)."""
+    """K14 wrapper: v contiguous int32 (R, 128), R >= 4 (the probe reads
+    one of rows 0..3) -> (1, 128)."""
     R = _rows(_K14, v)
-    if not 4 <= R <= 256:
-        raise ValueError(f"scalar_in_ds: {R} rows, not 4..256")
+    if R < 4:
+        raise ValueError(f"scalar_in_ds: {R} rows, not 4 or more")
     if _K14.plain_for(v.device):
         return scalar_in_ds_plain(v)
     out = torch.empty((1, LANES), dtype=torch.int32, device=v.device)
@@ -156,11 +157,14 @@ def inputs(device):
     return probes
 
 
-def _bytes(args, out) -> int:
-    """Each input read once and the output written once (K15 reads 16
-    table words a row, not the table)."""
+def _bytes(K, args, out) -> int:
+    """The words the function must move: each input read once and the
+    output written once, but K14 reads two rows of v (row 0 and the row it
+    picks), not v, and K15 16 table words a row, not the table."""
+    if K is _K14:
+        return 4 * (2 * LANES + out.numel())
     n = sum(a.numel() for a in args if a.dim() == 2) + out.numel()
-    if len(args) == 2 and args[0].dim() == 1:
+    if K is _K15:
         n += 16 * args[1].shape[0]
     return 4 * n
 
@@ -174,7 +178,7 @@ def run(device="cuda", timing_reps=20) -> list:
     for name, K, fn, plain, args, result, expected in inputs(device):
         got, launches = launches_of(lambda: fn(*args), (K,))
         ref, plain_ms = device_ms_once(lambda: plain(*args), device)
-        nbytes, ops = _bytes(args, got), got.numel()
+        nbytes, ops = _bytes(K, args, got), got.numel()
         bnd, by = bound_ms(nbytes, ops)
         out.append(dict(
             name=name, kernel=K.name, result=result(got), expected=expected,

@@ -878,6 +878,45 @@ def test_torch_gpu_roll_register_network(R, reps):
     assert torch.equal(got, mp.roll_plain(x, reps))
 
 
+@pytest.mark.parametrize("shape", [(32, 32), (64, 96), (512, 128)])
+@pytest.mark.parametrize("reps", [0, 1, 3, 32])
+def test_torch_gpu_transpose_skewed_registers(shape, reps):
+    """K12 (a 32 x 32 tile in skewed registers, split over four warps by
+    the register pairs a transpose swaps; 31 shuffles a transpose) equals
+    transpose_plain on every element: one tile, a non-square grid of
+    tiles and the tool's shape, no rep at all; a row near INT_MAX makes
+    the + 1 wrap."""
+    rng = np.random.RandomState(shape[1] * 100 + reps)
+    x = _int32(rng, shape)
+    x[shape[0] // 2] = 2 ** 31 - 1 - np.arange(shape[1]) % 3
+    x = torch.as_tensor(x, device="cuda")
+    k = _build.KERNELS["transpose"]
+    _build.reset_counts()
+    got = mp.transpose(x, reps)
+    assert k.launches == 1 and k.plain_calls == 0
+    assert torch.equal(got, mp.transpose_plain(x, reps))
+
+
+@pytest.mark.parametrize("R", [4, 8, 300, 4096])
+def test_torch_gpu_scalar_in_ds_one_warp(R):
+    """K14 (one warp, no staging) equals scalar_in_ds_plain where row 0's
+    max is negative (jnp's floor modulo picks the row), INT_MIN or
+    INT_MAX, up to R = 4096, past the old 256-row cap."""
+    rng = np.random.RandomState(R)
+    k = _build.KERNELS["probe_scalar_in_ds"]
+    _build.reset_counts()
+    tops = (-1, -2, -3, -4, -2 ** 31, 2 ** 31 - 1)
+    for top in tops:
+        v = rng.randint(-2 ** 31, 2 ** 31, (R, 128), dtype=np.int64)
+        v[0] = top - rng.randint(0, top + 2 ** 31 + 1, 128, dtype=np.int64)
+        v[0, rng.randint(128)] = top
+        v = torch.as_tensor(v.astype(np.int32), device="cuda")
+        got = probes.scalar_in_ds(v)
+        assert torch.equal(got, probes.scalar_in_ds_plain(v)), top
+        assert torch.equal(got[0], v[top % 4]), top
+    assert k.launches == len(tops) and k.plain_calls == 0
+
+
 @pytest.mark.parametrize("G", [1, 4, 33, 100])
 def test_torch_gpu_big_prefetch_wraps(G):
     """K15 in one block (G <= 32) and in blocks of 32 rows, on a table
