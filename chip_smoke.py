@@ -924,8 +924,11 @@ def sort_tools_checks(out, card) -> dict:
     once with its launches counted (the path), then holds the result
     against the plain version on every element (and the sort against
     torch.sort + gather: whole where the keys are duplicate-free, else the
-    keys), then times kernel, plain and library.  Returns the path's
+    keys), then times kernel, plain and library; then holds K13 and K16
+    against their plain versions at the row counts of
+    ``probes.edge_inputs`` (launches not counted).  Returns the path's
     launch counts."""
+    import torch
     from ffmpeg_ffv2_tpu_torch import _build
     from ffmpeg_ffv2_tpu_torch.tools import microbench_prims, microbench_sort
     from ffmpeg_ffv2_tpu_torch.tools import probes
@@ -956,6 +959,16 @@ def sort_tools_checks(out, card) -> dict:
             raise AssertionError(f"probe {r['name']}: {r['result']}")
         del r["output"]
         results.setdefault(r["kernel"], []).append(r)
+    # K13 and K16 beside the tool's 8 rows, on hostile words (not counted
+    # as the path's launches)
+    edges = {}
+    for label, K, fn, plain, v in probes.edge_inputs("cuda"):
+        same = torch.equal(fn(v), plain(v))
+        log(f"phase 14: {K.name} {label}: equal to plain {same} [{card}]")
+        if not same:
+            raise AssertionError(f"{K.name} {label}: kernel differs from "
+                                 "plain")
+        edges.setdefault(K.name, []).append(label)
     # the entry's shape: K8 at unsort x10, K9 at layout, the largest tool
     # case; every shape rides in the entry
     main_case = {"sort": "unsort (1,4194304)x10",
@@ -981,6 +994,8 @@ def sort_tools_checks(out, card) -> dict:
             "compare_exchanges", "network_substages", "ms_per_pass",
             "library_ms_per_pass", "mode", "W", "Lc", "R", "kernels",
             "profiled_ms", "profiled_kernels", "device_ms") if k in r}
+        if name in edges:
+            extra["equal_to_plain_at"] = edges[name]
         entry(out, name, path, max(x["max_abs_err"] for x in rs), r["ms"],
               r["plain_ms"], r["library_ms"], bnd, shape=r["name"], **extra)
         out[name]["shapes"] = [

@@ -4,9 +4,21 @@
 // p5_taa_rows).  On the TPU they ask whether Mosaic lowers a vector-to-
 // scalar reduction, a data-dependent row slice of scratch, a large scalar
 // prefetch table read at traced indices, a lane roll by a data-dependent
-// shift and a lane gather.  On Hopper each is a block reduction or an
+// shift and a lane gather.  On Hopper each is a warp reduction or an
 // indexed load:
-// - K13: out = v + max(v); one block reduces the whole (R, 128) array;
+// - K13: out = v + max(v), the add wrapping as int32.  Up to 8 rows (the
+//   tool runs 8) one warp holds the whole array in registers: lane l loads
+//   words l + 32 k, k < 4 R, all issued before any is used, takes their
+//   max, five __shfl_xor_sync steps give the max to every lane, and lane l
+//   stores each of its words plus the max from registers.  The loop is
+//   unrolled to 32 registers: k < 4 R guards each load, a register past
+//   4 R holds INT_MIN, so the max runs unguarded over all 32 (a chain of
+//   3-way max instructions), and the stores end at word 4 R by a return
+//   (a guard around each row's stores made nvcc reload out's address in
+//   every row).  One kernel serves every R <= 8; no shared memory, no
+//   barrier.  Past 8 rows the words outgrow a lane's registers, and one
+//   block of 1024 threads reduces the array (grid-stride, its 32 warps'
+//   maxima combined in shared memory behind two barriers), then adds;
 // - K14: out (1, 128) = row max(v[0]) mod 4 of v.  One warp: lane l
 //   loads words l + 32 k of row 0 (k < 4, coalesced), five
 //   __shfl_xor_sync steps give the row's max in every lane, and lane l
@@ -25,8 +37,16 @@
 //   words l + 32 k of the row, k < 4 (each a coalesced 128-byte store, so
 //   any 4-byte aligned x and out will do).  No shared memory, no barrier;
 //   nvcc drops the read of x, since x * 0 is 0 for every x;
-// - K16: out = roll(v, (128 - max(v[0]) mod 128) mod 128) along the lanes;
-//   every block reduces row 0 itself, so blocks need no order;
+// - K16: out = roll(v, sh) along the lanes, sh = (128 - max(v[0]) mod 128)
+//   mod 128, so out[r, l] = v[r, (l - sh) & 127].  A warp takes ROLL_ROWS
+//   rows and finds sh itself, as K14 finds its row: four words of row 0 a
+//   lane, their max, five __shfl_xor_sync steps, the floor modulo twice.
+//   Then lane l loads word (l + 32 k - sh) & 127 of each of its rows, k <
+//   4 (32 consecutive words taken modulo 128: at most two 128-byte lines a
+//   load), all before any store, and stores them at l + 32 k (coalesced).
+//   The grid's last warp, short of rows, has one row.  No warp waits for
+//   another: blocks of up to ROLL_WARPS warps, one an SM sub-partition, no
+//   shared memory, no barrier, any R;
 // - K17: out[r, l] = v[r, idx[l]] for idx in [0, 128).
 // mod is the floor modulo of jnp's %, sums and adds wrap as int32 does.
 // Bound: launch latency; the arrays are a few KB (K15's table up to 512
@@ -39,9 +59,12 @@
 namespace {
 
 constexpr int LANES = 128;
-constexpr int ROWS = 8;            // rows a block for K16 and K17
+constexpr int ROWS = 8;            // rows a block for K17
 constexpr int PF_WORDS = 16;       // K15's table words a row
 constexpr int PF_WARPS = 32;       // K15's rows a block, a warp each
+constexpr int SE_WARP_ROWS = 8;    // K13's rows in one warp's registers
+constexpr int ROLL_ROWS = 2;       // K16's rows a warp
+constexpr int ROLL_WARPS = 4;      // K16's warps a block
 
 __device__ __forceinline__ int floor_mod(int a, int m) {
   const int r = a % m;
@@ -53,19 +76,32 @@ __device__ __forceinline__ int warp_max(int v) {
   return v;
 }
 
-// max over the 128 lanes of row 0, for a block of 128 * rows threads
-__device__ int row0_max(const int* __restrict__ v, int* red) {
-  const int t = threadIdx.y * LANES + threadIdx.x;
-  if (t < LANES) {
-    const int m = warp_max(v[t]);
-    if ((t & 31) == 0) red[t >> 5] = m;
+// K13 at 1 <= R <= 8 rows: one warp, the array in its registers; lane l
+// holds words l + 32 k, k < n = 4 R, and INT_MIN in the rest
+__global__ void __launch_bounds__(32)
+    scalar_extract_warp_kernel(const int* __restrict__ v, int R,
+                               int* __restrict__ out) {
+  constexpr int W = SE_WARP_ROWS * LANES / 32;
+  const int lane = threadIdx.x;
+  const int n = R * LANES / 32;
+  int w[W];
+#pragma unroll
+  for (int k = 0; k < W; ++k) w[k] = k < n ? v[lane + 32 * k] : INT_MIN;
+  int m = w[0];
+#pragma unroll
+  for (int k = 1; k < W; ++k) m = max(m, w[k]);
+  const unsigned add = (unsigned)warp_max(m);
+#pragma unroll
+  for (int k = 0; k < W; ++k) {
+    if (k == n) return;
+    out[lane + 32 * k] = (int)((unsigned)w[k] + add);
   }
-  __syncthreads();
-  return max(max(red[0], red[1]), max(red[2], red[3]));
 }
 
-__global__ void scalar_extract_kernel(const int* __restrict__ v, int n,
-                                      int* __restrict__ out) {
+// K13 past 8 rows: one block of 1024 threads over n = R * 128 words
+__global__ void __launch_bounds__(1024)
+    scalar_extract_block_kernel(const int* __restrict__ v, int n,
+                                int* __restrict__ out) {
   __shared__ int red[32];
   int m = INT_MIN;
   for (int e = threadIdx.x; e < n; e += blockDim.x) m = max(m, v[e]);
@@ -111,15 +147,45 @@ __global__ void __launch_bounds__(PF_WARPS * 32)
         (int)((unsigned)x[row + lane + 32 * k] * 0u + sum);
 }
 
-__global__ void roll_dynamic_kernel(const int* __restrict__ v, int R,
-                                    int* __restrict__ out) {
-  __shared__ int red[4];
-  const int r = floor_mod(row0_max(v, red), LANES);
-  const int sh = floor_mod(LANES - r, LANES);
-  const long long row = (long long)blockIdx.x * ROWS + threadIdx.y;
-  const int l = threadIdx.x;
-  if (row < R)
-    out[row * LANES + l] = v[row * LANES + ((l - sh) & (LANES - 1))];
+// N rows of K16 from row r0: every load before any store
+template <int N>
+__device__ __forceinline__ void roll_rows(const int* __restrict__ v,
+                                          int* __restrict__ out,
+                                          long long r0, int lane, int sh) {
+  int w[N][LANES / 32];
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int k = 0; k < LANES / 32; ++k)
+      w[j][k] = v[(r0 + j) * LANES + ((lane + 32 * k - sh) & (LANES - 1))];
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int k = 0; k < LANES / 32; ++k)
+      out[(r0 + j) * LANES + lane + 32 * k] = w[j][k];
+}
+
+// K16: warp g of the grid takes rows ROLL_ROWS g .. ROLL_ROWS g + ROLL_ROWS
+__global__ void __launch_bounds__(ROLL_WARPS * 32)
+    roll_dynamic_kernel(const int* __restrict__ v, int R,
+                        int* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const long long r0 =
+      ((long long)blockIdx.x * ROLL_WARPS + (threadIdx.x >> 5)) * ROLL_ROWS;
+  if (r0 >= R) return;                   // a whole warp: no shuffle left
+  int m = v[lane];
+#pragma unroll
+  for (int k = 1; k < LANES / 32; ++k) m = max(m, v[lane + 32 * k]);
+  const int sh = floor_mod(LANES - floor_mod(warp_max(m), LANES), LANES);
+  // a guard between a row's loads and its stores would hold the next
+  // row's loads behind them, so the guard picks the whole copy: the grid's
+  // last warp, short of rows, has one row
+  static_assert(ROLL_ROWS == 2, "the short warp copies one row");
+  if (r0 + ROLL_ROWS <= R) {
+    roll_rows<ROLL_ROWS>(v, out, r0, lane, sh);
+  } else {
+    roll_rows<1>(v, out, r0, lane, sh);
+  }
 }
 
 __global__ void taa_rows_kernel(const int* __restrict__ v,
@@ -136,7 +202,10 @@ __global__ void taa_rows_kernel(const int* __restrict__ v,
 extern "C" cudaError_t ffv2_probe_scalar_extract(const int* v, int R,
                                                  int* out,
                                                  cudaStream_t stream) {
-  if (R > 0) scalar_extract_kernel<<<1, 1024, 0, stream>>>(v, R * LANES, out);
+  if (R > SE_WARP_ROWS)
+    scalar_extract_block_kernel<<<1, 1024, 0, stream>>>(v, R * LANES, out);
+  else if (R > 0)
+    scalar_extract_warp_kernel<<<1, 32, 0, stream>>>(v, R, out);
   return cudaGetLastError();
 }
 
@@ -164,9 +233,12 @@ extern "C" cudaError_t ffv2_probe_big_prefetch(const int* tab, int n_tab,
 // v, out: (R, 128).
 extern "C" cudaError_t ffv2_probe_roll_dynamic(const int* v, int R, int* out,
                                                cudaStream_t stream) {
-  if (R > 0)
-    roll_dynamic_kernel<<<(R + ROWS - 1) / ROWS, dim3(LANES, ROWS), 0,
-                          stream>>>(v, R, out);
+  if (R > 0) {
+    const int warps = (R + ROLL_ROWS - 1) / ROLL_ROWS;
+    const int blocks = (warps + ROLL_WARPS - 1) / ROLL_WARPS;
+    const int threads = 32 * (warps < ROLL_WARPS ? warps : ROLL_WARPS);
+    roll_dynamic_kernel<<<blocks, threads, 0, stream>>>(v, R, out);
+  }
   return cudaGetLastError();
 }
 

@@ -49,7 +49,10 @@ direction, its two 32-row halo slabs at sb 16, its vertical direction);
 tables of 12K, 32K and 128K words at G = 4, ``transpose`` K12 at
 ``tools/microbench_pallas.py``'s shapes (``TRANSPOSE_SHAPES``), ``in_ds``
 K14 and ``probes`` K13, K16 and K17 on ``tools/probe_mosaic.py``'s inputs
-(``probes.inputs``); each is checked against its plain version first, and
+(``probes.inputs``), and K13 and K16 on those inputs grown to the rows of
+``PROBE_TAIL_ROWS`` (``arange``; K16 ``% 128``: K13's block form past 8
+rows, K16's grid of several blocks); each is checked against its plain
+version first, and
 these six also time the launch floor, an empty kernel launched through
 the checkout's own ``Kernel.launch`` (``empty_kernel``), and split a
 call's host enqueue into its parts (``host_split_us``: a shape check,
@@ -123,6 +126,7 @@ PREFETCH_WORDS = (12, 32, 128)           # K table words, G = 4 rows
 # the kernels of the probes case, by their names in _build.KERNELS
 PROBE_KERNELS = ("probe_scalar_extract", "probe_roll_dynamic",
                  "probe_taa_rows")
+PROBE_TAIL_ROWS = (9, 4096)   # K13 and K16 past the tool's 8 rows
 TOOL_SASS = ("SHFL.IDX", "SHFL.BFLY", "BAR.SYNC", "LDS", "STS", "LDG.E",
              "STG.E")
 TOOL_REPS = 51              # timed runs of a tool kernel (µs-scale spans)
@@ -663,6 +667,17 @@ def main() -> int:
             if K.name in names:
                 res[f"{K.name}: {label}"] = tool_times(
                     label, K, lambda: fn(*a), lambda: plain(*a))
+        for R in PROBE_TAIL_ROWS if case == "probes" else ():
+            x = torch.arange(R * 128, dtype=torch.int32,
+                             device="cuda").reshape(R, 128)
+            for name, fn, plain, xs in (
+                    ("probe_scalar_extract", probes.scalar_extract,
+                     probes.scalar_extract_plain, x),
+                    ("probe_roll_dynamic", probes.roll_dynamic,
+                     probes.roll_dynamic_plain, x % 128)):
+                label = f"{name}: ({R}, 128)"
+                res[label] = tool_times(label, _build.KERNELS[name],
+                                        lambda: fn(xs), lambda: plain(xs))
         tool_line(case, res, [n[len("probe_"):] for n in names])
     return 0
 

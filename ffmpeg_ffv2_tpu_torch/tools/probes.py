@@ -157,6 +157,35 @@ def inputs(device):
     return probes
 
 
+EDGE_ROWS = (1, 9, 4096)
+
+
+def edge_inputs(device):
+    """K13 and K16 at row counts beside the tool's 8 (one row; 9, K13's
+    first past its one-warp form; 4096), on hostile words: (label, kernel,
+    wrapper, plain, v).  K13's max is INT_MAX in the last row, so
+    the add wraps; K16's row-0 max is -129, where jnp's floor modulo and
+    C's differ in the inner step."""
+    rng = np.random.RandomState(0)
+
+    def words(R, row0_max=None):
+        v = rng.randint(-2 ** 31, 2 ** 31 - 1, (R, LANES), dtype=np.int64)
+        v[R - 1, rng.randint(LANES)] = 2 ** 31 - 1
+        if row0_max is not None:
+            v[0] = row0_max - rng.randint(0, row0_max + 2 ** 31 + 1, LANES,
+                                          dtype=np.int64)
+            v[0, rng.randint(LANES)] = row0_max
+        return torch.as_tensor(v.astype(np.int32), device=device)
+
+    out = []
+    for R in EDGE_ROWS:
+        out += [(f"R={R}, max INT_MAX", _K13, scalar_extract,
+                 scalar_extract_plain, words(R)),
+                (f"R={R}, row 0 max -129", _K16, roll_dynamic,
+                 roll_dynamic_plain, words(R, -129))]
+    return out
+
+
 def _bytes(K, args, out) -> int:
     """The words the function must move: each input read once and the
     output written once, but K14 reads two rows of v (row 0 and the row it

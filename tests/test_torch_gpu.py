@@ -917,6 +917,48 @@ def test_torch_gpu_scalar_in_ds_one_warp(R):
     assert k.launches == len(tops) and k.plain_calls == 0
 
 
+@pytest.mark.parametrize("R", [1, 7, 8, 9, 24, 4096])
+def test_torch_gpu_scalar_extract_warp_and_block(R):
+    """K13 (one warp holding the array in registers up to 8 rows; one
+    block of 1024 threads past 8 rows) equals scalar_extract_plain where
+    the max is INT_MAX in the last row (the add wraps), where every word is
+    INT_MIN, where every word is negative, and on random words."""
+    rng = np.random.RandomState(R)
+    k = _build.KERNELS["probe_scalar_extract"]
+    _build.reset_counts()
+    cases = []
+    for hi in (2 ** 31 - 1, -1, 2 ** 20):
+        v = rng.randint(-2 ** 31, hi, (R, 128), dtype=np.int64)
+        v[R - 1, rng.randint(128)] = hi
+        cases.append(v.astype(np.int32))
+    cases.append(np.full((R, 128), -2 ** 31, np.int32))
+    for v in cases:
+        x = torch.as_tensor(v, device="cuda")
+        got = probes.scalar_extract(x)
+        assert torch.equal(got, probes.scalar_extract_plain(x)), int(x.max())
+    assert k.launches == len(cases) and k.plain_calls == 0
+
+
+@pytest.mark.parametrize("R", [1, 7, 8, 9, 300, 4096])
+def test_torch_gpu_roll_dynamic_warps(R):
+    """K16 (warps of two rows, each reducing row 0 itself) equals
+    roll_dynamic_plain where row 0's max is negative (-1..-4, -128, -129),
+    INT_MIN or INT_MAX; an odd R leaves a warp's second row past v."""
+    rng = np.random.RandomState(R)
+    k = _build.KERNELS["probe_roll_dynamic"]
+    _build.reset_counts()
+    tops = (-1, -2, -3, -4, -128, -129, -2 ** 31, 2 ** 31 - 1)
+    for top in tops:
+        v = _int32(rng, (R, 128)).astype(np.int64)
+        v[0] = top - rng.randint(0, top + 2 ** 31 + 1, 128, dtype=np.int64)
+        v[0, rng.randint(128)] = top
+        v = torch.as_tensor(v.astype(np.int32), device="cuda")
+        got = probes.roll_dynamic(v)
+        assert torch.equal(got, probes.roll_dynamic_plain(v)), top
+        assert torch.equal(got, torch.roll(v, (128 - top % 128) % 128, 1))
+    assert k.launches == len(tops) and k.plain_calls == 0
+
+
 @pytest.mark.parametrize("G", [1, 4, 33, 100])
 def test_torch_gpu_big_prefetch_wraps(G):
     """K15 in one block (G <= 32) and in blocks of 32 rows, on a table

@@ -1,8 +1,10 @@
 """The order arguments of the redesigned tool kernels K10 (``roll_kernel``,
 ``ffmpeg_ffv2_tpu_torch/csrc/prims.cu``), K12 (``transpose_kernel``,
-``csrc/prims.cu``), K14 (``scalar_in_ds_kernel``, ``csrc/probes.cu``) and
-K15 (``big_prefetch_kernel``, ``csrc/probes.cu``), on the CPU; and the
-launch path that every wrapper shares (``_build.Kernel``).
+``csrc/prims.cu``), K13 (``scalar_extract_warp_kernel`` and, past 8 rows,
+``scalar_extract_block_kernel``, ``csrc/probes.cu``), K14
+(``scalar_in_ds_kernel``), K15 (``big_prefetch_kernel``) and K16
+(``roll_dynamic_kernel``, all three ``csrc/probes.cu``), on the CPU; and
+the launch path that every wrapper shares (``_build.Kernel``).
 
 Each model below runs its kernel's design on numpy, lane by lane and
 register by register: K10's row in a warp's registers (lane l holds
@@ -14,15 +16,25 @@ registers (pairs j, 32 - j; 0 and 16) of the skewed layout (lane l,
 register k: T[l][(l + k) & 31]),
 each transpose a shuffle of register (32 - j) & 31 from lane (l + j) & 31
 a register j, one register index for the whole warp, then + 1, and each
-register k stored to row (l + k) & 31 of column l; K14's
+register k stored to row (l + k) & 31 of column l; K13's one warp up to
+8 rows (lane l holding words l + 32 k, k < 4 R, in its 32 registers,
+INT_MIN in the rest, their max, five xor shuffles, each word plus the max
+in unsigned 32-bit arithmetic), and past
+8 rows its block of 1024 threads (a grid-stride max from INT_MIN, each
+warp's xor shuffles, the 32 warps' maxima combined by warp 0); K14's
 one warp, four words of row 0 a lane, a max, five xor shuffles and
 jnp's floor modulo picking the row; K15's warp a row, lanes l and l + 16
 holding table word l, four xor shuffles adding in unsigned 32-bit
-arithmetic, and lane l writing words l + 32 k, k < 4.  No model is a
+arithmetic, and lane l writing words l + 32 k, k < 4; K16's warps of two
+rows, each reducing row 0 itself (four words a lane, five xor shuffles,
+the floor modulo twice), then loading word (l + 32 k - sh) & 127 of each
+of its rows and storing it at l + 32 k, the grid's last warp, when short
+of rows, copying its one row.  No model is a
 plain version: each is held against the plain version and against the
 TPU body of the JAX tool (``tools/microbench_pallas.py:roll_kernel`` and
-``transpose_kernel``, ``tools/probe_mosaic.py``'s ``p1b_scalar_in_ds``
-and ``p2_big_prefetch`` kernels), run in Pallas interpret mode."""
+``transpose_kernel``, ``tools/probe_mosaic.py``'s ``p1_scalar_extract``,
+``p1b_scalar_in_ds``, ``p2_big_prefetch`` and ``p4_roll_dynamic``
+kernels), run in Pallas interpret mode."""
 
 import functools
 import importlib.util
@@ -324,9 +336,10 @@ def in_ds_network(v):
     return out
 
 
-def _pallas_in_ds(v):
-    """The kernel body of probe_mosaic.p1b_scalar_in_ds (captured from the
-    tool's own call) on ``v``, its scratch sized to v."""
+@functools.lru_cache(maxsize=None)
+def _tool_body(probe, expected):
+    """The kernel body of ``probe_mosaic.<probe>``, captured from the
+    tool's own call (run in interpret mode, its result checked)."""
     mod = _load("probe_mosaic")
     bodies = []
     real = pl.pallas_call
@@ -337,11 +350,17 @@ def _pallas_in_ds(v):
 
     mod.pl.pallas_call = capture
     try:
-        assert mod.p1b_scalar_in_ds() == 4
+        assert getattr(mod, probe)() == expected
     finally:
         mod.pl.pallas_call = real
-    return np.asarray(real(
-        bodies[0], interpret=True,
+    return bodies[0]
+
+
+def _pallas_in_ds(v):
+    """The kernel body of probe_mosaic.p1b_scalar_in_ds on ``v``, its
+    scratch sized to v."""
+    return np.asarray(pl.pallas_call(
+        _tool_body("p1b_scalar_in_ds", 4), interpret=True,
         out_shape=jax.ShapeDtypeStruct((1, LANES), jnp.int32),
         scratch_shapes=[pltpu.VMEM(v.shape, jnp.int32)])(jnp.asarray(v)))
 
@@ -364,6 +383,154 @@ def test_torch_in_ds_network_matches_plain_and_pallas(R, top):
         probes.scalar_in_ds_plain(torch.as_tensor(v)).numpy(), got)
     np.testing.assert_array_equal(
         probes.scalar_in_ds(torch.as_tensor(v)).numpy(), got)
+
+
+INT_MIN, INT_MAX = -2 ** 31, 2 ** 31 - 1
+SE_WARP_ROWS, BLOCK = 8, 1024        # K13's one-warp rows, its block
+ROLL_ROWS = 2                        # K16's rows a warp
+
+
+def butterfly_max(m):
+    """Five __shfl_xor_sync max steps over the last axis, a warp's lanes;
+    every lane ends with the warp's max."""
+    for o in (16, 8, 4, 2, 1):
+        m = np.maximum(m, m[..., LANE ^ o])
+    assert (m == m[..., :1]).all()
+    return m
+
+
+def scalar_extract_network(v):
+    """K13 on numpy.  Up to 8 rows, one warp: lane l holds words l + 32 k
+    in registers k < 4 R of its 32 and INT_MIN in the rest (neither loaded
+    nor stored), the max of all 32, the butterfly, each word plus the max
+    (uint32).
+    Past 8 rows, the block: thread t's max from INT_MIN over words t +
+    1024 j, each warp's butterfly, warp 0's butterfly over the 32 warps'
+    maxima, then the add."""
+    R = v.shape[0]
+    x = v.reshape(-1).astype(np.int64)
+    if R <= SE_WARP_ROWS:
+        n = 4 * R
+        # w[l, k]: lane l's register k, word l + 32 k where k < n
+        w = np.full((WARP, SE_WARP_ROWS * REGS), INT_MIN, np.int64)
+        w[:, :n] = x.reshape(n, WARP).T
+        m = butterfly_max(w.max(1))
+        out = (w[:, :n] + m[:, None]).astype(np.uint32).T
+    else:
+        m = np.full(BLOCK, INT_MIN, np.int64)
+        for j in range(-(-x.size // BLOCK)):
+            e = np.arange(BLOCK) + BLOCK * j
+            m = np.where(e < x.size, np.maximum(m, x[np.minimum(
+                e, x.size - 1)]), m)
+        red = butterfly_max(m.reshape(BLOCK // WARP, WARP))[:, 0]
+        out = (x + butterfly_max(red)[0]).astype(np.uint32)
+    return out.reshape(R, LANES).view(np.int32)
+
+
+def roll_dynamic_network(v):
+    """K16 on numpy: warp g takes rows 2 g, 2 g + 1; each warp reduces
+    row 0 itself (four words a lane, the butterfly) and takes sh =
+    floor_mod(128 - floor_mod(max, 128), 128).  A warp whose rows all lie
+    below R loads word (l + 32 k - sh) & 127 of each of them, then stores
+    each at l + 32 k; the last warp, short of rows, copies its one row."""
+    R = v.shape[0]
+    out = np.full_like(v, 12345)
+    words = LANE[:, None] + WARP * np.arange(REGS)[None, :]   # [l, k]
+
+    def rows(r0, n, sh):
+        w = [v[r0 + j, (words - sh[:, None]) & (LANES - 1)]
+             for j in range(n)]
+        for j in range(n):
+            out[r0 + j, words] = w[j]
+
+    for g in range(-(-R // ROLL_ROWS)):
+        m = butterfly_max(v[0].reshape(REGS, WARP).max(0).astype(np.int64))
+        sh = floor_mod(LANES - floor_mod(m, LANES), LANES)     # every lane
+        r0 = ROLL_ROWS * g
+        rows(r0, ROLL_ROWS if r0 + ROLL_ROWS <= R else 1, sh)
+    return out
+
+
+def _pallas_same_shape(probe, expected, v):
+    return np.asarray(pl.pallas_call(
+        _tool_body(probe, expected), interpret=True,
+        out_shape=jax.ShapeDtypeStruct(v.shape, jnp.int32))(jnp.asarray(v)))
+
+
+def _extract_input(rng, R, case):
+    """int32 (R, 128) whose max lies in the last row: INT_MAX (the add
+    wraps), INT_MIN everywhere (INT_MIN + INT_MIN wraps to 0), all
+    negative with max -1, or random."""
+    if case == "int_min":
+        return np.full((R, LANES), INT_MIN, np.int32)
+    hi = {"int_max": INT_MAX, "minus_1": -1, "random": 2 ** 20}[case]
+    v = rng.randint(INT_MIN, hi, (R, LANES), dtype=np.int64)
+    v[R - 1, rng.randint(LANES)] = hi
+    return v.astype(np.int32)
+
+
+@pytest.mark.parametrize("R", [1, 7, 8, 9, 24, 300])
+@pytest.mark.parametrize("case", ["int_max", "int_min", "minus_1",
+                                  "random"])
+def test_torch_scalar_extract_network_matches_plain_and_pallas(R, case):
+    """K13's one warp (R = 1, 7, 8: registers past 4 R unused at 1 and 7)
+    and its block (R = 9, 24, 300) equal the plain version, the CPU
+    wrapper and the p1_scalar_extract body."""
+    v = _extract_input(np.random.RandomState(R), R, case)
+    got = scalar_extract_network(v)
+    want = (v.astype(np.int64) + v.max()).astype(np.uint32).view(np.int32)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        got, _pallas_same_shape("p1_scalar_extract", 1023, v))
+    t = torch.as_tensor(v)
+    np.testing.assert_array_equal(probes.scalar_extract_plain(t).numpy(), got)
+    np.testing.assert_array_equal(probes.scalar_extract(t).numpy(), got)
+
+
+@pytest.mark.parametrize("R", [1, 8, 9, 300])
+@pytest.mark.parametrize("top", [-1, -2, -3, -4, -128, -129, INT_MIN,
+                                 INT_MAX])
+def test_torch_roll_dynamic_network_matches_plain_and_pallas(R, top):
+    """K16's warps of two rows, each finding the shift from row 0's max
+    ``top``: at negative maxima jnp's floor modulo and C's differ in the
+    inner step (-129: 127 against -1) but give the same shift (1); an odd
+    R leaves a warp's second row past the array."""
+    rng = np.random.RandomState(R + top % 97)
+    v = rng.randint(INT_MIN, INT_MAX, (R, LANES), dtype=np.int64)
+    v[0] = top - rng.randint(0, top - INT_MIN + 1, LANES, dtype=np.int64)
+    v[0, rng.randint(LANES)] = top
+    v = v.astype(np.int32)
+    got = roll_dynamic_network(v)
+    np.testing.assert_array_equal(got, np.roll(v, (LANES - top % LANES)
+                                               % LANES, axis=1))
+    np.testing.assert_array_equal(
+        got, _pallas_same_shape("p4_roll_dynamic", 127, v))
+    t = torch.as_tensor(v)
+    np.testing.assert_array_equal(probes.roll_dynamic_plain(t).numpy(), got)
+    np.testing.assert_array_equal(probes.roll_dynamic(t).numpy(), got)
+
+
+def test_torch_probe_edge_inputs_are_hostile():
+    """``probes.edge_inputs`` (``chip_smoke.py`` phase 14's K13 and K16
+    beside the tool's 8 rows) holds what it says: K13's max INT_MAX, K16's
+    row-0 max -129, the rows of ``EDGE_ROWS``; the CPU wrappers equal the
+    numpy models there."""
+    cases = probes.edge_inputs("cpu")
+    rows = {}
+    for _, K, _, _, v in cases:
+        rows.setdefault(K.name, []).append(v.shape[0])
+    assert rows == {"probe_scalar_extract": list(probes.EDGE_ROWS),
+                    "probe_roll_dynamic": list(probes.EDGE_ROWS)}
+    for label, K, fn, plain, v in cases:
+        x = v.numpy()
+        if K is probes._K13:
+            assert x.max() == INT_MAX, label
+            want = scalar_extract_network(x)
+        else:
+            assert x[0].max() == -129, label
+            want = roll_dynamic_network(x)
+        np.testing.assert_array_equal(fn(v).numpy(), want)
+        np.testing.assert_array_equal(plain(v).numpy(), want)
 
 
 @pytest.mark.parametrize("R", [8, 300, 4096])
