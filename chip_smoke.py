@@ -137,6 +137,18 @@ per frame and their wall seconds:
    through encode(front_q=) equal to encode() and encode_host(), K18 and
    K19 launched on each rank.  Each world's transport, step ms by rank
    (host clock) beside encode() on one rank, and the gathers' ms.
+20. the CLI on the card (python -m ffmpeg_ffv2_tpu_torch.cli, called in
+   process): phase 3's first CLI_FRAMES frames written to a raw file,
+   encoded at -level 3 -slices 30 -g 2 on the default backend (device),
+   first with
+   -coder ac (K1-K4, emission_pack) and then with -coder rice (K1, K5,
+   the ladder), the launch counts reset before the two and read after
+   them (path "cli"); each AVI equal to --backend native's and to
+   --backend tpu's byte for byte, decoded with and without -workers 4 to
+   the raw input, the device encode round-tripped through .mkv and .nut,
+   info reporting version 3, psnr printing PSNR:999.99; the CLI's wall
+   ms a frame (host clock: reading the raw file, the encoder's set-up,
+   the frames, the muxer).
 
 The launch counts of a path are reset just before its frames and read just
 after (in phase 14, around each case's one call of its op). The line
@@ -154,9 +166,11 @@ which a sleep kernel ahead of the timed call keeps free of host work) and
 the time of one
 PyTorch call computing the same function where there is one; beside the
 kernels, ``batch`` (phase 16's rows), ``conversions`` (phase 17's
-times), ``ffv2`` (phase 18's stage times, frame times, transforms) and
+times), ``ffv2`` (phase 18's stage times, frame times, transforms),
 ``parallel`` (phase 19's worlds: transports, step, gather and stage ms
-by rank, launches by rank).
+by rank, launches by rank) and ``cli`` (phase 20's AVI bytes and wall ms
+a frame by coder; its launches ride in each kernel's
+``launches_by_path`` under ``cli``).
 The last line is {"ok": true, "device": {...}}. Any failure raises and
 exits non-zero without those lines. Exits non-zero at once
 when torch sees no CUDA device.
@@ -924,10 +938,10 @@ def sort_tools_checks(out, card) -> dict:
     once with its launches counted (the path), then holds the result
     against the plain version on every element (and the sort against
     torch.sort + gather: whole where the keys are duplicate-free, else the
-    keys), then times kernel, plain and library; then holds K13 and K16
-    against their plain versions at the row counts of
-    ``probes.edge_inputs`` (launches not counted).  Returns the path's
-    launch counts."""
+    keys), then times kernel, plain and library; then holds K13, K16 and
+    K17 against their plain versions at the row counts (and K17's idx
+    patterns) of ``probes.edge_inputs`` (launches not counted).  Returns
+    the path's launch counts."""
     import torch
     from ffmpeg_ffv2_tpu_torch import _build
     from ffmpeg_ffv2_tpu_torch.tools import microbench_prims, microbench_sort
@@ -959,11 +973,12 @@ def sort_tools_checks(out, card) -> dict:
             raise AssertionError(f"probe {r['name']}: {r['result']}")
         del r["output"]
         results.setdefault(r["kernel"], []).append(r)
-    # K13 and K16 beside the tool's 8 rows, on hostile words (not counted
-    # as the path's launches)
+    # K13 and K16 beside the tool's 8 rows, on hostile words, and K17 at
+    # 1, 9, 10 and 4096 rows with five idx patterns (not counted as the
+    # path's launches)
     edges = {}
-    for label, K, fn, plain, v in probes.edge_inputs("cuda"):
-        same = torch.equal(fn(v), plain(v))
+    for label, K, fn, plain, args in probes.edge_inputs("cuda"):
+        same = torch.equal(fn(*args), plain(*args))
         log(f"phase 14: {K.name} {label}: equal to plain {same} [{card}]")
         if not same:
             raise AssertionError(f"{K.name} {label}: kernel differs from "
@@ -1729,6 +1744,98 @@ def parallel_checks(frames, card, device="cuda", nccl="nccl") -> tuple:
     return launches, out
 
 
+CLI_FRAMES = 4               # phase 20's frames: 2 key, 2 inter at -g 2
+
+
+def cli_checks(frames, card, device="cuda") -> tuple:
+    """Phase 20: the port's CLI on the card, as a user runs it (``main``
+    of ``ffmpeg_ffv2_tpu_torch.cli.main``, in process, its encodes on the
+    default backend, device; ``-device`` of the tpu and device backends
+    is ``device``).  Returns the launch counts of
+    its two device encodes and the CLI's times."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+    from ffmpeg_ffv2_tpu_torch.cli.main import main as cli
+    from ffmpeg_ffv2_tpu_torch.ffv1.device_coder import (RANGE_KERNELS,
+                                                          RICE_KERNELS)
+
+    def run(*argv):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            cli([str(a) for a in argv])
+        return out.getvalue()
+
+    def read(path):
+        with open(path, "rb") as f:
+            return f.read()
+
+    with tempfile.TemporaryDirectory(prefix="ffv_cli_") as td:
+        raw = os.path.join(td, "in.yuv")
+        with open(raw, "wb") as f:
+            for planes in frames[:CLI_FRAMES]:
+                for pl in planes:
+                    f.write(np.asarray(pl, np.uint8).tobytes())
+        src = read(raw)
+        enc = ["encode", "-i", raw, "-s", f"{W}x{H}", "-level", 3,
+               "-slices", 30, "-g", 2]
+        # the path: the default backend (device) on both coders
+        from ffmpeg_ffv2_tpu_torch import _build
+        _build.reset_counts()
+        ms = {}
+        for coder in ("ac", "rice"):
+            t0 = time.perf_counter()
+            run(*enc, "-coder", coder, "-device", device,
+                "-o", os.path.join(td, f"device_{coder}.avi"))
+            ms[coder] = (time.perf_counter() - t0) * 1e3 / CLI_FRAMES
+        launches, plain = path_counts("cli", RANGE_KERNELS + RICE_KERNELS)
+        results = {}
+        for coder in ("ac", "rice"):
+            dev = read(os.path.join(td, f"device_{coder}.avi"))
+            for backend in ("native", "tpu"):
+                name = os.path.join(td, f"{backend}_{coder}.avi")
+                run(*enc, "-coder", coder, "--backend", backend, "-device",
+                    device, "-o", name)
+                if read(name) != dev:
+                    raise AssertionError(f"cli -coder {coder}: --backend "
+                                         f"device's AVI differs from "
+                                         f"--backend {backend}'s")
+            for workers in (1, 4):
+                out = os.path.join(td, f"dec_{coder}_{workers}.yuv")
+                run("decode", "-workers", workers, "-i",
+                    os.path.join(td, f"device_{coder}.avi"), "-o", out)
+                if read(out) != src:
+                    raise AssertionError(f"cli -coder {coder}: decode "
+                                         f"-workers {workers} differs from "
+                                         "the input")
+            results[coder] = dict(avi_bytes=len(dev),
+                                  wall_ms_a_frame=ms[coder])
+        for ext in ("mkv", "nut"):
+            name = os.path.join(td, f"device.{ext}")
+            run(*enc, "-coder", "ac", "-device", device, "-o", name)
+            out = os.path.join(td, f"dec_{ext}.yuv")
+            run("decode", "-i", name, "-o", out)
+            if read(out) != src:
+                raise AssertionError(f"cli .{ext}: decode differs from the "
+                                     "input")
+        info = run("info", "-i", os.path.join(td, "device_ac.avi"))
+        if "ffv1: version 3" not in info:
+            raise AssertionError(f"cli info: {info!r}")
+        line = run("psnr", raw, os.path.join(td, "dec_ac_4.yuv")).strip()
+        if "PSNR:999.99" not in line:
+            raise AssertionError(f"cli psnr: {line!r}")
+    log(f"phase 20: cli: {CLI_FRAMES} frames {W}x{H} yuv420p -level 3 "
+        f"-slices 30 -g 2, the default --backend device equal to native "
+        f"and tpu for "
+        f"-coder ac and rice, decoded with and without -workers 4, .mkv "
+        f"and .nut round trips; {info.strip().splitlines()[-1]}; {line}")
+    log(f"phase 20: cli: wall ms a frame (host clock: read, set-up, "
+        f"encode, mux) ac {ms['ac']:.1f}, rice {ms['rice']:.1f}; launches "
+        f"{ {k: v for k, v in launches.items() if v} } [{card}]")
+    return launches, results
+
+
 class Phase:
     """Logs a phase's wall seconds when its block ends."""
 
@@ -2014,6 +2121,10 @@ def main() -> int:
         by_path, parallel = parallel_checks(frames, card)
         launches.update(by_path)
 
+    # 20. the CLI's single-device surface on the card
+    with Phase(20):
+        launches["cli"], cli = cli_checks(frames, card)
+
     for k in kernels.values():
         k["launches"] = launches[k["path"]][k["kernel"]]
         k["launches_by_path"] = {label: launches[label][k["kernel"]]
@@ -2028,7 +2139,8 @@ def main() -> int:
              "probe_taa_rows", "pvq", "lap_pre", "lap_post"]
     print(json.dumps({"kernels": [kernels[n] for n in order],
                       "batch": batch, "conversions": conversions,
-                      "ffv2": ffv2, "parallel": parallel}), flush=True)
+                      "ffv2": ffv2, "parallel": parallel, "cli": cli}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,14 +1,13 @@
-"""Copy of ``ffmpeg_ffv2_tpu/coder/rac.py``: the encoder side.
+"""Copy of ``ffmpeg_ffv2_tpu/coder/rac.py``.
 
 Binary adaptive range coder — bit-exact with the FFV1 bitstream.
 
-The default transition tables and ``RangeEncoder``; the port renders slice
-headers with it and plans the range coder's per-slice prefix ops.
-Semantics follow the FFV1 specification / the reference implementation
-(libavcodec/rangecoder.{c,h}): byte-oriented renormalization with carry
-propagation through an outstanding-byte chain, 8-bit adaptive states with
-probability-evolution transition tables, and the two termination flavours
-(version 0: size-carried; version 1: an extra state-129 zero bit).
+This is the scalar Python oracle used to validate the C++ host coder and the
+Pallas TPU kernels.  Semantics follow the FFV1 specification / the reference
+implementation (libavcodec/rangecoder.{c,h}): byte-oriented renormalization
+with carry propagation through an outstanding-byte chain, 8-bit adaptive
+states with probability-evolution transition tables, and the two termination
+flavours (version 0: size-carried; version 1: an extra state-129 zero bit).
 """
 
 from __future__ import annotations
@@ -144,3 +143,68 @@ class RangeEncoder:
         self._renorm()
         assert self.low == 0
         return bytes(self.out)
+
+
+class RangeDecoder:
+    """Mirror of :class:`RangeEncoder` (libavcodec/rangecoder.h:123-152)."""
+
+    __slots__ = ("low", "range", "buf", "pos", "end", "overread",
+                 "zero_state", "one_state")
+
+    MAX_OVERREAD = 2
+
+    def __init__(self, data: bytes, zero_state: np.ndarray | None = None,
+                 one_state: np.ndarray | None = None):
+        self.buf = data
+        self.low = int.from_bytes(data[0:2], "big") if len(data) >= 2 else 0
+        self.pos = 2
+        self.end = len(data)
+        self.range = 0xFF00
+        self.overread = 0
+        if self.low >= 0xFF00:
+            self.low = 0xFF00
+            self.end = self.pos
+        self.zero_state = (DEFAULT_ZERO_STATE if zero_state is None
+                           else np.asarray(zero_state, dtype=np.uint8))
+        self.one_state = (DEFAULT_ONE_STATE if one_state is None
+                          else np.asarray(one_state, dtype=np.uint8))
+
+    def set_state_tables(self, one_state: np.ndarray):
+        one = np.asarray(one_state, dtype=np.uint8).copy()
+        zero = np.zeros(256, dtype=np.uint8)
+        idx = np.arange(1, 256)
+        zero[256 - idx] = (256 - one[idx].astype(np.int64)).astype(np.uint8)
+        self.one_state = one
+        self.zero_state = zero
+
+    def _refill(self):
+        if self.range < 0x100:
+            self.range <<= 8
+            self.low <<= 8
+            if self.pos < self.end:
+                self.low += self.buf[self.pos]
+                self.pos += 1
+            else:
+                self.overread += 1
+
+    def get(self, states: np.ndarray, idx: int) -> int:
+        s = int(states[idx])
+        range1 = (self.range * s) >> 8
+        self.range -= range1
+        if self.low < self.range:
+            states[idx] = self.zero_state[s]
+            self._refill()
+            return 0
+        else:
+            self.low -= self.range
+            states[idx] = self.one_state[s]
+            self.range = range1
+            self._refill()
+            return 1
+
+    def get_fixed(self, prob: int = 128) -> int:
+        st = np.array([prob], dtype=np.uint8)
+        return self.get(st, 0)
+
+    def bytes_consumed(self) -> int:
+        return self.pos

@@ -47,7 +47,17 @@
 //   The grid's last warp, short of rows, has one row.  No warp waits for
 //   another: blocks of up to ROLL_WARPS warps, one an SM sub-partition, no
 //   shared memory, no barrier, any R;
-// - K17: out[r, l] = v[r, idx[l]] for idx in [0, 128).
+// - K17: out[r, l] = v[r, idx[l]] for idx in [0, 128).  One memory round
+//   trip, then shuffles: a warp takes a row, lane l loads idx words
+//   l + 32 k (k < 4) and the row's words l + 32 k in one batch before
+//   any is used.  Output word l + 32 k is register s >> 5 of lane s & 31,
+//   s = idx[l + 32 k]: four __shfl_sync (one a source register, from lane
+//   s & 31) and a select on s >> 5, so no register is indexed at run time
+//   (that would put the row in local memory); 16 shuffles a row.  A warp
+//   issues a shuffle every 4 cycles, so the rows go one a warp, in blocks
+//   of TAA_WARPS warps (on the H100 at R = 10, three rows a warp took
+//   0.3-0.4 µs more, and a thread a word with its two dependent loads
+//   0.1-0.2 µs more).  No shared memory, no barrier, any R;
 // mod is the floor modulo of jnp's %, sums and adds wrap as int32 does.
 // Bound: launch latency; the arrays are a few KB (K15's table up to 512
 // KB, of which 16 words a row are read).
@@ -59,12 +69,12 @@
 namespace {
 
 constexpr int LANES = 128;
-constexpr int ROWS = 8;            // rows a block for K17
 constexpr int PF_WORDS = 16;       // K15's table words a row
 constexpr int PF_WARPS = 32;       // K15's rows a block, a warp each
 constexpr int SE_WARP_ROWS = 8;    // K13's rows in one warp's registers
 constexpr int ROLL_ROWS = 2;       // K16's rows a warp
 constexpr int ROLL_WARPS = 4;      // K16's warps a block
+constexpr int TAA_WARPS = 4;       // K17's warps a block, a row each
 
 __device__ __forceinline__ int floor_mod(int a, int m) {
   const int r = a % m;
@@ -188,12 +198,29 @@ __global__ void __launch_bounds__(ROLL_WARPS * 32)
   }
 }
 
-__global__ void taa_rows_kernel(const int* __restrict__ v,
-                                const int* __restrict__ idx, int R,
-                                int* __restrict__ out) {
-  const long long row = (long long)blockIdx.x * ROWS + threadIdx.y;
-  const int l = threadIdx.x;
-  if (row < R) out[row * LANES + l] = v[row * LANES + idx[l]];
+// K17: warp g of the grid takes row g
+__global__ void __launch_bounds__(TAA_WARPS * 32)
+    taa_rows_kernel(const int* __restrict__ v, const int* __restrict__ idx,
+                    int R, int* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const long long r =
+      (long long)blockIdx.x * TAA_WARPS + (threadIdx.x >> 5);
+  if (r >= R) return;                    // a whole warp: no shuffle left
+  int src[LANES / 32], w[LANES / 32];
+#pragma unroll
+  for (int k = 0; k < LANES / 32; ++k) src[k] = idx[lane + 32 * k];
+#pragma unroll
+  for (int k = 0; k < LANES / 32; ++k) w[k] = v[r * LANES + lane + 32 * k];
+#pragma unroll
+  for (int k = 0; k < LANES / 32; ++k) {
+    const int s = src[k] & 31, hi = src[k] >> 5;
+    const int a = __shfl_sync(0xffffffffu, w[0], s);
+    const int b = __shfl_sync(0xffffffffu, w[1], s);
+    const int c = __shfl_sync(0xffffffffu, w[2], s);
+    const int d = __shfl_sync(0xffffffffu, w[3], s);
+    out[r * LANES + lane + 32 * k] =
+        hi == 0 ? a : hi == 1 ? b : hi == 2 ? c : d;
+  }
 }
 
 }  // namespace
@@ -246,8 +273,10 @@ extern "C" cudaError_t ffv2_probe_roll_dynamic(const int* v, int R, int* out,
 extern "C" cudaError_t ffv2_probe_taa_rows(const int* v, const int* idx,
                                            int R, int* out,
                                            cudaStream_t stream) {
-  if (R > 0)
-    taa_rows_kernel<<<(R + ROWS - 1) / ROWS, dim3(LANES, ROWS), 0, stream>>>(
-        v, idx, R, out);
+  if (R > 0) {
+    const int blocks = (R + TAA_WARPS - 1) / TAA_WARPS;
+    const int threads = 32 * (R < TAA_WARPS ? R : TAA_WARPS);
+    taa_rows_kernel<<<blocks, threads, 0, stream>>>(v, idx, R, out);
+  }
   return cudaGetLastError();
 }

@@ -1,6 +1,7 @@
 """Copy of ``ffmpeg_ffv2_tpu/ffv1/native.py``: the ``NativeFFV1Codec``
-ctypes wrapper (encode, decode, the encode from precomputed symbols and
-pass-1 statistics) and the signatures of the runtime's planner and 2-pass
+ctypes wrapper (encode, decode, the frame-pipelined decode, the
+damaged-slice query, the encode from precomputed symbols and pass-1
+statistics) and the signatures of the runtime's planner and 2-pass
 entry points; and, the port's own, ``crc32`` and ``crc32_trailer``, the
 runtime's slice CRC, which the port's encoders put in their trailers
 (``core/crc.py`` keeps the plain Python loop).
@@ -12,12 +13,13 @@ with the FFV2 runtime (``native/ffv2_runtime.cpp``, bound by
 ``ffv2/native.py``), as the JAX package's ``native/Makefile`` links the
 two.  The library builds with g++ on first use into
 ``build/native/<hash>/`` at the root of the checkout, keyed by a hash of
-the sources and the flags.
+the sources, the flags and the compiler's version.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import subprocess
@@ -32,7 +34,17 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = [os.path.join(_PKG, "native", f)
         for f in ("ffv1_runtime.cpp", "ffv2_runtime.cpp")]
 _BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "native")
-_CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-pthread"]
+# -fno-peephole2: g++ 13.3's peephole2 pass (x86-64, -O3) rewrote the
+# absolute value in put_symbol_stats, {bp = v; bp = -bp; bp = bp >= 0 ? bp :
+# v}, into {dx = -dx; bp = dx; bp = dx >= 0 ? dx : bp}, which copies v
+# after its negation, so |v| came out as -v for every positive residual
+# (a 1080p yuv420p key frame of 1317490 bytes for 772012 with pass-1
+# statistics on).  Whether the pattern forms depends on register
+# allocation, which other flags only move (-fno-strict-aliasing among
+# them), so the pass is off; tools/native_check.py holds builds against
+# -O0.
+_CXX_FLAGS = ["-O3", "-fno-peephole2", "-std=c++17", "-fPIC", "-shared",
+              "-pthread"]
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -65,17 +77,30 @@ class FFV1ParamsC(ctypes.Structure):
     ]
 
 
-def library_path() -> str:
-    h = hashlib.sha256(" ".join(_CXX_FLAGS).encode())
-    for src in _SRC:
+@functools.lru_cache(maxsize=None)
+def _compiler_id() -> str:
+    """``g++ --version``'s first line: a build is keyed by its compiler
+    too, so that a checkout copied to a host with another g++ builds
+    anew rather than loading the other compiler's library."""
+    res = subprocess.run(["g++", "--version"], capture_output=True,
+                         text=True)
+    return res.stdout.split("\n", 1)[0]
+
+
+def library_path(flags=_CXX_FLAGS, srcs=_SRC) -> str:
+    h = hashlib.sha256(" ".join([_compiler_id(), *flags]).encode())
+    for src in srcs:
         with open(src, "rb") as f:
             h.update(f.read())
     return os.path.join(_BUILD_ROOT, h.hexdigest()[:16], "libffv1rt.so")
 
 
-def build() -> str:
-    """Compile the runtime unless this hash is built; returns its path."""
-    path = library_path()
+def build(flags=_CXX_FLAGS, srcs=_SRC) -> str:
+    """Compile the runtime unless this hash is built; returns its path.
+    ``flags`` and ``srcs`` other than the defaults build a variant beside
+    it (``tools/native_check.py`` holds builds at other flags against
+    each other)."""
+    path = library_path(flags, srcs)
     if os.path.exists(path):
         return path
     out_dir = os.path.dirname(path)
@@ -83,7 +108,7 @@ def build() -> str:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
     try:
-        res = subprocess.run(["g++", *_CXX_FLAGS, "-o", tmp, *_SRC],
+        res = subprocess.run(["g++", *flags, "-o", tmp, *srcs],
                              capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError("g++ failed:\n" + res.stdout + res.stderr)
@@ -95,75 +120,88 @@ def build() -> str:
 
 
 def get_lib():
+    """The runtime built at the default flags, loaded and bound once."""
     global _lib
     with _lib_lock:
-        if _lib is not None:
-            return _lib
-        lib = ctypes.CDLL(build())
-        lib.ffv1rt_create.restype = ctypes.c_void_p
-        lib.ffv1rt_create.argtypes = [ctypes.POINTER(FFV1ParamsC),
-                                      ctypes.c_int]
-        lib.ffv1rt_destroy.argtypes = [ctypes.c_void_p]
-        lib.ffv1rt_encode.restype = ctypes.c_int64
-        lib.ffv1rt_encode.argtypes = [
-            ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
-            ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64]
-        lib.ffv1rt_decode.restype = ctypes.c_int32
-        lib.ffv1rt_decode.argtypes = [
-            ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_void_p)]
-        lib.ffv1rt_set_initial_states.argtypes = [
-            ctypes.c_void_p, ctypes.c_int,
-            ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64]
-        lib.ffv1rt_encode_sym.restype = ctypes.c_int64
-        lib.ffv1rt_encode_sym.argtypes = [
-            ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
-            ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
-            ctypes.c_int, ctypes.c_int,
-            ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64]
-        lib.ffv1rt_set_stats_mode.argtypes = [ctypes.c_void_p, ctypes.c_int32]
-        lib.ffv1rt_get_stats.restype = ctypes.c_int32
-        lib.ffv1rt_get_stats.argtypes = [
-            ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint64),
-            ctypes.POINTER(ctypes.c_uint64), ctypes.c_int64]
-        lib.ffv1rt_sort_stt.restype = ctypes.c_int32
-        lib.ffv1rt_sort_stt.argtypes = [
-            ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_uint8)]
-        lib.ffv1rt_find_best_state.argtypes = [
-            ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_uint8)]
-        # the hybrid lane coder's planners (tpu_coder.py)
-        planner = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
-                   ctypes.c_int]
-        lib.ffv1rt_plan.restype = ctypes.c_int64
-        lib.ffv1rt_plan.argtypes = planner
-        lib.ffv1rt_plan_golomb.restype = ctypes.c_int64
-        lib.ffv1rt_plan_golomb.argtypes = planner
-        lib.ffv1rt_get_plan.restype = ctypes.c_int64
-        lib.ffv1rt_get_plan.argtypes = [
-            ctypes.c_void_p, ctypes.c_int32,
-            ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_uint8),
-            ctypes.c_int64]
-        lib.ffv1rt_get_plan_bits.restype = ctypes.c_int64
-        lib.ffv1rt_get_plan_bits.argtypes = [
-            ctypes.c_void_p, ctypes.c_int32,
-            ctypes.POINTER(ctypes.c_uint32), ctypes.POINTER(ctypes.c_uint8),
-            ctypes.c_int64]
-        lib.ffv1rt_get_plan_rows.restype = ctypes.c_int64
-        lib.ffv1rt_get_plan_rows.argtypes = [
-            ctypes.c_void_p, ctypes.c_int32,
-            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32),
-            ctypes.c_int64]
-        lib.ffv1rt_replan_pcm.restype = ctypes.c_int64
-        lib.ffv1rt_replan_pcm.argtypes = [
-            ctypes.c_void_p, ctypes.c_int32,
-            ctypes.POINTER(ctypes.c_void_p), ctypes.c_int]
-        lib.ffv1rt_set_budget_override.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64]
-        lib.ffv1rt_crc32.restype = ctypes.c_uint32
-        lib.ffv1rt_crc32.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
-                                     ctypes.c_uint32]
-        _lib = lib
+        if _lib is None:
+            _lib = load(build())
         return _lib
+
+
+def load(path):
+    """Load a build of the runtime and bind its FFV1 entry points."""
+    lib = ctypes.CDLL(path)
+    lib.ffv1rt_create.restype = ctypes.c_void_p
+    lib.ffv1rt_create.argtypes = [ctypes.POINTER(FFV1ParamsC),
+                                  ctypes.c_int]
+    lib.ffv1rt_destroy.argtypes = [ctypes.c_void_p]
+    lib.ffv1rt_encode.restype = ctypes.c_int64
+    lib.ffv1rt_encode.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64]
+    lib.ffv1rt_decode.restype = ctypes.c_int32
+    lib.ffv1rt_decode.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_void_p)]
+    lib.ffv1rt_decode_pipelined.restype = ctypes.c_int32
+    lib.ffv1rt_decode_pipelined.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
+        ctypes.POINTER(ctypes.c_int64), ctypes.c_int32,
+        ctypes.POINTER(ctypes.c_void_p), ctypes.c_int32,
+        ctypes.POINTER(ctypes.c_int32)]
+    lib.ffv1rt_slice_damaged.restype = ctypes.c_int32
+    lib.ffv1rt_slice_damaged.argtypes = [ctypes.c_void_p, ctypes.c_int32]
+    lib.ffv1rt_set_initial_states.argtypes = [
+        ctypes.c_void_p, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64]
+    lib.ffv1rt_encode_sym.restype = ctypes.c_int64
+    lib.ffv1rt_encode_sym.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
+        ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64]
+    lib.ffv1rt_set_stats_mode.argtypes = [ctypes.c_void_p, ctypes.c_int32]
+    lib.ffv1rt_get_stats.restype = ctypes.c_int32
+    lib.ffv1rt_get_stats.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint64),
+        ctypes.POINTER(ctypes.c_uint64), ctypes.c_int64]
+    lib.ffv1rt_sort_stt.restype = ctypes.c_int32
+    lib.ffv1rt_sort_stt.argtypes = [
+        ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_uint8)]
+    lib.ffv1rt_find_best_state.argtypes = [
+        ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_uint8)]
+    # the hybrid lane coder's planners (tpu_coder.py)
+    planner = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
+               ctypes.c_int]
+    lib.ffv1rt_plan.restype = ctypes.c_int64
+    lib.ffv1rt_plan.argtypes = planner
+    lib.ffv1rt_plan_golomb.restype = ctypes.c_int64
+    lib.ffv1rt_plan_golomb.argtypes = planner
+    lib.ffv1rt_get_plan.restype = ctypes.c_int64
+    lib.ffv1rt_get_plan.argtypes = [
+        ctypes.c_void_p, ctypes.c_int32,
+        ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_uint8),
+        ctypes.c_int64]
+    lib.ffv1rt_get_plan_bits.restype = ctypes.c_int64
+    lib.ffv1rt_get_plan_bits.argtypes = [
+        ctypes.c_void_p, ctypes.c_int32,
+        ctypes.POINTER(ctypes.c_uint32), ctypes.POINTER(ctypes.c_uint8),
+        ctypes.c_int64]
+    lib.ffv1rt_get_plan_rows.restype = ctypes.c_int64
+    lib.ffv1rt_get_plan_rows.argtypes = [
+        ctypes.c_void_p, ctypes.c_int32,
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32),
+        ctypes.c_int64]
+    lib.ffv1rt_replan_pcm.restype = ctypes.c_int64
+    lib.ffv1rt_replan_pcm.argtypes = [
+        ctypes.c_void_p, ctypes.c_int32,
+        ctypes.POINTER(ctypes.c_void_p), ctypes.c_int]
+    lib.ffv1rt_set_budget_override.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64]
+    lib.ffv1rt_crc32.restype = ctypes.c_uint32
+    lib.ffv1rt_crc32.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
+                                 ctypes.c_uint32]
+    return lib
 
 
 def crc32(data: bytes, crc: int = 0) -> int:
@@ -218,9 +256,9 @@ class NativeFFV1Codec:
     RGB: g,b,r,(a)).
     """
 
-    def __init__(self, p: FFV1Params, n_threads: int = 0):
+    def __init__(self, p: FFV1Params, n_threads: int = 0, lib=None):
         self.p = p
-        self.lib = get_lib()
+        self.lib = lib if lib is not None else get_lib()
         if n_threads <= 0:
             n_threads = min(os.cpu_count() or 1, p.slice_count)
         pc = params_to_c(p)
@@ -282,19 +320,7 @@ class NativeFFV1Codec:
         self.lib.ffv1rt_set_stats_mode(self.handle, 1)
 
     def decode(self, packet: bytes):
-        p = self.p
-        shapes = []
-        if p.colorspace == 0:
-            shapes.append((p.height, p.width))
-            if p.chroma_planes:
-                cw = -(-p.width >> p.chroma_h_shift)
-                ch = -(-p.height >> p.chroma_v_shift)
-                shapes += [(ch, cw), (ch, cw)]
-            if p.transparency:
-                shapes.append((p.height, p.width))
-        else:
-            shapes = [(p.height, p.width)] * (3 + (1 if p.transparency else 0))
-        outs = [np.zeros(s, dtype=np.int32) for s in shapes]
+        outs = [np.zeros(s, dtype=np.int32) for s in self._plane_shapes()]
         ptrs = (ctypes.c_void_p * len(outs))(
             *[a.ctypes.data_as(ctypes.c_void_p) for a in outs])
         buf = np.frombuffer(packet, dtype=np.uint8)
@@ -305,3 +331,51 @@ class NativeFFV1Codec:
         if ret < 0:
             raise ValueError(f"native decode failed ({ret})")
         return outs
+
+    def _plane_shapes(self):
+        p = self.p
+        if p.colorspace == 0:
+            shapes = [(p.height, p.width)]
+            if p.chroma_planes:
+                cw = -(-p.width >> p.chroma_h_shift)
+                ch = -(-p.height >> p.chroma_v_shift)
+                shapes += [(ch, cw), (ch, cw)]
+            if p.transparency:
+                shapes.append((p.height, p.width))
+            return shapes
+        return [(p.height, p.width)] * (3 + (1 if p.transparency else 0))
+
+    def decode_pipelined(self, packets):
+        """Frame-pipelined decode of a packet sequence (the reference's
+        frame-thread analogue, pthread_frame.c:473/558 + ffv1dec.c
+        per-slice progress): the native runtime streams each slice
+        column through all frames, so consecutive inter frames decode
+        concurrently on min(threads, slices) cores — no GOP boundaries
+        needed.  Keyframe flags are read from the bitstream itself.
+        Returns a list of frames (list of int32 planes each)."""
+        n = len(packets)
+        shapes = self._plane_shapes()
+        np_ = len(shapes)
+        outs = [[np.zeros(s, dtype=np.int32) for s in shapes]
+                for _ in range(n)]
+        bufs = [np.frombuffer(pk, dtype=np.uint8) for pk in packets]
+        pkt_ptrs = (ctypes.c_void_p * n)(
+            *[b.ctypes.data_as(ctypes.c_void_p) for b in bufs])
+        sizes = (ctypes.c_int64 * n)(*[len(pk) for pk in packets])
+        plane_ptrs = (ctypes.c_void_p * (n * np_))(
+            *[a.ctypes.data_as(ctypes.c_void_p)
+              for fr in outs for a in fr])
+        status = (ctypes.c_int32 * n)()
+        ret = self.lib.ffv1rt_decode_pipelined(
+            self.handle,
+            ctypes.cast(pkt_ptrs, ctypes.POINTER(ctypes.c_void_p)),
+            sizes, n,
+            ctypes.cast(plane_ptrs, ctypes.POINTER(ctypes.c_void_p)),
+            np_, status)
+        if ret < 0:
+            raise ValueError(f"native pipelined decode failed ({ret})")
+        self.last_status = list(status)
+        return outs
+
+    def slice_damaged(self, si: int) -> bool:
+        return bool(self.lib.ffv1rt_slice_damaged(self.handle, si))

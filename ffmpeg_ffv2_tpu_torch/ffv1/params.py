@@ -10,7 +10,7 @@ spirit of ffv1enc.c:encode_init.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 
@@ -60,6 +60,17 @@ def build_quant_tables(bits: int) -> tuple[np.ndarray, list[int]]:
     tabs[1, 4] = 5 * 5 * 11 * 11 * q_small
     counts = [(11 * 11 * 11 + 1) // 2, (11 * 11 * 5 * 5 * 5 + 1) // 2]
     return tabs, counts
+
+
+def context_count_of(quant_table: np.ndarray) -> int:
+    """Number of (folded) contexts a 5x256 quant table produces
+    (ffv1dec.c:read_quant_tables)."""
+    count = 1
+    for i in range(5):
+        ranges = int(quant_table[i][127]) * 2 + 1
+        if ranges > 1:
+            count *= ranges
+    return (count + 1) // 2
 
 
 def choose_slice_grid(width: int, height: int, bits: int, plane_count: int,

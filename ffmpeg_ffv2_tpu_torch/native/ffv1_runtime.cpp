@@ -1,17 +1,16 @@
 // Copy of ffmpeg_ffv2_tpu/native/ffv1_runtime.cpp, the original's code
-// verbatim but for two parts that the port does not bind: the
-// frame-pipelined decode (Codec::decode_frames_pipelined and
-// ffv1rt_decode_pipelined) and the damaged-slice query
-// ffv1rt_slice_damaged.  ffmpeg_ffv2_tpu_torch/ffv1/native.py binds and
-// builds it: the codec (ffv1rt_create, ffv1rt_set_initial_states,
-// ffv1rt_destroy, ffv1rt_encode, ffv1rt_decode), the encode from
-// precomputed (ctx, diff) symbols (ffv1rt_encode_sym), the op and bit
-// planners of the hybrid lane coder (ffv1rt_plan, ffv1rt_get_plan,
-// ffv1rt_get_plan_rows, ffv1rt_replan_pcm, ffv1rt_plan_golomb,
-// ffv1rt_get_plan_bits, ffv1rt_set_budget_override), pass-1 statistics
-// (ffv1rt_set_stats_mode, ffv1rt_get_stats) and the 2-pass searches
-// (ffv1rt_sort_stt, ffv1rt_find_best_state).  tests/test_torch_host.py
-// holds this copy's packets, plans and statistics against the original's.
+// verbatim.  ffmpeg_ffv2_tpu_torch/ffv1/native.py binds and builds it: the
+// codec (ffv1rt_create, ffv1rt_set_initial_states, ffv1rt_destroy,
+// ffv1rt_encode, ffv1rt_decode), the frame-pipelined decode
+// (ffv1rt_decode_pipelined) and the damaged-slice query
+// (ffv1rt_slice_damaged), the encode from precomputed (ctx, diff) symbols
+// (ffv1rt_encode_sym), the op and bit planners of the hybrid lane coder
+// (ffv1rt_plan, ffv1rt_get_plan, ffv1rt_get_plan_rows, ffv1rt_replan_pcm,
+// ffv1rt_plan_golomb, ffv1rt_get_plan_bits, ffv1rt_set_budget_override),
+// pass-1 statistics (ffv1rt_set_stats_mode, ffv1rt_get_stats) and the
+// 2-pass searches (ffv1rt_sort_stt, ffv1rt_find_best_state).
+// tests/test_torch_host.py and tests/test_torch_host_copies.py hold this
+// copy's packets, plans, statistics and decodes against the original's.
 // One entry point is the port's own: ffv1rt_crc32, the table CRC behind
 // ffv1/native.py:crc32_trailer (the slice and extradata trailers of the
 // port's encoders).
@@ -2353,6 +2352,127 @@ struct Codec {
         return any_damaged ? 1 : 0;
     }
 
+    // Frame-pipelined decode — the frame-thread analogue
+    // (pthread_frame.c:473,558; ffv1dec.c progress waits): consecutive
+    // frames decode concurrently, slice s of frame t+1 gated on slice s
+    // of frame t (adaptive contexts carry across non-key frames; slices
+    // never read across slice boundaries).  Expressed as slice-column
+    // chains: a worker owns whole slices and streams through the frames,
+    // so the per-slice order constraint costs zero synchronisation and
+    // the slice's context state stays hot in cache.  Scales with
+    // min(threads, slices) even inside a single GOP — unlike GOP
+    // batching, an all-inter stream parallelises fully.  v<3 packets
+    // (single region, v0/1 in-band relayout headers) fall back to the
+    // sequential path.
+    int decode_frames_pipelined(const uint8_t* const* pkts,
+                                const int64_t* sizes, int n_frames,
+                                int32_t* const* outs, int n_planes,
+                                int32_t* status) {
+        auto layout = plane_layout();
+        if ((int)layout.size() != n_planes) return -3;
+        if (p.version < 3) {
+            for (int t = 0; t < n_frames; t++)
+                status[t] = decode_frame(pkts[t], sizes[t],
+                                         outs + (size_t)t * n_planes);
+            return 0;
+        }
+        const int n_slices = (int)slices.size();
+        const int trailer = 3 + 5 * (p.ec ? 1 : 0);
+        // sequential prologue: keyframe bit + slice region table walk
+        // per frame (cheap — no entropy decode)
+        std::vector<std::vector<Region>> regions(n_frames);
+        std::vector<RangeDec> c0(n_frames);
+        std::vector<int> keyf(n_frames), valid(n_frames, 1);
+        for (int t = 0; t < n_frames; t++) {
+            RangeDec c;
+            c.tab = &default_tables();
+            c.init(pkts[t], (size_t)sizes[t]);
+            uint8_t key_state = 128;
+            keyf[t] = c.get(&key_state);
+            if (keyf[t]) key_frame_ok = true;
+            else if (!key_frame_ok) valid[t] = 0;
+            int64_t end = sizes[t];
+            auto& rg = regions[t];
+            const uint8_t* pkt = pkts[t];
+            while ((int)rg.size() < 1024 && trailer < end) {
+                int64_t sz = ((int64_t)pkt[end - trailer] << 16) |
+                             ((int64_t)pkt[end - trailer + 1] << 8) |
+                             pkt[end - trailer + 2];
+                if (sz + trailer > end) break;
+                rg.push_back({end - sz - trailer, sz + trailer});
+                end -= sz + trailer;
+            }
+            std::reverse(rg.begin(), rg.end());
+            if ((int)rg.size() != n_slices) valid[t] = 0;
+            c0[t] = c;
+        }
+        std::vector<uint8_t> dmg((size_t)n_frames * n_slices, 0);
+        auto run_column = [&](int si) {
+            Rect r = slice_rect(p, si);
+            for (int t = 0; t < n_frames; t++) {
+                int32_t* const* out = outs + (size_t)t * n_planes;
+                bool good = valid[t] &&
+                    decode_slice_impl(si, pkts[t], regions[t][si],
+                                      keyf[t], c0[t], out);
+                if (good) continue;
+                dmg[(size_t)t * n_slices + si] = 1;
+                // conceal from the co-located slice of the previous
+                // frame's output (already complete in this chain)
+                auto dst = slice_views(r, nullptr, out);
+                for (size_t pi = 0; pi < dst.size(); pi++) {
+                    const int32_t* lp = nullptr;
+                    if (t > 0)
+                        lp = outs[(size_t)(t - 1) * n_planes + pi];
+                    else if (pi < last_frame.size() &&
+                             !last_frame[pi].empty())
+                        lp = last_frame[pi].data();
+                    if (!lp) continue;
+                    for (int y = 0; y < dst[pi].h; y++)
+                        std::memcpy(
+                            dst[pi].dst_row(y),
+                            lp + (size_t)(dst[pi].y0 + y) * dst[pi].stride +
+                                dst[pi].x0,
+                            sizeof(int32_t) * dst[pi].w);
+                }
+            }
+        };
+        if (n_threads > 1 && n_slices > 1 && n_frames > 0) {
+            std::vector<std::thread> pool;
+            std::atomic_int next{0};
+            int nt = std::min(n_threads, n_slices);
+            for (int t = 0; t < nt; t++)
+                pool.emplace_back([&] {
+                    for (;;) {
+                        int si = next.fetch_add(1);
+                        if (si >= n_slices) break;
+                        run_column(si);
+                    }
+                });
+            for (auto& th : pool) th.join();
+        } else {
+            for (int si = 0; si < n_slices; si++) run_column(si);
+        }
+        if (n_frames > 0) {
+            for (int si = 0; si < n_slices; si++)
+                slices[si].damaged =
+                    dmg[(size_t)(n_frames - 1) * n_slices + si] != 0;
+            int32_t* const* fin = outs + (size_t)(n_frames - 1) * n_planes;
+            if (last_frame.size() != layout.size())
+                last_frame.assign(layout.size(), {});
+            for (size_t pi = 0; pi < layout.size(); pi++) {
+                size_t n = (size_t)layout[pi].w * layout[pi].h;
+                last_frame[pi].assign(fin[pi], fin[pi] + n);
+            }
+        }
+        for (int t = 0; t < n_frames; t++) {
+            if (!valid[t]) { status[t] = -2; continue; }
+            int any = 0;
+            for (int si = 0; si < n_slices; si++)
+                any |= dmg[(size_t)t * n_slices + si];
+            status[t] = any;
+        }
+        return 0;
+    }
 };
 
 // 2-pass optimization (pass-2 open time): state-table sort and best-initial-
@@ -2513,6 +2633,16 @@ int32_t ffv1rt_decode(void* h, const uint8_t* pkt, int64_t size,
     return static_cast<f2t::Codec*>(h)->decode_frame(pkt, size, out_planes);
 }
 
+// outs = n_frames * n_planes plane pointers (frame-major); status gets
+// one entry per frame (0 clean, 1 concealed slices, -2 bad region table)
+int32_t ffv1rt_decode_pipelined(void* h, const uint8_t* const* pkts,
+                                const int64_t* sizes, int32_t n_frames,
+                                int32_t* const* outs, int32_t n_planes,
+                                int32_t* status) {
+    return static_cast<f2t::Codec*>(h)->decode_frames_pipelined(
+        pkts, sizes, n_frames, outs, n_planes, status);
+}
+
 int64_t ffv1rt_encode_sym(void* h, const int32_t* const* planes,
                           const int32_t* const* ctx_streams,
                           const int32_t* const* diff_streams, int n_streams,
@@ -2627,10 +2757,15 @@ int32_t ffv1rt_get_stats(void* h, uint64_t* rc_stat, uint64_t* rc_stat2,
     return ctx->gob_count;
 }
 
+int32_t ffv1rt_slice_damaged(void* h, int32_t si) {
+    auto* ctx = static_cast<f2t::Codec*>(h);
+    if (si < 0 || si >= (int)ctx->slices.size()) return -1;
+    return ctx->slices[si].damaged ? 1 : 0;
+}
+
 // CRC-32/IEEE of n bytes from crc (libavutil's AV_CRC_32_IEEE table form).
 uint32_t ffv1rt_crc32(const uint8_t* p, size_t n, uint32_t crc) {
     return f2t::g_crc.run(p, n, crc);
 }
-
 
 }  // extern "C"

@@ -49,9 +49,10 @@ direction, its two 32-row halo slabs at sb 16, its vertical direction);
 tables of 12K, 32K and 128K words at G = 4, ``transpose`` K12 at
 ``tools/microbench_pallas.py``'s shapes (``TRANSPOSE_SHAPES``), ``in_ds``
 K14 and ``probes`` K13, K16 and K17 on ``tools/probe_mosaic.py``'s inputs
-(``probes.inputs``), and K13 and K16 on those inputs grown to the rows of
-``PROBE_TAIL_ROWS`` (``arange``; K16 ``% 128``: K13's block form past 8
-rows, K16's grid of several blocks); each is checked against its plain
+(``probes.inputs``), and K13, K16 and K17 on those inputs grown to the
+rows of ``PROBE_TAIL_ROWS`` (``arange``; K16 ``% 128``, K17 with the
+tool's idx: K13's block form past 8 rows, K16's and K17's grids of
+several blocks); each is checked against its plain
 version first, and
 these six also time the launch floor, an empty kernel launched through
 the checkout's own ``Kernel.launch`` (``empty_kernel``), and split a
@@ -126,9 +127,9 @@ PREFETCH_WORDS = (12, 32, 128)           # K table words, G = 4 rows
 # the kernels of the probes case, by their names in _build.KERNELS
 PROBE_KERNELS = ("probe_scalar_extract", "probe_roll_dynamic",
                  "probe_taa_rows")
-PROBE_TAIL_ROWS = (9, 4096)   # K13 and K16 past the tool's 8 rows
+PROBE_TAIL_ROWS = (9, 4096)   # K13, K16 and K17 past the tools' rows
 TOOL_SASS = ("SHFL.IDX", "SHFL.BFLY", "BAR.SYNC", "LDS", "STS", "LDG.E",
-             "STG.E")
+             "STG.E", "LDL", "STL")
 TOOL_REPS = 51              # timed runs of a tool kernel (µs-scale spans)
 HOST_LOOP = 200             # calls a host-clock loop of the host split
 # an empty kernel behind a launcher of K15's arguments, the launch floor
@@ -670,14 +671,18 @@ def main() -> int:
         for R in PROBE_TAIL_ROWS if case == "probes" else ():
             x = torch.arange(R * 128, dtype=torch.int32,
                              device="cuda").reshape(R, 128)
+            idx = (torch.arange(128, dtype=torch.int32, device="cuda")
+                   * 7 % 128)[None, :]
             for name, fn, plain, xs in (
                     ("probe_scalar_extract", probes.scalar_extract,
-                     probes.scalar_extract_plain, x),
+                     probes.scalar_extract_plain, (x,)),
                     ("probe_roll_dynamic", probes.roll_dynamic,
-                     probes.roll_dynamic_plain, x % 128)):
+                     probes.roll_dynamic_plain, (x % 128,)),
+                    ("probe_taa_rows", probes.taa_rows,
+                     probes.taa_rows_plain, (x, idx))):
                 label = f"{name}: ({R}, 128)"
                 res[label] = tool_times(label, _build.KERNELS[name],
-                                        lambda: fn(xs), lambda: plain(xs))
+                                        lambda: fn(*xs), lambda: plain(*xs))
         tool_line(case, res, [n[len("probe_"):] for n in names])
     return 0
 

@@ -158,12 +158,29 @@ def inputs(device):
 
 
 EDGE_ROWS = (1, 9, 4096)
+TAA_EDGE_ROWS = (1, 9, 10, 4096)
+TAA_PATTERNS = ("7 l mod 128", "permutation", "all 0", "all 127",
+                "identity")
+
+
+def taa_index(pattern, rng=None):
+    """K17's idx (128,) int64 for a pattern of ``TAA_PATTERNS``: the JAX
+    tool's 7 l mod 128, a random permutation (from ``rng``, a seeded
+    numpy RandomState), all 0, all 127 or the identity."""
+    lane = np.arange(LANES, dtype=np.int64)
+    if pattern == "permutation":
+        return (rng or np.random.RandomState(0)).permutation(LANES)
+    return {"7 l mod 128": lane * 7 % LANES, "all 0": lane * 0,
+            "all 127": lane * 0 + LANES - 1, "identity": lane}[pattern]
 
 
 def edge_inputs(device):
     """K13 and K16 at row counts beside the tool's 8 (one row; 9, K13's
-    first past its one-warp form; 4096), on hostile words: (label, kernel,
-    wrapper, plain, v).  K13's max is INT_MAX in the last row, so
+    first past its one-warp form; 4096), on hostile words, and K17 at the
+    rows of ``TAA_EDGE_ROWS`` (one row; 9 and the tool's 10, whose last
+    block of four warps a row is short; 4096) with each idx of
+    ``TAA_PATTERNS``: (label, kernel,
+    wrapper, plain, args).  K13's max is INT_MAX in the last row, so
     the add wraps; K16's row-0 max is -129, where jnp's floor modulo and
     C's differ in the inner step."""
     rng = np.random.RandomState(0)
@@ -180,9 +197,16 @@ def edge_inputs(device):
     out = []
     for R in EDGE_ROWS:
         out += [(f"R={R}, max INT_MAX", _K13, scalar_extract,
-                 scalar_extract_plain, words(R)),
+                 scalar_extract_plain, (words(R),)),
                 (f"R={R}, row 0 max -129", _K16, roll_dynamic,
-                 roll_dynamic_plain, words(R, -129))]
+                 roll_dynamic_plain, (words(R, -129),))]
+    for R in TAA_EDGE_ROWS:
+        for pattern in TAA_PATTERNS:
+            idx = torch.as_tensor(
+                taa_index(pattern, rng).astype(np.int32)[None, :],
+                device=device)
+            out.append((f"R={R}, idx {pattern}", _K17, taa_rows,
+                        taa_rows_plain, (words(R), idx)))
     return out
 
 

@@ -831,8 +831,8 @@ def test_torch_gpu_prims_match_plain(prim, R, reps):
 
 
 def test_torch_gpu_probes_match_plain():
-    """K13-K17 on the JAX tool's inputs (their expected results) and on
-    random ones with negative values."""
+    """K13-K17 on the JAX tool's inputs (their expected results), on
+    random ones with negative values and on ``probes.edge_inputs``."""
     for name, K, fn, plain, args, result, expected in probes.inputs("cuda"):
         got = fn(*args)
         assert result(got) == expected, name
@@ -853,6 +853,10 @@ def test_torch_gpu_probes_match_plain():
             (probes.taa_rows, probes.taa_rows_plain, (v, idx))):
         args = tuple(a.contiguous() for a in args)
         assert torch.equal(fn(*args), plain(*args)), fn.__name__
+    # K13 and K16 past the tool's rows, K17 at 1, 9, 10 and 4096 rows with
+    # five idx patterns
+    for label, K, fn, plain, args in probes.edge_inputs("cuda"):
+        assert torch.equal(fn(*args), plain(*args)), f"{K.name} {label}"
 
 
 def _int32(rng, shape):
@@ -1234,3 +1238,53 @@ def test_torch_gpu_parallel_matches_single_device(coder):
         assert r["transport"] == "gloo"
         assert all(r["launches"][k] > 0 for k in enc.kernels), r["launches"]
         assert not any(r["plain"].values()), r["plain"]
+
+
+@pytest.mark.parametrize("coder", ["ac", "rice"])
+def test_torch_gpu_cli_device_matches_native(tmp_path, coder):
+    """The port's CLI on the card: the default backend (``device``, on
+    ``-device cuda``, the default) runs the device encoder's kernels, and
+    it and ``--backend tpu`` write the AVI that ``--backend native``
+    writes, which decodes, with and without ``-workers 4``, to the raw
+    input."""
+    from ffmpeg_ffv2_tpu_torch.cli.main import main
+    rng = np.random.RandomState(20)
+    w, h = 96, 64
+    raw = tmp_path / "in.yuv"
+    raw.write_bytes(rng.randint(0, 256, 4 * w * h * 3 // 2).astype(
+        np.uint8).tobytes())
+    enc = ["encode", "-i", str(raw), "-s", f"{w}x{h}", "-level", "3",
+           "-slices", "4", "-g", "2", "-coder", coder]
+    _build.reset_counts()
+    main(enc + ["-o", str(tmp_path / "dev.avi")])
+    kernels = dc.RANGE_KERNELS if coder == "ac" else dc.RICE_KERNELS
+    assert all(_build.KERNELS[k].launches > 0 for k in kernels)
+    for backend in ("native", "tpu"):
+        main(enc + ["--backend", backend,
+                    "-o", str(tmp_path / f"{backend}.avi")])
+        assert ((tmp_path / f"{backend}.avi").read_bytes()
+                == (tmp_path / "dev.avi").read_bytes()), backend
+    for workers in ("1", "4"):
+        out = tmp_path / f"dec{workers}.yuv"
+        main(["decode", "-workers", workers, "-i", str(tmp_path / "dev.avi"),
+              "-o", str(out)])
+        assert out.read_bytes() == raw.read_bytes()
+
+
+def test_torch_gpu_native_runtime_stats_packets():
+    """The port's native runtime as built on the card's host, at its
+    shipped flags, writes the packets and pass-1 tallies of an -O0 build
+    of the same sources, and decodes that build's packets
+    (one by one and frame-pipelined) to the input, for every case of
+    ``tools/native_check.CASES`` at 1080p: range and Golomb-Rice,
+    yuv420p, yuv420p16, bgr0 at versions 3 and 4, version 1, statistics
+    on and off, one slice thread and several.  Its yuv420p frames are
+    ``chip_smoke.py``'s, where a g++ 13.3 -O3 build once wrote a
+    1317490-byte key frame for 772012 with statistics on."""
+    from ffmpeg_ffv2_tpu_torch.ffv1 import native
+    from ffmpeg_ffv2_tpu_torch.tools import native_check as nc
+    w, h = 1920, 1080
+    refs = nc.references(nc.build_variants(["O0"]), list(nc.CASES), 3, w,
+                         h)
+    res = nc.matrix({"shipped": native.build()}, refs, ["shipped"], w, h)
+    assert all(v == "ok" for v in res["shipped"].values()), res

@@ -2,8 +2,9 @@
 ``ffmpeg_ffv2_tpu_torch/csrc/prims.cu``), K12 (``transpose_kernel``,
 ``csrc/prims.cu``), K13 (``scalar_extract_warp_kernel`` and, past 8 rows,
 ``scalar_extract_block_kernel``, ``csrc/probes.cu``), K14
-(``scalar_in_ds_kernel``), K15 (``big_prefetch_kernel``) and K16
-(``roll_dynamic_kernel``, all three ``csrc/probes.cu``), on the CPU; and
+(``scalar_in_ds_kernel``), K15 (``big_prefetch_kernel``), K16
+(``roll_dynamic_kernel``) and K17 (``taa_rows_kernel``, all four
+``csrc/probes.cu``), on the CPU; and
 the launch path that every wrapper shares (``_build.Kernel``).
 
 Each model below runs its kernel's design on numpy, lane by lane and
@@ -29,12 +30,15 @@ arithmetic, and lane l writing words l + 32 k, k < 4; K16's warps of two
 rows, each reducing row 0 itself (four words a lane, five xor shuffles,
 the floor modulo twice), then loading word (l + 32 k - sh) & 127 of each
 of its rows and storing it at l + 32 k, the grid's last warp, when short
-of rows, copying its one row.  No model is a
+of rows, copying its one row; K17's warp a row in blocks of four, lane
+l holding idx words and the row's words l + 32 k, each output word four
+shuffles (one a register, from lane idx & 31) and a select on idx >> 5.
+No model is a
 plain version: each is held against the plain version and against the
 TPU body of the JAX tool (``tools/microbench_pallas.py:roll_kernel`` and
 ``transpose_kernel``, ``tools/probe_mosaic.py``'s ``p1_scalar_extract``,
-``p1b_scalar_in_ds``, ``p2_big_prefetch`` and ``p4_roll_dynamic``
-kernels), run in Pallas interpret mode."""
+``p1b_scalar_in_ds``, ``p2_big_prefetch``, ``p4_roll_dynamic`` and
+``p5_taa_rows`` kernels), run in Pallas interpret mode."""
 
 import functools
 import importlib.util
@@ -511,26 +515,110 @@ def test_torch_roll_dynamic_network_matches_plain_and_pallas(R, top):
 
 
 def test_torch_probe_edge_inputs_are_hostile():
-    """``probes.edge_inputs`` (``chip_smoke.py`` phase 14's K13 and K16
-    beside the tool's 8 rows) holds what it says: K13's max INT_MAX, K16's
-    row-0 max -129, the rows of ``EDGE_ROWS``; the CPU wrappers equal the
+    """``probes.edge_inputs`` (``chip_smoke.py`` phase 14's K13, K16 and
+    K17 beside the tools' rows) holds what it says: K13's max INT_MAX,
+    K16's row-0 max -129, the rows of ``EDGE_ROWS``; K17 at the rows of
+    ``TAA_EDGE_ROWS`` with every idx pattern; the CPU wrappers equal the
     numpy models there."""
     cases = probes.edge_inputs("cpu")
     rows = {}
-    for _, K, _, _, v in cases:
-        rows.setdefault(K.name, []).append(v.shape[0])
+    for _, K, _, _, args in cases:
+        rows.setdefault(K.name, []).append(args[0].shape[0])
+    n_pat = len(probes.TAA_PATTERNS)
     assert rows == {"probe_scalar_extract": list(probes.EDGE_ROWS),
-                    "probe_roll_dynamic": list(probes.EDGE_ROWS)}
-    for label, K, fn, plain, v in cases:
-        x = v.numpy()
+                    "probe_roll_dynamic": list(probes.EDGE_ROWS),
+                    "probe_taa_rows": [R for R in probes.TAA_EDGE_ROWS
+                                       for _ in range(n_pat)]}
+    patterns = set()
+    for label, K, fn, plain, args in cases:
+        x = args[0].numpy()
         if K is probes._K13:
             assert x.max() == INT_MAX, label
             want = scalar_extract_network(x)
-        else:
+        elif K is probes._K16:
             assert x[0].max() == -129, label
             want = roll_dynamic_network(x)
-        np.testing.assert_array_equal(fn(v).numpy(), want)
-        np.testing.assert_array_equal(plain(v).numpy(), want)
+        else:
+            idx = args[1].numpy()[0]
+            pattern = label.split("idx ")[1]
+            patterns.add(pattern)
+            if pattern == "permutation":
+                assert sorted(idx) == list(range(LANES)), label
+            else:
+                np.testing.assert_array_equal(
+                    idx, probes.taa_index(pattern), label)
+            want = taa_rows_network(x, idx)
+        np.testing.assert_array_equal(fn(*args).numpy(), want)
+        np.testing.assert_array_equal(plain(*args).numpy(), want)
+    assert patterns == set(probes.TAA_PATTERNS)
+
+
+TAA_WARPS = 4                        # K17's warps a block, a row each
+
+
+def taa_rows_network(v, idx):
+    """K17 on numpy: warp w of block b takes row 4 b + w (a warp past R
+    does nothing); lane l loads idx words l + 32 k into src[k] and the
+    row's words l + 32 k into w[k], all before any use; output word
+    l + 32 k is the select on src[k] >> 5 among four shuffles, one of
+    each register w[0..3], from lane src[k] & 31."""
+    R = v.shape[0]
+    out = np.full_like(v, 12345)
+    src = idx.reshape(REGS, WARP).T                       # [l, k]
+    words = LANE[:, None] + WARP * np.arange(REGS)[None, :]
+    for b in range(-(-R // TAA_WARPS)):
+        for wp in range(TAA_WARPS):
+            r = b * TAA_WARPS + wp
+            if r >= R:
+                continue
+            w = v[r, words]                               # [l, k]
+            o = np.empty((WARP, REGS), v.dtype)
+            for k in range(REGS):
+                s, hi = src[:, k] & 31, src[:, k] >> 5
+                shf = [w[s, reg] for reg in range(REGS)]
+                o[:, k] = np.select([hi == 0, hi == 1, hi == 2], shf[:3],
+                                    shf[3])
+            out[r, words] = o
+    return out
+
+
+def _pallas_taa_rows(v, idx):
+    """The kernel body of probe_mosaic.p5_taa_rows (written for 10 rows)
+    over v's rows in blocks of 10 (v padded with copies of row 0), a grid
+    step a block."""
+    R = v.shape[0]
+    n = -(-R // 10)
+    x = np.concatenate([v, np.repeat(v[:1], 10 * n - R, 0)])
+    return np.asarray(pl.pallas_call(
+        _tool_body("p5_taa_rows", True), interpret=True, grid=(n,),
+        in_specs=[pl.BlockSpec((10, LANES), lambda i: (i, 0)),
+                  pl.BlockSpec((1, LANES), lambda i: (0, 0))],
+        out_specs=pl.BlockSpec((10, LANES), lambda i: (i, 0)),
+        out_shape=jax.ShapeDtypeStruct(x.shape, jnp.int32))(
+            jnp.asarray(x), jnp.asarray(idx.astype(np.int32)[None, :])))[:R]
+
+
+@pytest.mark.parametrize("R", [1, 9, 10, 4096])
+@pytest.mark.parametrize("pattern", ["7 l mod 128", "permutation", "all 0",
+                                     "all 127", "identity"])
+def test_torch_taa_rows_network_matches_plain_and_pallas(R, pattern):
+    """K17's warp a row, each output word four shuffles and a select,
+    equals the plain version, the CPU wrapper and the p5_taa_rows body:
+    one row (one warp), 9 and the tool's 10 (the last block short of
+    warps), 4096 (1024 full blocks); idx the tool's 7 l mod 128, a seeded
+    permutation, all 0, all 127 (every word from lane 31's register 3)
+    and the identity."""
+    rng = np.random.RandomState(R)
+    v = rng.randint(INT_MIN, INT_MAX, (R, LANES), dtype=np.int64).astype(
+        np.int32)
+    idx = probes.taa_index(pattern, rng)
+    assert pattern in probes.TAA_PATTERNS
+    got = taa_rows_network(v, idx)
+    np.testing.assert_array_equal(got, v[:, idx])
+    np.testing.assert_array_equal(got, _pallas_taa_rows(v, idx))
+    t, ti = torch.as_tensor(v), torch.as_tensor(idx.astype(np.int32)[None])
+    np.testing.assert_array_equal(probes.taa_rows_plain(t, ti).numpy(), got)
+    np.testing.assert_array_equal(probes.taa_rows(t, ti).numpy(), got)
 
 
 @pytest.mark.parametrize("R", [8, 300, 4096])
