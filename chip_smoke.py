@@ -148,7 +148,28 @@ per frame and their wall seconds:
    the raw input, the device encode round-tripped through .mkv and .nut,
    info reporting version 3, psnr printing PSNR:999.99; the CLI's wall
    ms a frame (host clock: reading the raw file, the encoder's set-up,
-   the frames, the muxer).
+   the frames, the muxer).  Then FFV2: CLI_FRAMES frames of 1080p
+   yuv444p through -c ffv2 -qp 16 on the default device, at -block_size
+   64 with -workers 1 and 4 (PipelinedFFV2Encoder) and at -block_size 0
+   (the split tree), and each AVI's CLI decode, the counts reset before
+   the five commands and read after them (path "cli ffv2": K18, K19 pre
+   and post); every packet equal to NativeFFV2Encoder.encode_host's,
+   every decode to decode_host's.  Then --mesh 2x2 on the yuv420p frames,
+   -coder ac and rice: a world of 4 ranks sharing the card (gloo, named
+   on the CLI's stderr), each AVI equal to the single-device CLI's, every
+   rank launching its path's kernels (K1-K4 and emission_pack; K1, K5,
+   the ladder) with no plain version, by the counts each rank resets
+   before its frames and reads after them (paths "cli mesh ac", "cli
+   mesh rice": the ranks' sums).  Each command's wall ms a frame.
+21. the graft twin (ffmpeg_ffv2_tpu_torch/graft_entry.py): entry()'s
+   step on seeded int32 planes of its example's shape (4, 540, 960) on
+   the card, equal as integers to its CPU run, with its ms; then
+   dryrun_multichip(4), the JAX dry run's matrix on a gloo world of 4
+   ranks sharing the card, every config passing its checks (FFV1 packets
+   equal to the host FFV1Encoder's and decoded losslessly, the FFV2
+   sharded front equal to encode_front_q), every rank launching its
+   configs' kernels with no plain version (path "graft dryrun": the
+   ranks' sums over the configs).
 
 The launch counts of a path are reset just before its frames and read just
 after (in phase 14, around each case's one call of its op). The line
@@ -168,9 +189,11 @@ PyTorch call computing the same function where there is one; beside the
 kernels, ``batch`` (phase 16's rows), ``conversions`` (phase 17's
 times), ``ffv2`` (phase 18's stage times, frame times, transforms),
 ``parallel`` (phase 19's worlds: transports, step, gather and stage ms
-by rank, launches by rank) and ``cli`` (phase 20's AVI bytes and wall ms
-a frame by coder; its launches ride in each kernel's
-``launches_by_path`` under ``cli``).
+by rank, launches by rank), ``cli`` (phase 20's AVI bytes and wall ms
+a frame by coder, its ``ffv2`` commands and its ``mesh`` worlds; their
+launches ride in each kernel's ``launches_by_path`` under ``cli``, ``cli
+ffv2``, ``cli mesh ac`` and ``cli mesh rice``) and ``graft`` (phase 21's
+times; ``graft dryrun`` in ``launches_by_path``).
 The last line is {"ok": true, "device": {...}}. Any failure raises and
 exits non-zero without those lines. Exits non-zero at once
 when torch sees no CUDA device.
@@ -1557,6 +1580,18 @@ def _rank_counts(label, results, kernels):
     return [{k: r["launches"][k] for k in kernels} for r in results if r]
 
 
+def world_start(started) -> dict:
+    """A world's start by rank, in s, from each rank's ``started`` marks
+    (parallel.world.run_cases, on the host's wall clock): interpreter
+    (the parent starting the ranks to a rank's body: its interpreter, the
+    spawn bootstrap and its imports), group (the process group joined),
+    device (the card set and its CUDA context made)."""
+    spans = dict(interpreter=("spawn", "main"), group=("main", "group"),
+                 device=("group", "ready"))
+    return {k: [round(st[b] - st[a], 2) for st in started]
+            for k, (a, b) in spans.items()}
+
+
 def _world_ffv1_checks(label, results, case, card, device):
     """One FFV1 case of a world against the single-device port (timed on
     this process, one rank's worth: encode() of the same frames) and the
@@ -1666,8 +1701,11 @@ def parallel_checks(frames, card, device="cuda", nccl="nccl") -> tuple:
                                             card, device)
         launches[f"parallel {c['name']}"] = total(rs)
     out["gloo_world_s"] = world_s
+    out["gloo_world_start_s"] = world_start(
+        [next(x for x in r if x)["started"] for r in res])
     log(f"phase 19: the 4-rank gloo world: {world_s:.1f} s wall, spawn "
-        f"and process-group start included [{card}]")
+        f"and process-group start included; its start by rank, s (host "
+        f"clock) {out['gloo_world_start_s']} [{card}]")
 
     one = dict(ffv1["range"], name="range nccl", mesh=(1, 1),
                lanes=lanes[:1])
@@ -1747,14 +1785,27 @@ def parallel_checks(frames, card, device="cuda", nccl="nccl") -> tuple:
 CLI_FRAMES = 4               # phase 20's frames: 2 key, 2 inter at -g 2
 
 
+def _cli_run(cli, *argv) -> tuple:
+    """``main`` of the port's CLI in process: (stdout, stderr)."""
+    import contextlib
+    import io
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        cli([str(a) for a in argv])
+    return out.getvalue(), err.getvalue()
+
+
+def _launch_counts() -> dict:
+    from ffmpeg_ffv2_tpu_torch import _build
+    return {k.name: k.launches for k in _build.KERNELS.values()}
+
+
 def cli_checks(frames, card, device="cuda") -> tuple:
     """Phase 20: the port's CLI on the card, as a user runs it (``main``
     of ``ffmpeg_ffv2_tpu_torch.cli.main``, in process, its encodes on the
     default backend, device; ``-device`` of the tpu and device backends
     is ``device``).  Returns the launch counts of
     its two device encodes and the CLI's times."""
-    import contextlib
-    import io
     import os
     import tempfile
     from ffmpeg_ffv2_tpu_torch.cli.main import main as cli
@@ -1762,10 +1813,7 @@ def cli_checks(frames, card, device="cuda") -> tuple:
                                                           RICE_KERNELS)
 
     def run(*argv):
-        out = io.StringIO()
-        with contextlib.redirect_stdout(out):
-            cli([str(a) for a in argv])
-        return out.getvalue()
+        return _cli_run(cli, *argv)[0]
 
     def read(path):
         with open(path, "rb") as f:
@@ -1834,6 +1882,236 @@ def cli_checks(frames, card, device="cuda") -> tuple:
         f"encode, mux) ac {ms['ac']:.1f}, rice {ms['rice']:.1f}; launches "
         f"{ {k: v for k, v in launches.items() if v} } [{card}]")
     return launches, results
+
+
+def cli_ffv2_checks(card, device="cuda") -> tuple:
+    """Phase 20, FFV2: CLI_FRAMES frames of 1080p yuv444p through ``-c
+    ffv2 -qp FFV2_QP`` on ``device`` (the default), at -block_size 64 with
+    -workers 1 (NativeFFV2Encoder) and 4 (PipelinedFFV2Encoder) and at
+    -block_size 0 (the split tree), then each AVI's CLI decode; the
+    launch counts reset before the five commands and read after them
+    (path "cli ffv2": K18, K19 pre and post, no plain version).  Every
+    packet equals NativeFFV2Encoder.encode_host's, every decode
+    decode_host's.  Returns (the launches, the numbers)."""
+    import os
+    import tempfile
+    from ffmpeg_ffv2_tpu_torch import _build
+    from ffmpeg_ffv2_tpu_torch.cli.main import main as cli
+    from ffmpeg_ffv2_tpu_torch.container.avi import AviReader
+    from ffmpeg_ffv2_tpu_torch.ffv2 import FFV2Config
+    from ffmpeg_ffv2_tpu_torch.ffv2.native import (NativeFFV2Decoder,
+                                                   NativeFFV2Encoder)
+    frames = synth_ffv2_frames(CLI_FRAMES, 8)
+    runs = [("64", "1"), ("64", "4"), ("0", "1")]
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="ffv_cli_ffv2_") as td:
+        raw = os.path.join(td, "in444.yuv")
+        with open(raw, "wb") as f:
+            for fr in frames:
+                for pl in fr:
+                    f.write(pl.astype(np.uint8).tobytes())
+        # the default -device (cuda); "cpu" in a rehearsal of the phase
+        dev = [] if device == "cuda" else ["-device", device]
+        enc = ["encode", "-i", raw, "-s", f"{W}x{H}", "-pix_fmt", "yuv444p",
+               "-c", "ffv2", "-qp", FFV2_QP, *dev]
+        def timed(name, *argv):
+            """One command: its wall ms a frame and its own launches."""
+            before = _launch_counts()
+            t0 = time.perf_counter()
+            _cli_run(cli, *argv)
+            res[name] = dict(
+                wall_ms_a_frame=(time.perf_counter() - t0) * 1e3 / CLI_FRAMES,
+                launches={k: v - before[k] for k, v in
+                          _launch_counts().items() if v - before[k]})
+
+        _build.reset_counts()
+        for bs, workers in runs:
+            timed(f"encode bs{bs} w{workers}", *enc, "-block_size", bs,
+                  "-workers", workers, "-o",
+                  os.path.join(td, f"bs{bs}_w{workers}.avi"))
+        decoded = {}
+        for bs in ("64", "0"):
+            out = os.path.join(td, f"dec_bs{bs}.yuv")
+            timed(f"decode bs{bs}", "decode", *dev, "-i",
+                  os.path.join(td, f"bs{bs}_w1.avi"), "-o", out)
+            with open(out, "rb") as f:
+                decoded[bs] = f.read()
+        launches, _ = path_counts("cli ffv2", ("pvq", "lap_pre", "lap_post"))
+        avis = {}
+        for bs, workers in runs:
+            with open(os.path.join(td, f"bs{bs}_w{workers}.avi"), "rb") as f:
+                avis[bs, workers] = AviReader(f.read()).video.packets
+    sizes = {}
+    for bs in ("64", "0"):
+        e = NativeFFV2Encoder(W, H, "yuv444p",
+                              FFV2Config(qp=FFV2_QP, block_size=int(bs)),
+                              device)
+        want = [e.encode_host(fr) for fr in frames]
+        for (b, workers), pkts in avis.items():
+            if b == bs and pkts != want:
+                raise AssertionError(f"cli ffv2 -block_size {bs} -workers "
+                                     f"{workers}: a packet differs from "
+                                     "encode_host's")
+        dec = NativeFFV2Decoder(W, H, device=device)
+        ref = b"".join(np.asarray(pl).astype(np.uint8).tobytes()
+                       for pkt in want for pl in dec.decode_host(pkt))
+        if decoded[bs] != ref:
+            raise AssertionError(f"cli ffv2 -block_size {bs}: decode differs "
+                                 "from decode_host")
+        sizes[bs] = [len(x) for x in want]
+    # each command's own kernels (the split tree codes its leaves on the
+    # host: K19 only)
+    for name, kernels in [(f"encode bs{bs} w{w}", ("pvq", "lap_pre") if
+                           bs == "64" else ("lap_pre",)) for bs, w in runs] \
+            + [(f"decode bs{bs}", ("lap_post",)) for bs in ("64", "0")]:
+        if any(k not in res[name]["launches"] for k in kernels):
+            raise AssertionError(f"cli ffv2 {name}: launched "
+                                 f"{res[name]['launches']}, not {kernels}")
+    log(f"phase 20: cli ffv2: {CLI_FRAMES} frames {W}x{H} yuv444p -qp "
+        f"{FFV2_QP}, -block_size 64 (-workers 1 and 4) and 0: every packet "
+        f"equal to encode_host's (bytes {json.dumps(sizes)}), each CLI "
+        f"decode equal to decode_host's; launches {launches}, plain calls 0")
+    log("phase 20: cli ffv2: wall ms a frame (host clock: read, set-up, "
+        "frames, mux; decode: demux, frames, write) and each command's "
+        "launches " + json.dumps(res) + f" [{card}]")
+    return launches, dict(runs=res, packet_bytes=sizes)
+
+
+def cli_mesh_checks(frames, card, device="cuda") -> tuple:
+    """Phase 20, --mesh 2x2: phase 20's CLI_FRAMES frames of 1080p yuv420p
+    at -level 3 -slices 30 -g 2, -coder ac and rice, through the CLI's
+    --mesh 2x2 on ``device`` (a world of 4 ranks; gloo, as one card has
+    fewer cards than ranks): each AVI equal to the single-device CLI's
+    (--backend device), every rank launching its path's kernels with no
+    plain version (the counts each rank reads around its frames, from the
+    CLI's stderr).  Returns (the launches summed over the ranks, by path;
+    the numbers)."""
+    import os
+    import tempfile
+    from ffmpeg_ffv2_tpu_torch import _build
+    from ffmpeg_ffv2_tpu_torch.cli.main import main as cli
+    from ffmpeg_ffv2_tpu_torch.ffv1.device_coder import (RANGE_KERNELS,
+                                                          RICE_KERNELS)
+    launches, out = {}, {}
+    with tempfile.TemporaryDirectory(prefix="ffv_cli_mesh_") as td:
+        raw = os.path.join(td, "in.yuv")
+        with open(raw, "wb") as f:
+            for planes in frames[:CLI_FRAMES]:
+                for pl in planes:
+                    f.write(np.asarray(pl, np.uint8).tobytes())
+        dev = [] if device == "cuda" else ["-device", device]
+        enc = ["encode", "-i", raw, "-s", f"{W}x{H}", "-level", 3,
+               "-slices", 30, "-g", 2, *dev]
+        for coder, kernels in (("ac", RANGE_KERNELS), ("rice", RICE_KERNELS)):
+            one = os.path.join(td, f"one_{coder}.avi")
+            _cli_run(cli, *enc, "-coder", coder, "-o", one)
+            mesh = os.path.join(td, f"mesh_{coder}.avi")
+            t0 = time.perf_counter()
+            _, err = _cli_run(cli, *enc, "-coder", coder, "--mesh", "2x2",
+                              "-o", mesh)
+            wall = (time.perf_counter() - t0) * 1e3 / CLI_FRAMES
+            with open(one, "rb") as f1, open(mesh, "rb") as f2:
+                if f1.read() != f2.read():
+                    raise AssertionError(f"cli --mesh 2x2 -coder {coder}: "
+                                         "the AVI differs from the "
+                                         "single-device CLI's")
+            line = [x for x in err.splitlines()
+                    if x.startswith("--mesh 2x2: ")][0]
+            ranks = json.loads(err.split("--mesh ranks: ")[1].splitlines()[0])
+            for r in ranks:
+                if any(r["launches"].get(k, 0) <= 0 for k in kernels) or \
+                        r["plain_calls"]:
+                    raise AssertionError(f"cli --mesh 2x2 -coder {coder}: "
+                                         f"rank {r['rank']} launched "
+                                         f"{r['launches']}, plain calls "
+                                         f"{r['plain_calls']}")
+            label = f"cli mesh {coder}"
+            launches[label] = {k: sum(r["launches"].get(k, 0) for r in ranks)
+                               for k in _build.KERNELS}
+            start = {k: [round(r["start_s"][k], 2) for r in ranks]
+                     for k in ranks[0]["start_s"]}
+            setup = [round(r["setup_ms"], 1) for r in ranks]
+            out[coder] = dict(transport=ranks[0]["transport"],
+                              wall_ms_a_frame=wall,
+                              rank_ms_a_frame=[r["ms"] / CLI_FRAMES
+                                               for r in ranks],
+                              start_s=start, setup_ms=setup,
+                              launches=[r["launches"] for r in ranks])
+            log(f"phase 20: cli {line.strip()}: -coder {coder}, the AVI "
+                f"equal to the single-device CLI's; launches by rank "
+                f"{[r['launches'] for r in ranks]}, plain calls 0")
+            log(f"phase 20: cli --mesh 2x2 -coder {coder}: wall ms a frame "
+                f"(host clock: read, world start, frames, mux) {wall:.1f}, "
+                f"ms a frame by rank (its encode steps) "
+                f"{[round(r['ms'] / CLI_FRAMES, 1) for r in ranks]}; the "
+                f"world's start by rank, s {start}, the encoder's set-up ms "
+                f"{setup} [{card}]")
+    return launches, out
+
+
+def graft_checks(card) -> tuple:
+    """Phase 21: the graft twin (graft_entry.py) on the card: entry()'s
+    step on seeded planes of its example's shape, equal as integers to its
+    own CPU run; then dryrun_multichip(4), a gloo world of 4 ranks sharing
+    the card, every config passing its own checks, each rank launching
+    its configs' kernels with no plain version.  Returns (the launches
+    summed over the ranks and configs, the numbers)."""
+    import torch
+    from ffmpeg_ffv2_tpu_torch import _build
+    from ffmpeg_ffv2_tpu_torch import graft_entry as ge
+    fn, (ex,) = ge.entry()
+    cfn, (cex,) = ge.entry("cpu")
+    if ex.device.type != "cuda" or ex.shape != cex.shape:
+        raise AssertionError(f"graft entry: example on {ex.device}, "
+                             f"{tuple(ex.shape)}")
+    x = np.random.RandomState(21).randint(-70000, 70000, tuple(ex.shape))
+    xc = torch.as_tensor(x, dtype=torch.int32)
+    xg = xc.to("cuda")
+    ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn(xg)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    want = cfn(xc)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    for g, w in zip(got, want):
+        if g.dtype != torch.int32 or not torch.equal(g.cpu(), w):
+            raise AssertionError("graft entry: the card's (ctx, diff) "
+                                 "differ from the CPU run's")
+    log(f"phase 21: graft entry: the step on {tuple(ex.shape)} int32 planes "
+        f"equal to its CPU run; ms on the card (host clock, synchronized) "
+        f"{[round(v, 2) for v in ms]}, on the CPU {cpu_ms:.1f} [{card}]")
+    t0 = time.perf_counter()
+    res = ge.dryrun_multichip(4)
+    world_s = time.perf_counter() - t0
+    launches = {k: 0 for k in _build.KERNELS}
+    for name, rec in res.items():
+        kernels = (("pvq", "lap_pre") if name.startswith("ffv2") else
+                   ("place", "vlc", "ladder") if "/coder0/" in name else
+                   ("place", "adapt", "emission_pack", "expand",
+                    "rac_render"))
+        for r, (ln, pc) in enumerate(zip(rec["launches"],
+                                         rec["plain_calls"])):
+            if any(ln[k] <= 0 for k in kernels) or any(pc.values()):
+                raise AssertionError(f"graft dryrun {name}: rank {r} "
+                                     f"launched {ln}, plain calls {pc}")
+            for k, v in ln.items():
+                launches[k] += v
+    start = world_start(next(iter(res.values()))["started"])
+    log(f"phase 21: graft dryrun_multichip(4): {len(res)} configs passed "
+        f"on a gloo world of 4 ranks sharing the card in {world_s:.1f} s "
+        f"wall (spawn and process-group start included; its start by rank, "
+        f"s {start}); launches summed "
+        f"{ {k: v for k, v in launches.items() if v} }, plain calls 0; ms "
+        "by rank (rank 0's frames or calls) "
+        + json.dumps({n: [round(x, 1) for x in r["ms"][0]]
+                      for n, r in res.items()}) + f" [{card}]")
+    return launches, dict(entry_ms=ms, entry_cpu_ms=cpu_ms,
+                          dryrun_world_s=world_s, dryrun_start_s=start,
+                          dryrun_ms={n: r["ms"] for n, r in res.items()})
 
 
 class Phase:
@@ -2121,9 +2399,16 @@ def main() -> int:
         by_path, parallel = parallel_checks(frames, card)
         launches.update(by_path)
 
-    # 20. the CLI's single-device surface on the card
+    # 20. the CLI on the card: FFV1, FFV2 and --mesh 2x2
     with Phase(20):
         launches["cli"], cli = cli_checks(frames, card)
+        launches["cli ffv2"], cli["ffv2"] = cli_ffv2_checks(card)
+        by_path, cli["mesh"] = cli_mesh_checks(frames, card)
+        launches.update(by_path)
+
+    # 21. the graft twin: entry() and dryrun_multichip(4)
+    with Phase(21):
+        launches["graft dryrun"], graft = graft_checks(card)
 
     for k in kernels.values():
         k["launches"] = launches[k["path"]][k["kernel"]]
@@ -2139,7 +2424,8 @@ def main() -> int:
              "probe_taa_rows", "pvq", "lap_pre", "lap_post"]
     print(json.dumps({"kernels": [kernels[n] for n in order],
                       "batch": batch, "conversions": conversions,
-                      "ffv2": ffv2, "parallel": parallel, "cli": cli}),
+                      "ffv2": ffv2, "parallel": parallel, "cli": cli,
+                      "graft": graft}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,7 +20,10 @@ the counterparts of the repository's Pallas tools (K10-K17) and of
 ``ffv2.native.NativeFFV2Encoder``, ``PipelinedFFV2Encoder`` and
 ``NativeFFV2Decoder`` run its device front and back (``ffv2.device``: the
 lapped filters on K19, the float64 transforms, the PVQ quantizer on K18)
-around the native Daala coder.
+around the native Daala coder.  ``cli`` is the command line (FFV1, FFV2
+and ``--mesh`` on a world of ranks), ``testsrc`` the FATE synthetic
+sources, ``graft_entry`` the twin of the repository's
+``__graft_entry__.py``.
 """
 
 __version__ = "0.1.0"      # the JAX package's; FFV2's debug OSD prints it

@@ -1,15 +1,15 @@
-"""Copy of ``ffmpeg_ffv2_tpu/cli/main.py`` on the port's modules: the CLI's
-single-device FFV1 surface.  ``encode`` and ``transcode`` run on the card
-by default: ``--backend device`` (``DeviceFFV1Encoder``) on ``-device
-cuda``.  The ``tpu`` backend (``TPUFFV1Encoder``) also takes ``-device``;
-``-device cpu`` runs both on their plain versions, the counterpart of the
-original honouring ``JAX_PLATFORMS=cpu``, and there is no fallback from
-one device to the other.  ``native`` (the C++ codec on the host) and
-``python`` stay for what the device path refuses.  The mesh (``--mesh``)
-and FFV2 (``-c ffv2``, FFV2 decode, its ``-global_quality``,
-``-block_size`` and encode ``-workers``) are not in the port yet
-(``ROADMAP.md`` queue 1 item 2, PR b): the first three exit non-zero and
-argparse rejects the options; the original's compile-cache set-up has no
+"""Copy of ``ffmpeg_ffv2_tpu/cli/main.py`` on the port's modules.
+``encode``, ``decode`` and ``transcode`` run on the card by default
+(``-device cuda``): FFV1 on ``--backend device`` (``DeviceFFV1Encoder``),
+FFV2 on ``NativeFFV2Encoder`` and ``NativeFFV2Decoder`` (and, with
+``-workers N > 1``, ``PipelinedFFV2Encoder``), ``--mesh DxS`` on a world of
+D x S ranks (``cli/mesh.py``).  The ``tpu`` backend (``TPUFFV1Encoder``)
+also takes ``-device``; ``-device cpu`` runs all of them on their plain
+versions, the counterpart of the original honouring
+``JAX_PLATFORMS=cpu``, and there is no fallback from one device to the
+other.  ``native`` (the C++ codec on the host) and ``python`` stay for
+what the device path refuses.  The default backend is ``device`` (the
+original's is ``native``); the original's compile-cache set-up has no
 counterpart.
 
 ffv — the framework CLI (the fftools/ffmpeg counterpart).
@@ -22,7 +22,8 @@ Subcommands:
   info       show container/codec parameters
 
 Option names mirror the ffmpeg CLI where they exist there (-s, -pix_fmt,
--level, -slices, -coder, -context, -slicecrc, -g; ffv1enc.c:1291-1307).
+-level, -slices, -coder, -context, -slicecrc, -g, -global_quality;
+ffv1enc.c:1291-1307, ffv2enc.c:583).
 """
 
 from __future__ import annotations
@@ -139,12 +140,30 @@ def make_ffv1_encoder(args, w, h, backend):
     return _NativeSession()
 
 
-NOT_PORTED = ("not in the port yet: ROADMAP.md queue 1 item 2, PR b "
-              "(the mesh and FFV2)")
-
-
-def _not_ported(what):
-    sys.exit(f"{what}: {NOT_PORTED}")
+def _encode_stream_mesh(args, w, h, frames):
+    """GOP-parallel sharded encode over a ("data", "slice") mesh of ranks
+    (--mesh DxS, ``mesh.encode_mesh``); packets come back in stream order,
+    byte-identical to the single-session encoder.  Returns (packets, a
+    stand-in for the encoder with its ``p`` and ``extradata``).  Exits
+    non-zero for a mesh the frame's slices do not allow.  The transport
+    and the ranks' launch counts go to stderr."""
+    from types import SimpleNamespace
+    from ..ffv1.params import FFV1Config
+    from .mesh import encode_mesh
+    cfg = FFV1Config(level=args.level, coder=_coder_value(args.coder),
+                     context=args.context, slices=args.slices,
+                     slicecrc=args.slicecrc, gop_size=args.g)
+    try:
+        pkts, extradata, p, transport, ranks = encode_mesh(
+            args.mesh, cfg, args.pix_fmt, w, h, frames, args.device)
+    except ValueError as e:
+        sys.exit(f"--mesh {args.mesh}: {e}")
+    print(f"--mesh {args.mesh}: {len(ranks)} ranks on {transport} "
+          f"(-device {args.device})", file=sys.stderr)
+    # each rank's steps' ms, its set-up and start, its kernels' launch and
+    # plain-call counts
+    print("--mesh ranks: " + json.dumps(ranks), file=sys.stderr)
+    return pkts, SimpleNamespace(p=p, extradata=extradata)
 
 
 def cmd_encode_twopass(args, w, h, frames):
@@ -185,16 +204,27 @@ def cmd_encode(args):
     if not frames:
         sys.exit("no frames read")
 
+    pre = None
     if args.c == "ffv1":
         if args.pass_num:
             cmd_encode_twopass(args, w, h, frames)
             return
         if getattr(args, "mesh", ""):
-            _not_ported(f"--mesh {args.mesh}")
-        enc = make_ffv1_encoder(args, w, h, args.backend)
+            pre, enc = _encode_stream_mesh(args, w, h, frames)
+        else:
+            enc = make_ffv1_encoder(args, w, h, args.backend)
         fourcc = "FFV1"
     elif args.c == "ffv2":
-        _not_ported("-c ffv2")
+        from ..ffv2 import FFV2Encoder, FFV2Config
+        cfg2 = FFV2Config(qp=args.global_quality,
+                          block_size=args.block_size)
+        if args.backend == "python":
+            enc = FFV2Encoder(w, h, args.pix_fmt, cfg2)
+        else:
+            from ..ffv2.native import NativeFFV2Encoder
+            enc = NativeFFV2Encoder(w, h, args.pix_fmt, cfg2,
+                                    device=args.device)
+        fourcc = "FFV2"
     else:
         sys.exit(f"unknown codec {args.c}")
 
@@ -207,13 +237,24 @@ def cmd_encode(args):
         out = NutWriter(w, h, fourcc, (25, 1), extradata)
     else:
         out = AviWriter(w, h, fourcc, (25, 1), extradata)
-    gop = args.g
+    gop = args.g if args.c == "ffv1" else 1
     nbytes = 0
     vstats = open(args.vstats, "w") if args.vstats else None
     stats = FrameStats() if vstats else None
     p_enc = getattr(enc, "p", None)         # FFV1Params (slice trailers)
+    if (args.c == "ffv2" and getattr(args, "workers", 1) > 1
+            and args.backend != "python"):
+        # frame-pipelined Daala EC: frame t's C++ coder overlaps frame
+        # t+1's front on worker threads; packets byte-identical
+        from ..ffv2.native import PipelinedFFV2Encoder
+        pipe = PipelinedFFV2Encoder(w, h, args.pix_fmt, enc.cfg,
+                                    depth=args.workers, device=args.device)
+        try:
+            pre = pipe.encode_stream(frames)
+        finally:
+            pipe.close()
     for t, planes in enumerate(frames):
-        pkt = enc.encode(planes)
+        pkt = pre[t] if pre is not None else enc.encode(planes)
         key = (gop == 0 or t % gop == 0)
         out.write_packet(pkt, keyframe=key)
         nbytes += len(pkt)
@@ -281,7 +322,11 @@ def cmd_decode(args):
                 frames.append(dec.decode(pkt))
             bits, outfmt = dec.p.bits, dec.p.pix_fmt
     elif fourcc == "FFV2":
-        _not_ported("FFV2 decode")
+        from ..ffv2.native import NativeFFV2Decoder
+        dec = NativeFFV2Decoder(st.width, st.height, device=args.device)
+        for pkt in st.packets:
+            frames.append(dec.decode(pkt))
+        bits, outfmt = dec.fmt.bits, dec.fmt
     else:
         sys.exit(f"unsupported fourcc {fourcc!r}")
     write_raw_frames(args.output, frames, bits, outfmt)
@@ -303,7 +348,8 @@ def cmd_transcode(args):
     d = dict(vars(args))
     d["output"] = container
     cmd_encode(argparse.Namespace(**d))
-    dec_args = argparse.Namespace(input=container, output=args.output)
+    dec_args = argparse.Namespace(input=container, output=args.output,
+                                  device=args.device)
     cmd_decode(dec_args)
     if not args.keep:
         os.remove(container)
@@ -337,7 +383,7 @@ def cmd_info(args):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="ffv",
-                                 description="FFV1 tool on PyTorch/CUDA")
+                                 description="FFV1/FFV2 tool on PyTorch/CUDA")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     def add_common_enc(p):
@@ -351,11 +397,18 @@ def main(argv=None):
         p.add_argument("-context", type=int, default=0)
         p.add_argument("-slicecrc", type=int, default=-1)
         p.add_argument("-g", type=int, default=12)
+        p.add_argument("-global_quality", "-qp", dest="global_quality",
+                       type=int, default=12)
+        p.add_argument("-block_size", type=int, default=64,
+                       choices=[0, 4, 8, 16, 32, 64],
+                       help="ffv2 leaf block size (<64 emits the split "
+                            "tree; 0 = activity-adaptive)")
         p.add_argument("--mesh", default="", metavar="DxS",
                        help="shard the encode over a (data x slice) "
-                            "device mesh, e.g. 2x4: GOPs ride the data "
+                            "mesh of ranks, e.g. 2x4: GOPs ride the data "
                             "axis, FFV1 slices the slice axis "
-                            "(ffv1 only)")
+                            "(ffv1 only; the encode runs on -device, "
+                            "whatever --backend says)")
         p.add_argument("--backend", default="device",
                        choices=["native", "tpu", "device", "python"],
                        help="device (default): the whole encode on the "
@@ -363,12 +416,15 @@ def main(argv=None):
                             "native coder on the host; native: the C++ "
                             "codec on the host; python: the Python codec")
         p.add_argument("-device", default="cuda",
-                       help="the tpu and device backends' torch device: "
-                            "cuda (the kernels) or cpu (their plain "
-                            "versions)")
+                       help="the torch device of the tpu and device "
+                            "backends, of FFV2 and of --mesh: cuda (the "
+                            "kernels) or cpu (their plain versions)")
         p.add_argument("-pass", dest="pass_num", type=int, default=0,
                        choices=[0, 1, 2])
         p.add_argument("-passlogfile", default="ffv1pass")
+        p.add_argument("-workers", type=int, default=1,
+                       help="ffv2: frame-pipeline depth (EC on worker "
+                            "threads overlapping the device front)")
         p.add_argument("-vstats", default="", metavar="FILE",
                        help="write per-frame stats JSONL (bytes, bpp, "
                             "per-slice sizes from the trailer walk, "
@@ -384,6 +440,9 @@ def main(argv=None):
     pd.add_argument("-o", dest="output", required=True)
     pd.add_argument("-workers", type=int, default=1,
                     help="GOP-parallel decode pipelines (frame threading)")
+    pd.add_argument("-device", default="cuda",
+                    help="FFV2 decode's torch device: cuda (the kernels) or "
+                         "cpu (their plain versions)")
     pd.set_defaults(fn=cmd_decode)
 
     pt = sub.add_parser("transcode")

@@ -34,19 +34,33 @@ from ..ffv1.rice import no_mark
 from .slices import all_gather_cat, gather_slice_bytes
 
 
+def check_slices(cfg: FFV1Config, p, n_shards: int) -> list:
+    """Raise ValueError unless the frame's slices split over a slice axis
+    of ``n_shards`` ranks: cfg.slices and every shape bank's slice count
+    divisible by it.  Returns the crop plan of ``p`` (the stream's
+    FFV1Params).  ``ParallelFFV1Encoder`` calls it, and the CLI's
+    ``--mesh`` before it starts any rank."""
+    if cfg.slices % n_shards:
+        raise ValueError(f"slices={cfg.slices} not divisible by slice-axis "
+                         f"size {n_shards}")
+    plan = build_crop_plan(p)
+    for ids in shape_banks(plan):
+        if len(ids) % n_shards:
+            raise ValueError(
+                f"bank of {len(ids)} slices not divisible by slice-axis "
+                f"size {n_shards} (slice shapes "
+                f"{[pr[ids[0]][2:] for pr in plan]})")
+    return plan
+
+
 class _BankUnit:
     """One uniform-geometry slice bank on this rank: the sub-encoder of
     its block of the bank's slices (slice_subset), with its own caps and
     carried coder state.  A uniform frame has one unit of every slice."""
 
-    def __init__(self, bank_ids, crop_plan, width, height, pix_fmt, cfg, p,
-                 mesh, device, emission_order):
+    def __init__(self, bank_ids, width, height, pix_fmt, cfg, p, mesh,
+                 device, emission_order):
         n_shards = mesh.shape["slice"]
-        if len(bank_ids) % n_shards:
-            raise ValueError(
-                f"bank of {len(bank_ids)} slices not divisible by "
-                f"slice-axis size {n_shards} (slice shapes "
-                f"{[pr[bank_ids[0]][2:] for pr in crop_plan]})")
         n = len(bank_ids) // n_shards
         # shard s's block: what P("slice") gives shard s of the bank's
         # slice order
@@ -90,15 +104,11 @@ class ParallelFFV1Encoder:
         self.mesh = mesh
         self.data = int(mesh.shape["data"])
         self.n_shards = int(mesh.shape["slice"])
-        if cfg.slices % self.n_shards:
-            raise ValueError(
-                f"slices={cfg.slices} not divisible by slice-axis size "
-                f"{self.n_shards}")
         self.cfg = cfg
         p = self.p = params_from_config(cfg, pix_fmt, width, height)
-        plan = build_crop_plan(p)
-        self.units = [_BankUnit(ids, plan, width, height, pix_fmt, cfg, p,
-                                mesh, device, emission_order)
+        plan = check_slices(cfg, p, self.n_shards)
+        self.units = [_BankUnit(ids, width, height, pix_fmt, cfg, p, mesh,
+                                device, emission_order)
                       for ids in shape_banks(plan)]
         enc0 = self.units[0].enc
         self.kernels = enc0.kernels

@@ -41,16 +41,27 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _rank_main(fn, rank, n_ranks, backend, addr, timeout_s, args, out_q):
-    """A child's body: join the group, run ``fn``, report to the parent.
-    A failure is reported with its traceback (this is the boundary that
-    tells the parent)."""
+# this rank's start, on the host's wall clock (time.time()): "spawn" the
+# parent starting the ranks, "main" this child entering its body (its
+# interpreter up and its imports done), "group" its arguments received
+# and the process group joined
+STARTED = {}
+
+
+def _rank_main(fn, rank, n_ranks, backend, addr, timeout_s, spawned, in_q,
+               out_q):
+    """A child's body: take the arguments from ``in_q``, join the group,
+    run ``fn``, report to the parent.  A failure is reported with its
+    traceback (this is the boundary that tells the parent)."""
+    STARTED.update(spawn=spawned, main=time.time())
     try:
+        args = in_q.get(timeout=timeout_s)
         if backend == "nccl":
             torch.cuda.set_device(rank % torch.cuda.device_count())
         dist.init_process_group(
             backend, init_method=addr, world_size=n_ranks, rank=rank,
             timeout=datetime.timedelta(seconds=timeout_s))
+        STARTED["group"] = time.time()
         try:
             result = fn(rank, n_ranks, *args)
         finally:
@@ -70,22 +81,32 @@ def spawn_world(fn, n_ranks: int, backend: str, timeout_s: float, *args):
     group times out after ``timeout_s``; the parent waits at most
     ``timeout_s`` for the whole world, and on a timeout, a rank's
     exception or a rank that dies, terminates every rank and raises
-    (RuntimeError, or TimeoutError).  Nothing is left running."""
+    (RuntimeError, or TimeoutError).  Nothing is left running.
+
+    ``args`` reach the ranks through a queue, not with the processes: a
+    spawned child reads its process's pickle only as fast as it imports
+    (torch first), so large arguments there would hold each start until
+    the rank before it had imported torch."""
     if torch.cuda.is_available():
         _build.build()
     ffv1_native.build()
     ctx = mp.get_context("spawn")
     out_q = ctx.Queue()
+    in_q = ctx.Queue()
+    in_q.cancel_join_thread()     # a rank that dies unread must not hang us
     addr = f"tcp://127.0.0.1:{_free_port()}"
+    spawned = time.time()
     procs = [ctx.Process(target=_rank_main, daemon=True,
                          args=(fn, r, n_ranks, backend, addr, timeout_s,
-                               args, out_q))
+                               spawned, in_q, out_q))
              for r in range(n_ranks)]
     deadline = time.monotonic() + timeout_s
     results = {}
     try:
         for p in procs:
             p.start()
+        for _ in procs:
+            in_q.put(args)
         while len(results) < n_ranks:
             left = deadline - time.monotonic()
             if left <= 0:
@@ -119,6 +140,7 @@ def spawn_world(fn, n_ranks: int, backend: str, timeout_s: float, *args):
                 p.kill()
                 p.join()
         out_q.close()
+        in_q.close()
     return [results[r] for r in range(n_ranks)]
 
 
@@ -176,18 +198,21 @@ def _ffv1_case(case, mesh, device) -> dict:
     load_state ((tables, picture_number) before the first step),
     state_after (the step after which ``state()`` is read)."""
     from .ffv1 import ParallelFFV1Encoder
+    t0 = time.perf_counter()
     enc = ParallelFFV1Encoder(case["width"], case["height"],
                               case["pix_fmt"], case["cfg"], mesh,
                               device=device,
                               emission_order=case.get("emission_order",
                                                       False))
+    setup_ms = (time.perf_counter() - t0) * 1e3
     if case.get("load_state") is not None:
         enc.load_state(*case["load_state"])
     lanes = case["lanes"]
     keyframes = case.get("keyframes") or [None] * len(lanes[0])
     out = dict(packets=[], frame_ms=[], stage_ms=[], state=None,
                kernels=list(enc.kernels), units=len(enc.units),
-               transport=mesh.backend)
+               transport=mesh.backend, extradata=enc.extradata,
+               setup_ms=setup_ms)
     _build.reset_counts()
     for t, kf in enumerate(keyframes):
         clock = _Clock()
@@ -278,12 +303,20 @@ def run_cases(rank: int, n_ranks: int, cases, device="cuda") -> list:
     A case with ``expect`` = "ValueError" returns the message of the
     ValueError it must raise.  Packets and results come back from global
     rank 0 only; every rank returns their sha256 (``digests``,
-    ``digest``)."""
+    ``digest``).  Every result carries ``started``: the rank's start
+    (``STARTED``, and "ready", its device set and, on a card, its CUDA
+    context made) on the host's wall clock.
+
+    A rank on "cuda" with no index takes card rank mod the card count:
+    the ranks share the cards where they outnumber them."""
     from .slices import make_mesh
     torch.set_num_threads(1)          # the ranks share the host's cores
     dev = torch.device(device)
     if dev.type == "cuda":
-        torch.cuda.set_device(dev.index or 0)
+        torch.cuda.set_device(dev.index if dev.index is not None
+                              else rank % torch.cuda.device_count())
+        torch.zeros(1, device="cuda")     # make the context here
+    started = dict(STARTED, ready=time.time())
     out = []
     for case in cases:
         mesh = make_mesh(*case["mesh"], group=case.get("group"))
@@ -299,7 +332,7 @@ def run_cases(rank: int, n_ranks: int, cases, device="cuda") -> list:
             raise AssertionError(f"case {case.get('name')}: no ValueError")
         res = _CASES[case["kind"]](case, mesh, device)
         res.update(name=case.get("name"), rank=rank, pid=os.getpid(),
-                   d=mesh.d, s=mesh.s)
+                   d=mesh.d, s=mesh.s, started=started)
         if "packets" in res:
             res["digests"] = [[_digest(p) for p in step]
                               for step in res["packets"]]

@@ -1,12 +1,18 @@
 """``python -m ffmpeg_ffv2_tpu_torch.cli`` against the JAX package's CLI:
 every command's output files equal the original's byte for byte, on a
-64x48 yuv420p clip of four frames (``-g 2``: key and inter frames).  The
-JAX CLI runs once per command in subprocesses (a module fixture, as
-``tests/test_cli.py`` runs it); the port's ``main(argv)`` runs in
-process, and once as ``python -m``.  The ``tpu`` and ``device`` backends
-run with ``-device cpu`` (their plain versions) and are held against the
-JAX CLI's ``native`` output, which their packets equal; the port's
-default backend is ``device``, the JAX CLI's ``native``."""
+64x48 yuv420p clip of four frames (``-g 2``: key and inter frames) and,
+for FFV2, a 64x48 yuv444p clip of four frames.  The JAX CLI runs once per
+command in subprocesses (a module fixture, as ``tests/test_cli.py`` runs
+it); the port's ``main(argv)`` runs in process, and once as ``python
+-m``.  The ``tpu`` and ``device`` backends, FFV2 and ``--mesh`` run with
+``-device cpu`` (their plain versions) and are held against the JAX
+CLI's output; the port's default backend is ``device``, the JAX CLI's
+``native``, whose packets it equals.  ``--mesh 2x2`` runs a gloo world of
+4 CPU ranks; with Golomb-Rice it is held against the JAX CLI's ``--mesh
+2x2`` on the virtual 8-device CPU mesh (tests/conftest.py), with the range
+coder against the JAX CLI's single-device AVI, which the JAX CLI's
+``--mesh`` writes too (its range-coder mesh compiles for minutes on this
+CPU)."""
 
 import concurrent.futures as cf
 import os
@@ -17,12 +23,12 @@ import numpy as np
 import pytest
 
 from ffmpeg_ffv2_tpu_torch.cli.main import main
-from ffmpeg_ffv2_tpu_torch.container import AviWriter
 from test_torch_formats import torch_one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 W, H, N = 64, 48, 4
 ENC = ["-s", f"{W}x{H}", "-slices", "4", "-g", "2"]
+FFV2 = ["-s", f"{W}x{H}", "-pix_fmt", "yuv444p", "-c", "ffv2", "-qp", "16"]
 
 
 def _cli(module, *args):
@@ -47,7 +53,22 @@ def clip(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def jax_cli(clip):
+def clip444(clip):
+    """The FFV2 clip, yuv444p: a moving gradient in luma, seeded noise in
+    chroma (beside ``clip``'s file)."""
+    td, _ = clip
+    rng = np.random.RandomState(1)
+    path = td / "in444.yuv"
+    with open(path, "wb") as f:
+        for t in range(N):
+            y = ((np.indices((H, W)).sum(0) * 3 + t) % 256).astype(np.uint8)
+            f.write(y.tobytes() + rng.randint(0, 256, (2, H, W)).astype(
+                np.uint8).tobytes())
+    return path
+
+
+@pytest.fixture(scope="module")
+def jax_cli(clip, clip444):
     """The JAX CLI's outputs (in ``td/jax``) and stdout, by command name;
     chains of commands that read an earlier one's file run in order,
     the chains side by side."""
@@ -55,6 +76,7 @@ def jax_cli(clip):
     out = td / "jax"
     out.mkdir()
     i = str(src)
+    e2 = ["-i", str(clip444), *FFV2]
 
     def o(name):
         return str(out / name)
@@ -81,6 +103,18 @@ def jax_cli(clip):
         "transcode": [["transcode", "-i", i, *ENC, "-keep", o("trans.avi"),
                        "-o", o("trans.yuv")]],
         "psnr": [["psnr", i, o("dec.yuv")]],
+        "ffv2": [["encode", *e2, "-o", o("ffv2.avi")],
+                 ["decode", "-i", o("ffv2.avi"), "-o", o("ffv2.yuv")]],
+        "ffv2_bs0": [["encode", *e2, "-block_size", "0",
+                      "-o", o("ffv2_bs0.avi")]],
+        "ffv2_python": [["encode", *e2, "--backend", "python",
+                         "-o", o("ffv2_python.avi")]],
+        "ffv2_workers": [["encode", *e2, "-workers", "4",
+                          "-o", o("ffv2_workers.avi")]],
+        "ffv2_transcode": [["transcode", *e2, "-block_size", "0", "-keep",
+                            o("ffv2_trans.avi"), "-o", o("ffv2_trans.yuv")]],
+        "mesh": [["encode", "-i", i, *ENC, "--mesh", "2x2",
+                  "-o", o("mesh_rice.avi")]],
     }
 
     def run(chain):
@@ -227,28 +261,120 @@ def test_torch_cli_module_entry(clip, jax_cli):
     assert not (td / "torch" / "cuda.avi").exists()
 
 
-@pytest.mark.parametrize("case", ["codec", "ffv2", "mesh", "ffv2_decode",
-                                  "qp", "block_size", "workers"])
+@pytest.mark.parametrize("case", ["codec"])
 def test_torch_cli_errors(clip, case):
-    """An unknown codec exits non-zero; -c ffv2, --mesh and an FFV2 stream
-    to decode exit non-zero naming the roadmap item that ports them; the
-    FFV2-only options (-qp, -block_size, encode's -workers) are not
-    options of the port's encode yet, and argparse rejects them."""
+    """An unknown codec exits non-zero."""
     td, src = clip
     (td / "torch").mkdir(exist_ok=True)
     enc = ["encode", "-i", str(src), *ENC, "-o", str(td / "torch" / "x.avi")]
-    argv = {"codec": enc + ["-c", "vp9"], "ffv2": enc + ["-c", "ffv2"],
-            "mesh": enc + ["--mesh", "2x2"], "qp": enc + ["-qp", "20"],
-            "block_size": enc + ["-block_size", "0"],
-            "workers": enc + ["-workers", "4"]}.get(case)
-    if case == "ffv2_decode":
-        avi = AviWriter(W, H, "FFV2", (25, 1), b"")
-        avi.write_packet(b"\0" * 16, True)
-        avi.save(str(td / "torch" / "ffv2.avi"))
-        argv = ["decode", "-i", str(td / "torch" / "ffv2.avi"),
-                "-o", str(td / "torch" / "ffv2.yuv")]
+    argv = {"codec": enc + ["-c", "vp9"]}[case]
     with pytest.raises(SystemExit) as e:
         main(argv)
     assert e.value.code not in (0, None)
-    if case in ("ffv2", "mesh", "ffv2_decode"):
-        assert "ROADMAP.md queue 1 item 2" in str(e.value.code)
+
+
+@pytest.mark.parametrize("args, want", [
+    (["-block_size", "64"], "ffv2.avi"),
+    (["-block_size", "0"], "ffv2_bs0.avi"),
+    (["--backend", "python"], "ffv2_python.avi")])
+def test_torch_cli_ffv2_encode(clip, clip444, jax_cli, args, want):
+    """-c ffv2 -qp 16 writes the original's AVI: NativeFFV2Encoder on the
+    CPU (its plain versions) with the monolithic 64x64 superblocks and
+    with the activity-adaptive split tree (-block_size 0), and the Python
+    codec (--backend python)."""
+    td, _ = clip
+    name = "ffv2_" + "_".join(a.strip("-") for a in args) + ".avi"
+    out = _port(td, "encode", "-i", clip444, *FFV2, *args, "-device", "cpu",
+                "-o", td / "torch" / name)
+    assert (out / name).read_bytes() == (jax_cli[0] / want).read_bytes()
+
+
+def test_torch_cli_ffv2_workers(clip, clip444, jax_cli):
+    """-c ffv2 -workers 4 (PipelinedFFV2Encoder, four frames in flight)
+    writes the original's pipelined AVI, which is the sequential one."""
+    td, _ = clip
+    out = _port(td, "encode", "-i", clip444, *FFV2, "-workers", "4",
+                "-device", "cpu", "-o", td / "torch" / "ffv2_workers.avi")
+    want = (jax_cli[0] / "ffv2_workers.avi").read_bytes()
+    assert (out / "ffv2_workers.avi").read_bytes() == want
+    assert want == (jax_cli[0] / "ffv2.avi").read_bytes()
+
+
+def test_torch_cli_ffv2_decode(clip, jax_cli):
+    """decode -device cpu of the original's FFV2 AVI (NativeFFV2Decoder's
+    plain versions) writes the original's raw file."""
+    td, _ = clip
+    out = _port(td, "decode", "-device", "cpu", "-i",
+                jax_cli[0] / "ffv2.avi", "-o", td / "torch" / "ffv2.yuv")
+    assert ((out / "ffv2.yuv").read_bytes()
+            == (jax_cli[0] / "ffv2.yuv").read_bytes())
+
+
+def test_torch_cli_ffv2_transcode(clip, clip444, jax_cli):
+    """FFV2 transcode with the split tree keeps the original's container
+    and writes its raw output; the decode runs on the encode's -device."""
+    td, _ = clip
+    out = _port(td, "transcode", "-i", clip444, *FFV2, "-block_size", "0",
+                "-device", "cpu", "-keep", td / "torch" / "ffv2_trans.avi",
+                "-o", td / "torch" / "ffv2_trans.yuv")
+    for name in ("ffv2_trans.avi", "ffv2_trans.yuv"):
+        assert (out / name).read_bytes() == (jax_cli[0] / name).read_bytes()
+
+
+@pytest.mark.parametrize("coder, want", [("rice", "mesh_rice.avi"),
+                                         ("ac", "ac.avi")])
+def test_torch_cli_mesh(clip, jax_cli, capfd, coder, want):
+    """--mesh 2x2 -device cpu: a gloo world of 4 ranks (two GOP lanes of
+    two slice ranks) writes the original's AVI, Golomb-Rice the JAX CLI's
+    --mesh 2x2 and range its single-device AVI; every rank ran its path's
+    plain versions, and the transport is named on stderr."""
+    import json
+    td, src = clip
+    capfd.readouterr()
+    out = _port(td, "encode", "-i", src, *ENC, "-coder", coder, "--mesh",
+                "2x2", "--backend", "native", "-device", "cpu",
+                "-o", td / "torch" / f"mesh_{coder}.avi")
+    assert ((out / f"mesh_{coder}.avi").read_bytes()
+            == (jax_cli[0] / want).read_bytes())
+    err = capfd.readouterr().err
+    assert "--mesh 2x2: 4 ranks on gloo (-device cpu)" in err
+    ranks = json.loads(err.split("--mesh ranks: ")[1].splitlines()[0])
+    path = {"rice": ["place", "vlc", "ladder"],
+            "ac": ["place", "adapt", "emission_pack", "expand",
+                   "rac_render"]}[coder]
+    assert [r["rank"] for r in ranks] == [0, 1, 2, 3]
+    for r in ranks:
+        assert r["transport"] == "gloo" and not r["launches"]
+        assert all(r["plain_calls"].get(k, 0) > 0 for k in path), r
+        assert set(r["start_s"]) == {"interpreter", "group", "device"}
+        assert min(r["start_s"].values()) >= 0 and r["setup_ms"] > 0
+
+
+@pytest.mark.parametrize("n_ranks, device, cards, want", [
+    (4, "cpu", 8, "gloo"), (4, "cuda", 1, "gloo"), (1, "cuda", 1, "nccl"),
+    (4, "cuda", 4, "nccl")])
+def test_torch_cli_mesh_transport(monkeypatch, n_ranks, device, cards,
+                                  want):
+    """--mesh's transport: gloo on the CPU or where the ranks outnumber
+    the cards torch sees (they share them), NCCL where every rank has a
+    card of its own."""
+    import torch
+    from ffmpeg_ffv2_tpu_torch.cli.mesh import pick_transport
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    assert pick_transport(n_ranks, device) == want
+
+
+@pytest.mark.parametrize("mesh, message", [
+    ("3x3", "not divisible by slice-axis size 3"),
+    ("2x", "is not DxS")])
+def test_torch_cli_bad_mesh(clip, mesh, message):
+    """A mesh the frame's slices do not allow (3x3 over 4 slices), or no
+    DxS at all, exits non-zero with the reason before any rank starts."""
+    td, src = clip
+    (td / "torch").mkdir(exist_ok=True)
+    with pytest.raises(SystemExit) as e:
+        main(["encode", "-i", str(src), *ENC, "--mesh", mesh, "-device",
+              "cpu", "-o", str(td / "torch" / "bad.avi")])
+    assert e.value.code not in (0, None)
+    assert message in str(e.value.code)
+    assert not (td / "torch" / "bad.avi").exists()

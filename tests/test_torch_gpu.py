@@ -7,7 +7,10 @@ formats, shape banks, the emission_pack kernel and the emission-order walk
 their numpy models, FFV2's K18 and K19 equal their plain versions and
 a 1080p FFV2 packet and its decode equal the host path's, and the
 multi-device encoder on a 2-rank gloo world sharing the card equals the
-single-device port (``-k parallel``).
+single-device port (``-k parallel``); the CLI on the card (``-k cli``):
+FFV1's backends, FFV2's packets and decode against the host path, and
+``--mesh 2x2`` (4 gloo ranks sharing the card) and ``--mesh 1x1`` (one
+NCCL rank) against the single-device CLI's file.
 
 Needs an NVIDIA GPU and nvcc; skips itself elsewhere.  The machine with
 the card has no jax, so run this file without the repository's
@@ -1269,6 +1272,102 @@ def test_torch_gpu_cli_device_matches_native(tmp_path, coder):
         main(["decode", "-workers", workers, "-i", str(tmp_path / "dev.avi"),
               "-o", str(out)])
         assert out.read_bytes() == raw.read_bytes()
+
+
+@pytest.mark.parametrize("block_size, workers", [("64", "1"), ("64", "4"),
+                                                 ("0", "1")])
+def test_torch_gpu_cli_ffv2_matches_host(tmp_path, block_size, workers):
+    """``-c ffv2 -qp 16`` through the port's CLI on the card (the default
+    -device cuda; -workers 4 is PipelinedFFV2Encoder): every packet of the
+    AVI equals NativeFFV2Encoder.encode_host's, K18 (not on the split
+    tree) and K19 launched with no plain version; the CLI's decode on the
+    card equals decode_host."""
+    from ffmpeg_ffv2_tpu_torch.cli.main import main
+    from ffmpeg_ffv2_tpu_torch.container.avi import AviReader
+    from ffmpeg_ffv2_tpu_torch.ffv2 import FFV2Config
+    from ffmpeg_ffv2_tpu_torch.ffv2.native import (NativeFFV2Decoder,
+                                                   NativeFFV2Encoder)
+    w, h = 200, 136
+    frames = [_ffv2_frame(w, h, 3, 8, 30 + t) for t in range(3)]
+    raw = tmp_path / "in.yuv"
+    raw.write_bytes(b"".join(pl.astype(np.uint8).tobytes()
+                             for fr in frames for pl in fr))
+    avi = tmp_path / "ffv2.avi"
+    _build.reset_counts()
+    main(["encode", "-i", str(raw), "-s", f"{w}x{h}", "-pix_fmt", "yuv444p",
+          "-c", "ffv2", "-qp", "16", "-block_size", block_size, "-workers",
+          workers, "-o", str(avi)])
+    # the split tree codes its leaves on the host: K19 only
+    path = ("pvq", "lap_pre") if block_size == "64" else ("lap_pre",)
+    assert all(_build.KERNELS[k].launches > 0 for k in path)
+    assert not any(k.plain_calls for k in _build.KERNELS.values())
+    enc = NativeFFV2Encoder(w, h, "yuv444p",
+                            FFV2Config(qp=16, block_size=int(block_size)))
+    pkts = AviReader(avi.read_bytes()).video.packets
+    assert pkts == [enc.encode_host(fr) for fr in frames]
+    _build.reset_counts()
+    main(["decode", "-i", str(avi), "-o", str(tmp_path / "dec.yuv")])
+    assert _build.KERNELS["lap_post"].launches > 0
+    assert not any(k.plain_calls for k in _build.KERNELS.values())
+    dec = NativeFFV2Decoder(w, h)
+    want = b"".join(np.asarray(pl).astype(np.uint8).tobytes()
+                    for pkt in pkts for pl in dec.decode_host(pkt))
+    assert (tmp_path / "dec.yuv").read_bytes() == want
+
+
+@pytest.mark.parametrize("coder", ["ac", "rice"])
+def test_torch_gpu_cli_mesh_matches_single_device(tmp_path, capfd, coder):
+    """``--mesh 2x2`` on the card: a gloo world of 4 ranks sharing it (two
+    GOP lanes of two slice ranks) writes the single-device CLI's AVI, every
+    rank launching its path's kernels with no plain version."""
+    import json
+    from ffmpeg_ffv2_tpu_torch.cli.main import main
+    rng = np.random.RandomState(21)
+    w, h = 96, 64
+    raw = tmp_path / "in.yuv"
+    raw.write_bytes(rng.randint(0, 256, 5 * w * h * 3 // 2).astype(
+        np.uint8).tobytes())
+    enc = ["encode", "-i", str(raw), "-s", f"{w}x{h}", "-level", "3",
+           "-slices", "4", "-g", "2", "-coder", coder]
+    main(enc + ["-o", str(tmp_path / "one.avi")])
+    capfd.readouterr()
+    main(enc + ["--mesh", "2x2", "-o", str(tmp_path / "mesh.avi")])
+    err = capfd.readouterr().err
+    assert "--mesh 2x2: 4 ranks on gloo (-device cuda)" in err
+    assert ((tmp_path / "mesh.avi").read_bytes()
+            == (tmp_path / "one.avi").read_bytes())
+    kernels = dc.RANGE_KERNELS if coder == "ac" else dc.RICE_KERNELS
+    ranks = json.loads(err.split("--mesh ranks: ")[1].splitlines()[0])
+    assert len(ranks) == 4
+    for r in ranks:
+        assert all(r["launches"].get(k, 0) > 0 for k in kernels), r
+        assert not r["plain_calls"], r
+
+
+def test_torch_gpu_cli_mesh_nccl(tmp_path, capfd):
+    """``--mesh 1x1`` on the card: one rank with a card of its own, so the
+    CLI picks NCCL; its AVI equals the single-device CLI's, the rank
+    launching the range coder's kernels with no plain version."""
+    import json
+    from ffmpeg_ffv2_tpu_torch.cli.main import main
+    rng = np.random.RandomState(22)
+    w, h = 96, 64
+    raw = tmp_path / "in.yuv"
+    raw.write_bytes(rng.randint(0, 256, 4 * w * h * 3 // 2).astype(
+        np.uint8).tobytes())
+    enc = ["encode", "-i", str(raw), "-s", f"{w}x{h}", "-level", "3",
+           "-slices", "4", "-g", "2", "-coder", "ac"]
+    main(enc + ["-o", str(tmp_path / "one.avi")])
+    capfd.readouterr()
+    main(enc + ["--mesh", "1x1", "-o", str(tmp_path / "mesh.avi")])
+    err = capfd.readouterr().err
+    assert "--mesh 1x1: 1 ranks on nccl (-device cuda)" in err
+    assert ((tmp_path / "mesh.avi").read_bytes()
+            == (tmp_path / "one.avi").read_bytes())
+    (r,) = json.loads(err.split("--mesh ranks: ")[1].splitlines()[0])
+    assert r["transport"] == "nccl"
+    assert all(r["launches"].get(k, 0) > 0 for k in dc.RANGE_KERNELS), r
+    assert not r["plain_calls"], r
 
 
 def test_torch_gpu_native_runtime_stats_packets():

@@ -110,7 +110,8 @@ def test_torch_port_imports_without_jax():
         "'container.avi', 'container.matroska', 'container.nut', "
         "'container.rawvideo', 'ffv1.codec_py', 'ffv1.encoder', "
         "'ffv1.decoder', 'ffv1.batched', 'cli.main', 'cli.__main__', "
-        "'tools.native_check'):\n"
+        "'cli.mesh', 'tools.native_check', 'testsrc', 'testsrc.videogen', "
+        "'testsrc.rotozoom', 'graft_entry'):\n"
         "    assert 'ffmpeg_ffv2_tpu_torch.' + m in names, m\n"
         "assert not any(m.split('.')[0] in ('jax', 'ffmpeg_ffv2_tpu') "
         "for m, v in sys.modules.items() if v is not None)\n"
