@@ -395,7 +395,7 @@ def cut_tiles(caps, pred):
 
 class Marks:
     """CUDA events between the stages of one frame, and the inputs of each
-    kernel stage (the encoder's ``mark`` hook, see ``rice.no_mark``)."""
+    kernel stage (the encoder's ``mark`` hook, see ``utils.metrics``)."""
 
     def __init__(self):
         import torch

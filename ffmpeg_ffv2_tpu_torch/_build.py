@@ -30,6 +30,8 @@ import threading
 
 import torch
 
+from .utils import metrics
+
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
@@ -111,20 +113,28 @@ def build() -> str:
 
 def load() -> ctypes.CDLL:
     """Build if needed, then load the library once per process and bind
-    every kernel's launcher onto its ``Kernel``."""
+    every kernel's launcher onto its ``Kernel``.  The first load is a call
+    record ``library load`` on ``metrics.TRACE``: a stage ``build`` when
+    nvcc runs, then ``library bind``."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(build())
-            lib.ffv2_error_string.argtypes = [I]
-            lib.ffv2_error_string.restype = ctypes.c_char_p
-            for name, args, res in _QUERIES:
-                fn = getattr(lib, name)
-                fn.argtypes = args
-                fn.restype = res
-            for k in KERNELS.values():
-                k.bind(lib)
-            _lib = lib
+            with metrics.TRACE.call("library load", 0):
+                path = library_path()
+                if not os.path.exists(path):
+                    build()
+                    metrics.TRACE("build")
+                lib = ctypes.CDLL(path)
+                lib.ffv2_error_string.argtypes = [I]
+                lib.ffv2_error_string.restype = ctypes.c_char_p
+                for name, args, res in _QUERIES:
+                    fn = getattr(lib, name)
+                    fn.argtypes = args
+                    fn.restype = res
+                for k in KERNELS.values():
+                    k.bind(lib)
+                _lib = lib
+                metrics.TRACE("library bind")
         return _lib
 
 

@@ -36,7 +36,7 @@ import numpy as np
 
 from ..core.pixfmt import get_pix_fmt
 from ..container.avi import AviReader, AviWriter
-from ..utils.metrics import FrameStats, packet_slice_sizes
+from ..utils.metrics import FrameStats, StageTrace, packet_slice_sizes
 from ..utils.psnr import tiny_psnr_line
 
 
@@ -242,6 +242,10 @@ def cmd_encode(args):
     vstats = open(args.vstats, "w") if args.vstats else None
     stats = FrameStats() if vstats else None
     p_enc = getattr(enc, "p", None)         # FFV1Params (slice trailers)
+    trace = None
+    if vstats and hasattr(enc, "trace"):
+        # a device session: its stages, on a recorder of this run's own
+        trace = enc.trace = StageTrace()
     if (args.c == "ffv2" and getattr(args, "workers", 1) > 1
             and args.backend != "python"):
         # frame-pipelined Daala EC: frame t's C++ coder overlaps frame
@@ -274,9 +278,17 @@ def cmd_encode(args):
                 rec["crc_ok"] = (
                     all(ok for (_, _, ok) in regions if ok is not None)
                     if p_enc.ec else None)
+            if trace is not None:
+                rec["stages_ms"] = {k: round(v, 4) for k, v in
+                                    trace.last().stage_ms().items()}
             vstats.write(json.dumps(rec) + "\n")
     if vstats:
-        vstats.write(json.dumps({"summary": stats.report()}) + "\n")
+        line = {"summary": stats.report()}
+        if trace is not None:
+            line["stages"] = {k: {"ms": round(v * 1e3, 4),
+                                  "count": trace.counts[k]}
+                              for k, v in trace.totals.items()}
+        vstats.write(json.dumps(line) + "\n")
         vstats.close()
     out.save(args.output)
     print(f"encoded {len(frames)} frames -> {args.output} "
@@ -428,7 +440,9 @@ def main(argv=None):
         p.add_argument("-vstats", default="", metavar="FILE",
                        help="write per-frame stats JSONL (bytes, bpp, "
                             "per-slice sizes from the trailer walk, "
-                            "CRC status) + a summary line")
+                            "CRC status; a device session's stage ms) + "
+                            "a summary line (with each stage's total ms "
+                            "and count)")
 
     pe = sub.add_parser("encode")
     add_common_enc(pe)

@@ -36,6 +36,7 @@ import torch
 
 from ..coder.rac import RangeEncoder
 from ..ops.place import place
+from ..utils import metrics
 from . import headers as H
 from . import host
 from .adapt import (adapt, adapt_emission, pack_emission,
@@ -372,7 +373,19 @@ class DeviceFFV1Encoder:
                  emission_order: bool = False,
                  params: FFV1Params | None = None, slice_subset=None):
         """slice_subset (internal): restrict this session to the given
-        global slice indices, one bank of a non-uniform geometry."""
+        global slice indices, one bank of a non-uniform geometry.  The
+        set-up is a call record ``session init`` on ``metrics.TRACE``,
+        which is the session's ``trace``: the recorder that ``encode``
+        and ``encode_batch`` mark by default (an operator may set their
+        own ``StageTrace``)."""
+        self.trace = metrics.TRACE
+        with self.trace.call("session init", 0):
+            self._init(width, height, pix_fmt, config, device,
+                       emission_order, params, slice_subset)
+            self.trace("session tables")
+
+    def _init(self, width, height, pix_fmt, config, device, emission_order,
+              params, slice_subset):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("DeviceFFV1Encoder: device='cuda' but torch "
@@ -620,13 +633,15 @@ class DeviceFFV1Encoder:
         return phase_a(planes, self.crop_plan, self.qt, self.p.bits,
                        self.five)
 
-    def range_streams(self, planes, keyframe: bool):
+    def range_streams(self, planes, keyframe: bool, mark=no_mark):
         """Planes on the device -> (ctx, diff, the slices' prefix ops): v4
-        RGB first picks each slice's RCT coefficients and plans the slice
+        RGB first picks each slice's RCT coefficients (a read of the
+        candidates' costs, ``RCT costs to host``) and plans the slice
         headers that carry them (device_coder._encode_frame_data)."""
         if not self.v4rgb:
             return (*self.phase_a(planes), self.prefix[keyframe])
         rct = self.pick_rct(planes)
+        mark("RCT costs to host")
         by, ry = torch.tensor(rct, dtype=I32, device=self.device).T
         return (*self.phase_a(planes, by.contiguous(), ry.contiguous()),
                 self.prefix_for_rct(keyframe, rct))
@@ -689,7 +704,7 @@ class DeviceFFV1Encoder:
         """Layout, K1 place, start states, the walk (K2 then emission_pack
         to emission order, or K6) and the state writeback
         (device_coder._s_front).  ``mark`` is called after each stage
-        (``rice.no_mark``)."""
+        (``metrics.no_mark`` by default)."""
         plan = self.layout(ctx, diff, tiles_cap, cellrows_cap)
         mark("layout")
         k1 = (plan, cellrows_cap)
@@ -750,14 +765,19 @@ class DeviceFFV1Encoder:
             self.unsort_words = min(host.n_ev_words(self.code_bits),
                                     (maxc + 3) // 4)
 
-    def _render_retry(self, opw, steps: int):
+    def _render_retry(self, opw, steps: int, mark=no_mark):
         """K4 with render-buffer growth; returns (bytes on the device,
-        host lengths)."""
+        host lengths).  ``mark`` is called after K4 with its inputs and
+        after the lengths' read."""
         for _ in range(6):
-            by, ln = rac_render(opw, steps, self.render_cap)
+            k4 = (opw, steps, self.render_cap)
+            by, ln = rac_render(*k4)
+            mark("K4 rac_render", k4)
             ln_h = ln.cpu().numpy()
+            mark("lengths to host")
             if int(ln_h.max()) <= self.render_cap:
                 return by, ln_h
+            metrics.retry(mark)
             self.render_cap = host.quantize_cap(
                 max(int(ln_h.max()) + 4096, self.render_cap + 1),
                 self.render_cap_max, 4096)
@@ -787,7 +807,8 @@ class DeviceFFV1Encoder:
         """Layout, K1 place, start states, K5 vlc walk, the state
         writeback and the unsort: returns (codes (S, npix) len << 18 | val
         in stream order, vcanon after the frame, [rows, tiles, slots]).
-        ``mark`` is called after each stage (``rice.no_mark``)."""
+        ``mark`` is called after each stage (``metrics.no_mark`` by
+        default)."""
         plan = self.layout(ctx, payload, tiles_cap, cellrows_cap,
                            self.rice_pb + 1)
         mark("layout")
@@ -828,23 +849,27 @@ class DeviceFFV1Encoder:
         return [hdrs[si] + by_h[si, :(nbits[si] + 7) // 8].tobytes()
                 for si in range(self.S)]
 
-    def _encode_rice(self, planes, keyframe: bool) -> list:
+    def _encode_rice(self, planes, keyframe: bool, mark=no_mark) -> list:
         """One Golomb-Rice frame -> list of raw slice payloads
-        (encoder.py:_encode_slice)."""
+        (encoder.py:_encode_slice); ``mark`` is called after each stage."""
         dev = self.upload(planes)
+        mark("upload")
         ctx, streams = self.phase_a_rice(dev)
+        mark("phase_a")
         for _ in range(8):
             codes, vcanon, psizes = self.rice_front(
                 ctx, streams["payload"], self.vcanon, keyframe,
-                self.tiles_cap, self.cellrows_cap)
+                self.tiles_cap, self.cellrows_cap, mark)
             by, nbits, n_lad = self.rice_bits(streams, codes, self.ev_cap,
-                                              self.nwords)
+                                              self.nwords, mark)
             sizes = torch.cat([psizes, n_lad.max()[None], nbits]).tolist()
+            mark("sizes to host")
             rows, tiles, slots, nl = sizes[:4]
             nb = sizes[4:]
             fits = self._layout_fits(rows, tiles, slots)
             if fits and nl <= self.ev_cap and max(nb) <= self.nwords * 32:
                 break
+            metrics.retry(mark)
             # grow the adaptive working sizes to the measured need (+slack)
             if not fits:
                 self._grow_layout(rows, tiles)
@@ -856,24 +881,35 @@ class DeviceFFV1Encoder:
         else:
             raise RuntimeError("device rice exceeded worst-case caps")
         self.vcanon = vcanon
-        return self.rice_slices(by.cpu().numpy(), nb, keyframe)
+        by_h = by.cpu().numpy()
+        mark("bytes to host")
+        chunks = self.rice_slices(by_h, nb, keyframe)
+        mark("slice bytes")
+        return chunks
 
     # -- public API ------------------------------------------------------------
 
-    def encode(self, planes, force_keyframe=None) -> bytes:
-        gop = self.cfg.gop_size
-        keyframe = gop == 0 or self.picture_number % gop == 0
-        if force_keyframe is not None:
-            keyframe = bool(force_keyframe)
-        chunks = [None] * self.p.slice_count
-        for bank in self.banks or (self,):
-            # a non-uniform geometry: one pipeline per slice shape, the
-            # packet assembled in global slice order
-            for si, data in zip(bank.slice_ids,
-                                bank._encode_frame_data(planes, keyframe)):
-                chunks[si] = data
-        self.picture_number += 1
-        return self._finish_packet(chunks)
+    def encode(self, planes, force_keyframe=None, mark=None) -> bytes:
+        """One frame -> its packet.  Every stage is marked on ``mark``
+        (the session's ``trace`` by default, in a call record ``encode``
+        of one frame)."""
+        mark = self.trace if mark is None else mark
+        with metrics.span(mark, "encode", 1):
+            gop = self.cfg.gop_size
+            keyframe = gop == 0 or self.picture_number % gop == 0
+            if force_keyframe is not None:
+                keyframe = bool(force_keyframe)
+            chunks = [None] * self.p.slice_count
+            for bank in self.banks or (self,):
+                # a non-uniform geometry: one pipeline per slice shape,
+                # the packet assembled in global slice order
+                for si, data in zip(bank.slice_ids, bank._encode_frame_data(
+                        planes, keyframe, mark)):
+                    chunks[si] = data
+            self.picture_number += 1
+            pkt = self._finish_packet(chunks)
+            mark("slice trailers + CRC")
+        return pkt
 
     def upload(self, planes) -> list:
         """Planes -> int32 tensors on the encoder's device: numpy arrays
@@ -923,7 +959,10 @@ class DeviceFFV1Encoder:
         (per B) until every size fits (device_coder.encode_batch)."""
         self._check_batchable()
         B = len(frames_list)
-        ctx, diff, (svp, btp, hlen) = self.batch_streams(frames_list)
+        staged = [self.upload(f) for f in frames_list]
+        mark("upload")
+        ctx, diff, (svp, btp, hlen) = self.batch_streams(staged)
+        del staged          # phase A's streams replace the int32 planes
         mark("phase_a")
         caps = self._batch_caps.get(B)
         if caps is None:
@@ -935,21 +974,22 @@ class DeviceFFV1Encoder:
                 (caps["tiles"], caps["cellrows"], self.op_cap),
                 self.unsort_words, mark)
             rows, tiles, slots, opmax, maxc = sizes.tolist()
+            mark("sizes to host")
             fits = layout_fits(rows, tiles, slots, caps["tiles"],
                                caps["cellrows"])
             if fits and self._ops_fit(opmax, maxc):
                 break
+            metrics.retry(mark)
             if not fits:
                 grow_layout(rows, tiles, caps)
             self._grow_ops(opmax, maxc)
         else:
             raise RuntimeError("device layout exceeded worst-case caps")
-        mark("sizes to host")
         # code at the power-of-two step bucket
         return opw, n_ops, max(512, min(1 << opmax.bit_length(),
                                         int(opw.shape[1])))
 
-    def encode_batch(self, frames_list, mark=no_mark) -> list:
+    def encode_batch(self, frames_list, mark=None) -> list:
         """B intra (key) frames -> their packets, in one pass of B x S
         slices through phase A, the layout, K1, the walk (K2 and
         emission_pack, or K6), K3 and K4 (device_coder.encode_batch):
@@ -960,21 +1000,25 @@ class DeviceFFV1Encoder:
         as they were; it shares (and may grow) op_cap, unsort_words and
         render_cap.  Raises NotImplementedError for shape banks and v4
         RGB (as the JAX encoder does) and for Golomb-Rice (the JAX batch
-        runs the range pipeline under a rice header there).  ``mark`` is
-        called after each stage, and after K4 with its inputs."""
+        runs the range pipeline under a rice header there).  Every stage
+        is marked on ``mark`` (the session's ``trace`` by default, in a
+        call record ``encode_batch`` of B frames), and each kernel stage
+        with the kernel's inputs."""
         self._check_batchable()
         if not frames_list:
             return []
-        opw, _, steps = self.batch_ops(frames_list, mark)
-        by, ln_h = self._render_retry(opw, steps)
-        mark("K4 rac_render", (opw, steps, self.render_cap))
-        by_h = by.cpu().numpy()
-        mark("bytes to host")
-        S = self.S
-        pkts = [self._finish_packet([by_h[b * S + li, :int(ln_h[b * S + li])]
-                                     .tobytes() for li in range(S)])
-                for b in range(len(frames_list))]
-        mark("slice trailers + CRC")
+        mark = self.trace if mark is None else mark
+        with metrics.span(mark, "encode_batch", len(frames_list)):
+            opw, _, steps = self.batch_ops(frames_list, mark)
+            by, ln_h = self._render_retry(opw, steps, mark)
+            by_h = by.cpu().numpy()
+            mark("bytes to host")
+            S = self.S
+            chunks = [[by_h[b * S + li, :int(ln_h[b * S + li])].tobytes()
+                       for li in range(S)] for b in range(len(frames_list))]
+            mark("slice bytes")
+            pkts = [self._finish_packet(c) for c in chunks]
+            mark("slice trailers + CRC")
         return pkts
 
     def _finish_packet(self, chunks) -> bytes:
@@ -992,19 +1036,23 @@ class DeviceFFV1Encoder:
             out.append(data)
         return b"".join(out)
 
-    def _encode_frame_data(self, planes, keyframe: bool) -> list:
+    def _encode_frame_data(self, planes, keyframe: bool,
+                           mark=no_mark) -> list:
         """This session's slices of one frame -> list of raw slice
-        payloads (no trailers)."""
+        payloads (no trailers); ``mark`` is called after each stage."""
         if self.golomb:
-            return self._encode_rice(planes, keyframe)
+            return self._encode_rice(planes, keyframe, mark)
         dev = self.upload(planes)
-        ctx, diff, (svp, btp, hlen) = self.range_streams(dev, keyframe)
+        mark("upload")
+        ctx, diff, (svp, btp, hlen) = self.range_streams(dev, keyframe, mark)
+        mark("phase_a")
         for _ in range(8):
             opw, n_ops, canon, sizes = self.ops_from_streams(
                 ctx, diff, self.canonical, svp, btp, hlen, keyframe,
                 (self.tiles_cap, self.cellrows_cap, self.op_cap),
-                self.unsort_words)
+                self.unsort_words, mark)
             rows, tiles, slots, opmax, maxc = sizes.tolist()
+            mark("sizes to host")
             fits = self._layout_fits(rows, tiles, slots)
             if fits and self._ops_fit(opmax, maxc):
                 # tighten a fat op domain to the content's measured scale
@@ -1017,8 +1065,9 @@ class DeviceFFV1Encoder:
                 # code at the power-of-two step bucket
                 steps = max(512, min(1 << opmax.bit_length(),
                                      int(opw.shape[1])))
-                by, ln_h = self._render_retry(opw, steps)
+                by, ln_h = self._render_retry(opw, steps, mark)
                 break
+            metrics.retry(mark)
             # grow the adaptive working sizes to the measured need (+slack)
             if not fits:
                 self._grow_layout(rows, tiles)
@@ -1027,4 +1076,7 @@ class DeviceFFV1Encoder:
             raise RuntimeError("device layout exceeded worst-case caps")
         self.canonical = canon
         by_h = by.cpu().numpy()
-        return [by_h[li, :int(ln_h[li])].tobytes() for li in range(self.S)]
+        mark("bytes to host")
+        chunks = [by_h[li, :int(ln_h[li])].tobytes() for li in range(self.S)]
+        mark("slice bytes")
+        return chunks

@@ -27,6 +27,7 @@ import torch
 
 from .. import _build
 from ..coder.golomb import LOG2_RUN
+from ..utils.metrics import no_mark
 
 I32 = torch.int32
 PAYLOAD_BITS = 12            # rice cell payload: diff + 2048 in bits 0..11
@@ -391,12 +392,6 @@ def deliver_ladder(ev, i_before, npix: int):
         return out.scatter_(0, flat, v.reshape(-1))[:n].reshape(S, npix)
 
     return put(ones), put(j), put(rem)
-
-
-def no_mark(stage: str, inputs=None):
-    """The default ``mark`` of the staged pipelines: called after each
-    stage with its name and, after a kernel, the kernel's inputs (a
-    tuple).  ``chip_smoke.py`` passes one that records CUDA events."""
 
 
 def ladder_fields(streams, ev_cap: int, mark=no_mark):

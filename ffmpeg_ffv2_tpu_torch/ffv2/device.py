@@ -20,9 +20,9 @@ leaves to XLA outside any kernel: a float64 ``torch.matmul``, exact (see
 the numpy reference ``dsp`` differs on hostile input (the transforms'
 rounding add, ``_c_div`` of INT_MIN), the port follows JAX.
 
-Every function takes a ``mark`` hook (``no_mark`` by default), called
-after each stage with the stage's name; ``chip_smoke.py`` passes one that
-records CUDA events.
+Every function takes a ``mark`` hook (``metrics.TRACE``, the port's
+stage recorder, by default), called after each stage with the stage's
+name; ``chip_smoke.py`` passes one that records CUDA events.
 """
 
 from __future__ import annotations
@@ -33,14 +33,11 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..utils.metrics import TRACE
 from . import dsp
 
 LAP_RADIUS = 32                 # tpu.py: _jx_frame_* with radius 32
 I64 = torch.int64
-
-
-def no_mark(stage: str):
-    """The default ``mark``: called after each stage with its name."""
 
 
 def _device(device) -> torch.device:
@@ -462,7 +459,7 @@ def scan_t(blocks: torch.Tensor) -> torch.Tensor:
 
 
 def encode_front_t(planes: torch.Tensor, depth: int, sb: int, n: int,
-                   mark=no_mark) -> torch.Tensor:
+                   mark=TRACE) -> torch.Tensor:
     """tpu.py:_encode_front: padded pixel planes [P, ph, pw] -> scanned
     coefficient streams int32 [nby * nbx * P, n*n]."""
     c = prefilter_t(planes, depth, sb)
@@ -482,7 +479,7 @@ def unscan_t(streams: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def decode_back_t(streams: torch.Tensor, depth: int, sb: int, nplanes: int,
-                  nby: int, nbx: int, n: int, mark=no_mark) -> torch.Tensor:
+                  nby: int, nbx: int, n: int, mark=TRACE) -> torch.Tensor:
     """tpu.py:_decode_back: streams int32 [nby * nbx * P, n*n] -> pixel
     planes int32 [P, ph, pw], unclipped."""
     inv = tx_batch_t(unscan_t(streams, n), dsp.TX_DCT, True)
@@ -537,7 +534,7 @@ def prefilter_frame(planes_padded: np.ndarray, depth: int, sb: int = None,
 
 def encode_front_q(planes_padded: np.ndarray, depth: int, qp: int,
                    band_starts, sb: int = None, n: int = None,
-                   device="cuda", mark=no_mark):
+                   device="cuda", mark=TRACE):
     """The fused device front (tpu.py:encode_front_q): the planes go up
     at their source depth; Q12, K19's prefilter, the transform, the zigzag
     and K18 run on the device; dc, the split sums and the int8 pulses come

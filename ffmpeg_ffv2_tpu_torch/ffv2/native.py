@@ -26,6 +26,7 @@ import torch
 
 from ..core.pixfmt import get_pix_fmt, PixelFormat
 from ..ffv1.native import get_lib
+from ..utils.metrics import TRACE
 from . import device as dv
 from . import dsp
 from .codec import (FFV2Config, PIXFMT_WIRE_IDS, PIXFMT_WIRE_NB,
@@ -227,10 +228,10 @@ class NativeFFV2Encoder:
         lib.ffv2rt_enc_golomb(h, self.cfg.qp)
         return h
 
-    def encode(self, planes, mark=dv.no_mark, front_q=None) -> bytes:
+    def encode(self, planes, mark=TRACE, front_q=None) -> bytes:
         """Encode one frame on the session's device; ``mark`` is called
-        after each stage (``device.no_mark``).  ``front_q`` optionally
-        replaces the device front (``device.encode_front_q``) with a
+        after each stage (``metrics.TRACE`` by default).  ``front_q``
+        optionally replaces the device front (``device.encode_front_q``) with a
         drop-in of the JAX package's contract, ``front_q(padded, depth,
         qp, bands)`` -> numpy (dc, pulses, igain): the SB-banded
         ``parallel.ffv2.encode_front_q_sharded``, for one; the packet stays
@@ -281,7 +282,7 @@ class NativeFFV2Encoder:
         finally:
             lib.ffv2rt_enc_destroy(h)
 
-    def _front_stage(self, padded, mark=dv.no_mark, front_q=None):
+    def _front_stage(self, padded, mark=TRACE, front_q=None):
         """Device stage of the q-path: Q12/lapping/transform/PVQ on the
         device plus the integer-cbrt gain fold on the host — everything up
         to the serial Daala EC.  Returns the (dc, cg, pulses, geometry)
@@ -457,7 +458,7 @@ class NativeFFV2Decoder:
         self.last_qp = 0
         self._frame_no = 0
 
-    def decode(self, packet: bytes, mark=dv.no_mark):
+    def decode(self, packet: bytes, mark=TRACE):
         """Decode one packet on the session's device; with osd=True, stamp
         the reference's debug overlay into 8-bit luma
         (ffv2dec.c:357-371)."""
@@ -482,7 +483,7 @@ class NativeFFV2Decoder:
         oracle of the device path; no OSD."""
         return self._decode(packet, True)
 
-    def _decode(self, packet: bytes, host: bool, mark=dv.no_mark):
+    def _decode(self, packet: bytes, host: bool, mark=TRACE):
         lib = self.lib
         buf = np.frombuffer(packet, dtype=np.uint8)
         h = lib.ffv2rt_dec_create(_ptr(buf, ctypes.c_uint8), len(packet))
@@ -553,7 +554,7 @@ class NativeFFV2Decoder:
         mark("copy down")
         return list(out)
 
-    def _reconstruct_leaves(self, leaves, nplanes, ph, pw, mark=dv.no_mark):
+    def _reconstruct_leaves(self, leaves, nplanes, ph, pw, mark=TRACE):
         """General (mixed leaf size) reconstruction on the device: the
         inverse transforms batch per size, the blocks scatter into the
         coefficient planes, K19 postfilters."""

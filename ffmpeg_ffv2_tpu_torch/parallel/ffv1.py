@@ -30,7 +30,7 @@ import torch
 from ..ffv1.device_coder import DeviceFFV1Encoder, shape_banks
 from ..ffv1.host import build_crop_plan
 from ..ffv1.params import FFV1Config, params_from_config
-from ..ffv1.rice import no_mark
+from ..utils.metrics import TRACE
 from .slices import all_gather_cat, gather_slice_bytes
 
 
@@ -153,7 +153,7 @@ class ParallelFFV1Encoder:
     # -- public API ----------------------------------------------------------
 
     def encode_batch(self, frames, force_keyframe=None,
-                     mark=no_mark) -> list:
+                     mark=TRACE) -> list:
         """Encode one frame per data lane (len(frames) == the mesh's data
         size; rank (d, *) encodes frames[d]); returns every lane's packet,
         on every rank, byte-identical to the single-device encoder run per

@@ -25,6 +25,7 @@ import torch
 
 from ..ffv2 import device as dv
 from ..ffv2 import dsp
+from ..utils.metrics import TRACE
 from .slices import all_gather_cat
 
 RADIUS = dv.LAP_RADIUS
@@ -44,7 +45,7 @@ def _filter_halo(c: torch.Tensor, up: torch.Tensor, dn: torch.Tensor):
 def encode_front_q_sharded(planes_padded: np.ndarray, depth: int, qp: int,
                            band_starts, mesh, sb: int | None = None,
                            n: int | None = None, device="cuda",
-                           mark=dv.no_mark):
+                           mark=TRACE):
     """Sharded twin of ``ffv2.device.encode_front_q``
     (parallel/ffv2.py:encode_front_q_sharded): the frame's SB rows are
     banded over the mesh's slice axis; every rank returns the global numpy
@@ -59,7 +60,7 @@ def encode_front_q_sharded(planes_padded: np.ndarray, depth: int, qp: int,
     boundaries and on its two 32-row boundary slabs (the first and last
     ranks keep their outer rows); the transform, the zigzag and K18 on
     the band's blocks; then the packed rows gathered in s order.
-    ``mark`` is called after each stage (``device.no_mark``)."""
+    ``mark`` is called after each stage (``metrics.TRACE`` by default)."""
     sb = sb or dsp.SB_SIZE
     n = n or sb
     n_shards, s = mesh.shape["slice"], mesh.s

@@ -32,6 +32,7 @@ import torch.distributed as dist
 
 from .. import _build
 from ..ffv1 import native as ffv1_native
+from ..utils import metrics
 
 
 def _free_port() -> int:
@@ -159,19 +160,6 @@ def stall(rank: int, n_ranks: int, seconds: float) -> None:
 # ---------------------------------------------------------------------------
 
 
-class _Clock:
-    """A ``mark`` hook: the host ms of each stage since the last mark."""
-
-    def __init__(self):
-        self.t = time.perf_counter()
-        self.ms = {}
-
-    def __call__(self, stage: str, *_):
-        now = time.perf_counter()
-        self.ms[stage] = self.ms.get(stage, 0.0) + (now - self.t) * 1e3
-        self.t = now
-
-
 def _counts() -> tuple:
     ks = _build.KERNELS.values()
     return ({k.name: k.launches for k in ks},
@@ -214,13 +202,14 @@ def _ffv1_case(case, mesh, device) -> dict:
                transport=mesh.backend, extradata=enc.extradata,
                setup_ms=setup_ms)
     _build.reset_counts()
+    trace = metrics.StageTrace()
     for t, kf in enumerate(keyframes):
-        clock = _Clock()
         t0 = time.perf_counter()
-        pkts = enc.encode_batch([lane[t] for lane in lanes],
-                                force_keyframe=kf, mark=clock)
+        with trace.call("encode_batch", len(lanes)) as call:
+            pkts = enc.encode_batch([lane[t] for lane in lanes],
+                                    force_keyframe=kf, mark=trace)
         out["frame_ms"].append((time.perf_counter() - t0) * 1e3)
-        out["stage_ms"].append(clock.ms)
+        out["stage_ms"].append(call.stage_ms())
         out["packets"].append(pkts)
         if case.get("state_after") == t:
             out["state"] = enc.state()      # a gather; it launches nothing
@@ -243,26 +232,28 @@ def _ffv2_case(case, mesh, device) -> dict:
                                 case["pix_fmt"], FFV2Config(qp=case["qp"]),
                                 device=device)
 
-        def run(clock):
+        def run(trace):
             return enc.encode(case["planes"], front_q=partial(
                 encode_front_q_sharded, mesh=mesh, device=device,
-                mark=clock))
+                mark=trace))
     else:
-        def run(clock):
+        def run(trace):
             return encode_front_q_sharded(
                 np.asarray(case["planes"]), case["depth"], case["qp"],
                 list(dsp.band_starts(case.get("n") or dsp.SB_SIZE)), mesh,
                 sb=case.get("sb"), n=case.get("n"), device=device,
-                mark=clock)
+                mark=trace)
     _build.reset_counts()
+    trace = metrics.StageTrace()
     ms = []
     for _ in range(case.get("reps", 1)):
-        clock = _Clock()
         t0 = time.perf_counter()
-        res = run(clock)
+        with trace.call("front", 1) as call:
+            res = run(trace)
         ms.append((time.perf_counter() - t0) * 1e3)
     launches, plain = _counts()
-    return dict(result=res, ms=ms, stage_ms=clock.ms, launches=launches,
+    return dict(result=res, ms=ms, stage_ms=call.stage_ms(),
+                launches=launches,
                 plain=plain, transport=mesh.backend)
 
 

@@ -15,6 +15,7 @@ coder against the JAX CLI's single-device AVI, which the JAX CLI's
 CPU)."""
 
 import concurrent.futures as cf
+import json
 import os
 import subprocess
 import sys
@@ -159,13 +160,32 @@ def test_torch_cli_encode_backends(clip, jax_cli, backend, coder, want):
 def test_torch_cli_vstats(clip, jax_cli):
     """-vstats writes the original's per-frame lines (bytes, bpp, slice
     sizes from the trailer walk, CRC status) and summary, on the default
-    backend (device)."""
+    backend (device, Golomb-Rice), and adds the device session's stages:
+    each frame's ``stages_ms`` (every stage of its ``encode`` call) and,
+    beside the summary, each stage's total ms and count over the
+    frames."""
+    from ffmpeg_ffv2_tpu_torch.utils.metrics import STAGE_KINDS
     td, src = clip
     out = _port(td, "encode", "-i", src, *ENC, "-device", "cpu", "-vstats",
                 td / "torch" / "native.vstats", "-o",
                 td / "torch" / "vstats.avi")
-    assert ((out / "native.vstats").read_text()
-            == (jax_cli[0] / "native.vstats").read_text())
+    got = [json.loads(x) for x in
+           (out / "native.vstats").read_text().splitlines()]
+    want = [json.loads(x) for x in
+            (jax_cli[0] / "native.vstats").read_text().splitlines()]
+    frames, stages = [g.pop("stages_ms") for g in got[:-1]], got[-1].pop(
+        "stages")
+    assert got == want and len(frames) == N
+    for st in frames:
+        assert set(st) <= set(STAGE_KINDS)
+        assert {"upload", "phase_a", "K5 vlc", "sizes to host",
+                "bytes to host", "slice bytes",
+                "slice trailers + CRC"} <= set(st)
+        assert all(v >= 0 for v in st.values())
+    assert set(stages) == set().union(*frames)
+    assert stages["slice trailers + CRC"]["count"] == N
+    assert stages["upload"]["ms"] == pytest.approx(
+        sum(st["upload"] for st in frames), abs=1e-2)
     assert ((out / "vstats.avi").read_bytes()
             == (jax_cli[0] / "native.avi").read_bytes())
 
