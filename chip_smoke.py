@@ -14,7 +14,12 @@ per frame and their wall seconds:
    of tools/latency.cu, whose chains give the SM cycles a link of K4's
    (and K7's) coder step, of K2's table lookup, of K5's row, of the
    ladder's climb and of a level of K18's argmax on this card;
-2. range, 1920x1080 yuv420p, FFV1Config(level=3, coder=1, slices=30): K1-K4
+2. phase A (the phase_a kernel) at the benchmark's two 1080p yuv420p
+   sessions, range (context 1, 24 slices) and Golomb-Rice (context 0,
+   16 slices), on frame 0 against its plain PyTorch version on the card:
+   its CUDA-event and device times, the host's microseconds a call and
+   the plain version's time; then range, 1920x1080 yuv420p,
+   FFV1Config(level=3, coder=1, slices=30): K1-K4
    and emission_pack each against its plain PyTorch version on the card, on
    the inputs frame 0 gives it (K2 and K4 plain versions on a stated cut:
    K4's first 3080 steps, across seven stages of its 512-op ring;
@@ -703,6 +708,50 @@ def k6_pack_check(out, k):
     out["adapt_emission"]["whole_frame_pack_err"] = err
     pack_check(out, (sv, ch1c, caps, bases, code_bits, ev_words), "bgr0 v4",
                key="emission_pack_bgr0_v4", fill="zero")
+
+
+def phase_a_checks(out, frames):
+    """Phase 2's first part: the phase_a kernel at the benchmark's 1080p
+    sessions (range: context 1, 24 slices, entry ``phase_a``; rice:
+    context 0, 16 slices, ``phase_a_rice``) on frame 0 against its plain
+    version (``pa_plan.plain``: the torch chain it replaced) on every
+    sample; its CUDA-event time (the host's enqueue included), its device
+    time alone (``kernel_times.device_ms``) and the host's microseconds a
+    call (200 calls, no synchronisation between them).  Bound: each
+    sample read once, each context and residual written once (int32)."""
+    import torch
+    from ffmpeg_ffv2_tpu_torch.ffv1.device_coder import DeviceFFV1Encoder
+    from ffmpeg_ffv2_tpu_torch.ffv1.params import FFV1Config
+    from ffmpeg_ffv2_tpu_torch.tools.kernel_times import device_ms
+
+    for key, cfg in (("phase_a", FFV1Config(level=3, coder=1, context=1,
+                                            slices=24, slicecrc=1)),
+                     ("phase_a_rice", FFV1Config(level=3, coder=0, context=0,
+                                                 slices=16, slicecrc=1))):
+        enc = DeviceFFV1Encoder(W, H, "yuv420p", cfg, device="cuda")
+        dev = enc.upload(frames[0])
+        plan = enc.pa_plan
+
+        def call():
+            return enc.phase_a(dev)
+
+        err = max_abs_err(call(), plan.plain(dev))
+        ms, dev_ms = cuda_ms(call, 20), device_ms(call, 20)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            call()
+        host_us = (time.perf_counter() - t0) / 200 * 1e6
+        torch.cuda.synchronize()
+        samples = sum(pl.numel() for pl in dev)
+        outs = 2 * enc.S * enc.npix
+        entry(out, "phase_a", "range" if key == "phase_a" else "rice", err,
+              ms, cuda_ms(lambda: plan.plain(dev), 3), None,
+              bound(4 * (samples + outs), 0), key=key,
+              shape=f"S={enc.S} npix={enc.npix} jobs={len(plan.jobs)} "
+                    f"blocks={plan.n_blocks} five={plan.five}",
+              device_ms=dev_ms, host_us_a_call=round(host_us, 2),
+              compared="every sample against the plain version")
 
 
 def range_checks(out, inputs, clock_mhz, cycles):
@@ -2194,6 +2243,7 @@ def main() -> int:
 
     # 2.-5. yuv420p 1080p: the range and the Golomb-Rice coder
     with Phase(2):
+        phase_a_checks(kernels, frames)
         _, inputs = probe("phase 2: range", "yuv420p", W, H, range_cfg,
                           frames[0])
         range_checks(kernels, inputs, clock_mhz, cycles)
@@ -2414,7 +2464,8 @@ def main() -> int:
         k["launches"] = launches[k["path"]][k["kernel"]]
         k["launches_by_path"] = {label: launches[label][k["kernel"]]
                                  for label in launches}
-    order = ["place", "place_pb16", "adapt", "adapt_rgb48",
+    kernels["phase_a"]["at_rice"] = kernels.pop("phase_a_rice")
+    order = ["phase_a", "place", "place_pb16", "adapt", "adapt_rgb48",
              "adapt_emission", "emission_pack", "expand", "rac_render",
              "rac_render_batch", "vlc", "vlc_pb16", "vlc_bgr0", "ladder",
              "ladder_pb16", "rac_lanes",

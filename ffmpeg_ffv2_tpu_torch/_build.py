@@ -195,6 +195,11 @@ class Kernel:
 
 
 KERNELS = {k.name: k for k in (
+    Kernel("phase_a", "ffv2_phase_a",
+           [P, I, I, P, P, P, P, I64, I64, I64, I64, I, I, I, P, P, P],
+           "ffmpeg_ffv2_tpu_torch/csrc/phase_a.cu",
+           "none, ffmpeg_ffv2_tpu/ffv1/tpu.py:122 plane_context_diff (XLA, "
+           "no Pallas body)"),
     Kernel("place", "ffv2_place_cells",
            [P, P, P, I, P, P, P, I, P, P, P, I, I, P, P, P, P, P],
            "ffmpeg_ffv2_tpu_torch/csrc/place.cu",

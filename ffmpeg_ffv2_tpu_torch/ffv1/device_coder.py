@@ -44,8 +44,9 @@ from .adapt import (adapt, adapt_emission, pack_emission,
 from .expand import expand
 from .native import crc32_trailer
 from .params import FFV1Config, FFV1Params, params_from_config, CODER_GOLOMB
-from .phase_a import (interleave_lines, lut_for, phase_a, phase_a_planes,
-                      phase_a_rgb, phase_a_rgb_planes, pick_rct, rct_costs)
+from .phase_a import (lut_for, pick_rct, rct_costs, rct_planes, rgb_plan,
+                      yuv_plan)
+from .phase_a import run as run_phase_a
 from .rac import rac_render
 from .rice import (VLC_INIT, assemble_bits, build_rice_streams, rice_pb,
                    build_vlc_s0, ladder_fields, no_mark, rice_elements,
@@ -341,9 +342,11 @@ def shape_banks(crop_plan) -> list:
 
 # the kernels each path's frame launches (chip_smoke.py and the card tests
 # check that a path went through all of its kernels)
-RANGE_KERNELS = ("place", "adapt", "emission_pack", "expand", "rac_render")
-EMISSION_KERNELS = ("place", "adapt_emission", "expand", "rac_render")
-RICE_KERNELS = ("place", "vlc", "ladder")
+RANGE_KERNELS = ("phase_a", "place", "adapt", "emission_pack", "expand",
+                 "rac_render")
+EMISSION_KERNELS = ("phase_a", "place", "adapt_emission", "expand",
+                    "rac_render")
+RICE_KERNELS = ("phase_a", "place", "vlc", "ladder")
 
 
 class DeviceFFV1Encoder:
@@ -448,6 +451,15 @@ class DeviceFFV1Encoder:
         self.qt = lut_for(p, p.context_model)
         self.five = bool(p.quant_tables[p.context_model][3][127]
                          or p.quant_tables[p.context_model][4][127])
+        # phase A's one launch a frame: its descriptor table on the device
+        if p.colorspace == 1:
+            _, _, sw, sh = self.crop_plan[0][0]
+            self.pa_plan = rgb_plan(self.S, sh, sw, len(self.crop_plan),
+                                    self.qt, self.code_bits, self.five,
+                                    self.device)
+        else:
+            self.pa_plan = yuv_plan(self.crop_plan, self.qt, p.bits,
+                                    self.five, self.device)
 
         # stream: YUV concatenates whole planes per slice, RGB interleaves
         # them line by line; chain rows are (plane class, context) with
@@ -623,15 +635,16 @@ class DeviceFFV1Encoder:
 
     # -- pipeline stages -----------------------------------------------------
 
-    def phase_a(self, planes, by=None, ry=None):
+    def phase_a(self, planes, by=None, ry=None, out=None):
         """Planes (tensors on the device) -> per-slice (ctx, diff) streams
-        (n_slices, npix) int32.  RGB takes the fixed RCT, or the per-slice
-        coefficients ``by``/``ry`` ((n_slices,) int32) of version 4."""
+        (n_slices, npix) int32, into the pair ``out`` where given: one
+        launch of the phase_a kernel (``pa_plan``).  RGB first takes the
+        RCT in torch, fixed, or with the per-slice coefficients
+        ``by``/``ry`` ((n_slices,) int32) of version 4."""
         if self.p.colorspace == 1:
-            return phase_a_rgb(planes, self.crop_plan[0], self.p, self.qt,
-                               self.code_bits, self.five, by, ry)
-        return phase_a(planes, self.crop_plan, self.qt, self.p.bits,
-                       self.five)
+            planes = [c.reshape(-1, c.shape[-1]) for c in rct_planes(
+                planes, self.crop_plan[0], self.p, by, ry)]
+        return run_phase_a(self.pa_plan, planes, out)
 
     def range_streams(self, planes, keyframe: bool, mark=no_mark):
         """Planes on the device -> (ctx, diff, the slices' prefix ops): v4
@@ -787,20 +800,14 @@ class DeviceFFV1Encoder:
 
     def phase_a_rice(self, planes):
         """Planes -> (ctx (S, npix), the rice stream dict of (S, npix)
-        tensors, build_rice_streams); runs are planned per plane
-        (device_coder._phase_a_rice).  RGB takes the fixed RCT and
-        interleaves the planes line by line under one run-index ladder."""
-        if self.p.colorspace == 1:
-            ctxs, diffs = phase_a_rgb_planes(planes, self.crop_plan[0],
-                                             self.p, self.qt, self.code_bits,
-                                             self.five)
-            return (interleave_lines(ctxs),
-                    build_rice_streams(ctxs, diffs, interleave=True,
-                                       pb=self.rice_pb))
-        ctxs, diffs = phase_a_planes(planes, self.crop_plan, self.qt,
-                                     self.p.bits, self.five)
-        return (torch.cat([c.reshape(self.S, -1) for c in ctxs], dim=1),
-                build_rice_streams(ctxs, diffs, pb=self.rice_pb))
+        tensors, build_rice_streams); runs are planned per plane, on views
+        of phase A's streams (device_coder._phase_a_rice).  RGB takes the
+        fixed RCT and interleaves the planes line by line under one
+        run-index ladder."""
+        ctx, diff = self.phase_a(planes)
+        return ctx, build_rice_streams(
+            self.pa_plan.grids(ctx), self.pa_plan.grids(diff),
+            interleave=self.p.colorspace == 1, pb=self.rice_pb)
 
     def rice_front(self, ctx, payload, vcanon, keyframe: bool,
                    tiles_cap: int, cellrows_cap: int, mark=no_mark):
@@ -930,13 +937,17 @@ class DeviceFFV1Encoder:
     def batch_streams(self, frames_list):
         """B frames -> (ctx, diff) of their B x S slices, frame-major, and
         the keyframe prefix ops tiled over the frames
-        (device_coder._pipeline_batch)."""
-        parts = [self.phase_a(self.upload(f)) for f in frames_list]
-        B = len(frames_list)
+        (device_coder._pipeline_batch): frame b's phase A launch writes
+        rows b * S .. (b + 1) * S of the pair."""
+        B, S = len(frames_list), self.S
+        ctx = torch.empty((B * S, self.npix), dtype=I32, device=self.device)
+        diff = torch.empty_like(ctx)
+        for b, f in enumerate(frames_list):
+            self.phase_a(self.upload(f), out=(ctx[b * S:(b + 1) * S],
+                                              diff[b * S:(b + 1) * S]))
         svp, btp, hlen = self.prefix[True]
-        return (torch.cat([c for c, _ in parts]),
-                torch.cat([d for _, d in parts]),
-                (svp.repeat(B, 1), btp.repeat(B, 1), hlen.repeat(B)))
+        return ctx, diff, (svp.repeat(B, 1), btp.repeat(B, 1),
+                           hlen.repeat(B))
 
     def _check_batchable(self):
         if self.banks is not None:

@@ -6,7 +6,8 @@ Counterpart of ``ffmpeg_ffv2_tpu/ffv1/tpu_encoder.py``
 (``TPUFFV1Encoder``, ``_phase_a_batch``, ``_phase_a_rgb_batch``).  Slices
 are independent coding units (the sample ring resets at slice borders,
 ffv1enc.c:282), so phase A runs per slice crop: same-shaped crops of a
-plane are stacked and run as one batch of ``phase_a.plane_context_diff``.
+plane are stacked and run as one batch of ``phase_a.plane_context_diff``
+(a launch of the phase_a kernel on the card).
 RGB takes the fixed RCT of versions <= 3 (``phase_a.phase_a_rgb_planes``)
 with the G/B swap of 9..14-bit planar RGB.  ctx and diff are narrowed to
 int16 on the card before the copy to the host (ctx < 32768 by the format's
@@ -40,8 +41,9 @@ class TPUFFV1Encoder:
     CUDA device.  Raises NotImplementedError for version-4 RGB (the
     per-slice RCT search) and RGB over 14 bits per sample."""
 
-    # phase A is plain torch on the card: no kernel of the port's own
-    kernels = ()
+    # the kernels an encode launches: phase A (plane_context_diff on the
+    # card)
+    kernels = ("phase_a",)
 
     def __init__(self, width: int, height: int, pix_fmt: str,
                  config: FFV1Config | None = None, n_threads: int = 0,

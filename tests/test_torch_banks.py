@@ -32,7 +32,8 @@ def test_torch_encoder_emission_order(pix, wh):
     repack; only the path's kernels' wrappers run."""
     _build.reset_counts()
     enc = _run(pix, wh, 3, 1, emission=True)
-    assert enc.kernels == ("place", "adapt_emission", "expand", "rac_render")
+    assert enc.kernels == ("phase_a", "place", "adapt_emission", "expand",
+                           "rac_render")
     for name, k in _build.KERNELS.items():
         assert k.launches == 0
         assert (k.plain_calls > 0) == (name in enc.kernels), name

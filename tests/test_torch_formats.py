@@ -92,7 +92,7 @@ def test_torch_encoder_rgb_rice():
     """FATE's bgr0 Golomb-Rice configuration: one run-index ladder over
     the line-interleaved stream."""
     enc = _run("bgr0", (32, 24), 3, 0)
-    assert enc.kernels == ("place", "vlc", "ladder")
+    assert enc.kernels == ("phase_a", "place", "vlc", "ladder")
 
 
 @pytest.fixture(scope="module")

@@ -1,5 +1,7 @@
 """The PyTorch port's CUDA kernels on the card: each kernel equals its plain
-PyTorch version, and the encoder's packets equal NativeFFV1Codec's (the
+PyTorch version (phase A's kernel on every format, shape banks and crop
+edges, once a frame, a bank or a batch frame, ``-k phase_a``), and the
+encoder's packets equal NativeFFV1Codec's (the
 port's own copy), for the range and the Golomb-Rice coder, deep and RGB
 formats, shape banks, the emission_pack kernel and the emission-order walk
 (K6), and for encode_batch; the row sort (K8, K9) and the tool kernels
@@ -35,12 +37,14 @@ from ffmpeg_ffv2_tpu_torch.ffv1 import adapt as ad  # noqa: E402
 from ffmpeg_ffv2_tpu_torch.ffv1 import device_coder as dc  # noqa: E402
 from ffmpeg_ffv2_tpu_torch.ffv1 import expand as ex  # noqa: E402
 from ffmpeg_ffv2_tpu_torch.ffv1 import host  # noqa: E402
+from ffmpeg_ffv2_tpu_torch.ffv1 import phase_a as pa  # noqa: E402
 from ffmpeg_ffv2_tpu_torch.ffv1 import rac  # noqa: E402
 from ffmpeg_ffv2_tpu_torch.ffv1 import rice  # noqa: E402
 from ffmpeg_ffv2_tpu_torch.ffv1 import tpu_coder as tc  # noqa: E402
 from ffmpeg_ffv2_tpu_torch.ffv1 import tpu_encoder as te  # noqa: E402
 from ffmpeg_ffv2_tpu_torch.ffv1 import vlc  # noqa: E402
 from ffmpeg_ffv2_tpu_torch.ffv1.native import NativeFFV1Codec  # noqa: E402
+from ffmpeg_ffv2_tpu_torch.ffv1.rct import RCT_Y_COEFF  # noqa: E402
 from ffmpeg_ffv2_tpu_torch.ffv1.params import (  # noqa: E402
     CODER_GOLOMB, FFV1Config, params_from_config)
 from ffmpeg_ffv2_tpu_torch.ops import place as pl  # noqa: E402
@@ -1047,13 +1051,119 @@ def test_torch_gpu_encode_batch_matches_native():
         frames[3], False)
 
 
+def _pa_planes(p, w, h, kind, seed):
+    """A frame's planes for phase A: random over the whole depth or flat
+    near its top (16 bits wrap), alpha included."""
+    shapes = _shapes(p, w, h) + ([(h, w)] if p.transparency
+                                 and p.colorspace != 1 else [])
+    rng = np.random.RandomState(seed)
+    if kind == "flat":
+        return [np.full(s, (1 << p.bits) - 3, np.int32) for s in shapes]
+    return [rng.randint(0, 1 << p.bits, s).astype(np.int32) for s in shapes]
+
+
+@pytest.mark.parametrize("pix,level,wh,slices", [
+    ("yuv420p", 3, (1920, 1080), 24), ("yuv420p10", 3, (200, 120), 4),
+    ("yuv420p16", 3, (200, 120), 4), ("gray", 3, (200, 120), 4),
+    ("yuva420p", 3, (70, 50), 9), ("bgr0", 3, (200, 120), 4),
+    ("bgr0", 4, (200, 120), 4), ("rgb48", 3, (200, 120), 4),
+    ("yuv422p10", 3, (720, 486), 24)])
+@pytest.mark.parametrize("kind", ["random", "flat"])
+def test_torch_gpu_phase_a_matches_plain(pix, level, wh, slices, kind):
+    """The phase_a kernel equals its plain version on the card, one launch
+    a session (a bank) and call: 8-, 10- and 16-bit YUV (16 bits wrap),
+    gray, yuva and SD shape banks, bgr0 with the fixed and v4's per-slice
+    RCT, rgb48 (32-bit samples, no wrap), context models 0 and 1, flat and
+    random planes."""
+    k = _build.KERNELS["phase_a"]
+    w, h = wh
+    for context in (0, 1):
+        cfg = FFV1Config(level=level, coder=1, slices=slices,
+                         context=context)
+        enc = dc.DeviceFFV1Encoder(w, h, pix, cfg, device="cuda")
+        planes = [torch.as_tensor(x, device="cuda") for x in
+                  _pa_planes(enc.p, w, h, kind, slices + context)]
+        for unit in enc.banks or [enc]:
+            by = ry = None
+            if unit.v4rgb:
+                rng = np.random.RandomState(unit.S)
+                ry, by = torch.tensor(
+                    [RCT_Y_COEFF[i] for i in rng.randint(
+                        0, len(RCT_Y_COEFF), unit.S)],
+                    dtype=torch.int32, device="cuda").T.contiguous()
+            before = k.launches
+            got = unit.phase_a(planes, by, ry)
+            assert k.launches == before + 1 and k.plain_calls == 0
+            coded = planes
+            if unit.p.colorspace == 1:
+                coded = [c.reshape(-1, c.shape[-1]) for c in pa.rct_planes(
+                    planes, unit.crop_plan[0], unit.p, by, ry)]
+            want = unit.pa_plan.plain(coded)
+            for a, b in zip(got, want):
+                assert a.dtype == torch.int32 and torch.equal(a, b), (
+                    context, unit.S)
+
+
+@pytest.mark.parametrize("shape", [(3, 1, 1), (2, 1, 5), (4, 5, 1),
+                                   (2, 2, 2), (1, 1, 40), (2, 70, 2),
+                                   (3, 66, 33), (4, 540, 960)])
+def test_torch_gpu_phase_a_stack_edges(shape):
+    """plane_context_diff on a CUDA stack launches the kernel once, its
+    grids as crops, equal to the plain version on crops of width 1-2,
+    height 1 and past a tile each way (the graft step's (4, 540, 960)),
+    flat and random, both context models."""
+    k = _build.KERNELS["phase_a"]
+    rng = np.random.RandomState(sum(shape))
+    for s in (rng.randint(-32768, 32768, shape), np.full(shape, 200)):
+        s = torch.as_tensor(s.astype(np.int32), device="cuda")
+        for context in (0, 1):
+            p = params_from_config(FFV1Config(level=3, coder=1, slices=4,
+                                              context=context), "yuv420p16",
+                                   64, 48)
+            qt = pa.lut_for(p, p.context_model)
+            before = k.launches
+            got = pa.plane_context_diff(s, qt, 16, context == 1)
+            assert k.launches == before + 1
+            want = pa.plane_context_diff_plain(s, qt, 16, context == 1)
+            for a, b in zip(got, want):
+                assert a.shape == s.shape and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("B", [1, 8])
+def test_torch_gpu_phase_a_launch_counts(B):
+    """encode() launches phase_a once a frame (once a bank a frame under
+    shape banks), encode_batch once a frame of its pass: B a pass, each
+    writing its rows of one pair; the packets equal the native codec's."""
+    k = _build.KERNELS["phase_a"]
+    w, h = 256, 144
+    cfg = FFV1Config(level=3, coder=1, slices=4)
+    p = params_from_config(cfg, "yuv420p", w, h)
+    enc = dc.DeviceFFV1Encoder(w, h, "yuv420p", cfg, device="cuda")
+    nat = NativeFFV1Codec(p)
+    rng = np.random.RandomState(B)
+    frames = [_frame(p, w, h, t, rng, t % 2 == 1) for t in range(B)]
+    _build.reset_counts()
+    assert enc.encode_batch(frames) == [nat.encode(f, True) for f in frames]
+    assert k.launches == B and k.plain_calls == 0
+    sess = NativeFFV1Codec(p)
+    _build.reset_counts()
+    for t, f in enumerate(frames[:2]):
+        assert enc.encode(f, force_keyframe=t == 0) == sess.encode(f, t == 0)
+    assert k.launches == min(B, 2)
+    sd = dc.DeviceFFV1Encoder(720, 486, "yuv422p10",
+                              FFV1Config(level=3, coder=1, slices=24),
+                              device="cuda")
+    _build.reset_counts()
+    sd.encode(_pa_planes(sd.p, 720, 486, "random", B), force_keyframe=True)
+    assert len(sd.banks) == 2 and k.launches == 2
+
+
 def test_torch_gpu_conversions_match_numpy_models():
     """The five conversions and fused_bgr0_phase_a on the card == the
     port's numpy models (and the staged conversion + plane_context_diff),
     exactly; the yuv420p input makes the rgb48 sums wrap int32."""
     from ffmpeg_ffv2_tpu_torch.convert import device as conv
     from ffmpeg_ffv2_tpu_torch.convert import yuv_rgb
-    from ffmpeg_ffv2_tpu_torch.ffv1 import phase_a as pa
     h, w = 96, 128
     rng = np.random.RandomState(9)
     y = rng.randint(0, 256, (h, w)).astype(np.uint8)
