@@ -907,12 +907,16 @@ class DeviceFFV1Encoder:
             if force_keyframe is not None:
                 keyframe = bool(force_keyframe)
             chunks = [None] * self.p.slice_count
-            for bank in self.banks or (self,):
+            for i, bank in enumerate(self.banks or (self,)):
                 # a non-uniform geometry: one pipeline per slice shape,
                 # the packet assembled in global slice order
+                if self.banks:
+                    metrics.bank(mark, i)
                 for si, data in zip(bank.slice_ids, bank._encode_frame_data(
                         planes, keyframe, mark)):
                     chunks[si] = data
+            if self.banks:
+                metrics.bank(mark, 0)   # the packet is the call's own
             self.picture_number += 1
             pkt = self._finish_packet(chunks)
             mark("slice trailers + CRC")

@@ -99,12 +99,16 @@ def no_mark(stage: str, inputs=None):
 class Stage(NamedTuple):
     """One stage of a call: it ran from ``t0`` (the call's previous
     boundary, or its start) to ``t1`` (its own boundary), host clock;
-    ``attempt`` is the cap-retry loop's attempt it belongs to."""
+    ``attempt`` is the cap-retry loop's attempt it belongs to, counted
+    within its shape bank; ``bank`` is the shape bank whose pipeline it
+    belongs to (0 in a session without banks, and for the stages of the
+    call outside its bank loop)."""
     name: str
     kind: str | None
     t0: float
     t1: float
     attempt: int
+    bank: int = 0
 
 
 class CallRecord:
@@ -114,15 +118,15 @@ class CallRecord:
     next stage."""
 
     __slots__ = ("id", "name", "frames", "t0", "t1", "parent", "attempt",
-                 "last", "marks", "_trace")
+                 "bank", "last", "marks", "_trace")
 
     def __init__(self, trace, cid: int, name: str, frames: int):
         self._trace = trace
         self.id, self.name, self.frames = cid, name, frames
         self.t0 = self.t1 = self.last = 0.0
         self.parent = None
-        self.attempt = 0
-        self.marks = []         # (stage, t0, t1, attempt)
+        self.attempt = self.bank = 0
+        self.marks = []         # (stage, t0, t1, attempt, bank)
 
     def __enter__(self):
         self._trace._open(self)
@@ -134,14 +138,14 @@ class CallRecord:
 
     @property
     def stages(self) -> list:
-        return [Stage(n, STAGE_KINDS.get(n), a, b, k)
-                for n, a, b, k in self.marks]
+        return [Stage(n, STAGE_KINDS.get(n), a, b, k, bk)
+                for n, a, b, k, bk in self.marks]
 
     def stage_ms(self) -> dict:
         """Stage -> host ms in this call, summed over repeats, in the order
         of each stage's first end."""
         out = {}
-        for n, a, b, _ in self.marks:
+        for n, a, b, *_ in self.marks:
             out[n] = out.get(n, 0.0) + (b - a) * 1e3
         return out
 
@@ -179,7 +183,7 @@ class StageTrace:
         rec = self._local.rec
         if rec is not None:
             t = time.perf_counter()
-            rec.marks.append((stage, rec.last, t, rec.attempt))
+            rec.marks.append((stage, rec.last, t, rec.attempt, rec.bank))
             rec.last = t
         if _profiler._is_profiler_enabled:
             with _profiler.record_function(EVENT_PREFIX + stage):
@@ -196,6 +200,13 @@ class StageTrace:
         if rec is not None:
             rec.attempt += 1
 
+    def bank(self, i: int):
+        """The open call's next stages belong to shape bank ``i``, whose
+        cap-retry attempts count from 0."""
+        rec = self._local.rec
+        if rec is not None:
+            rec.bank, rec.attempt = i, 0
+
     def _open(self, rec: CallRecord):
         rec.parent = self._local.rec
         rec.t0 = rec.last = time.perf_counter()
@@ -205,7 +216,7 @@ class StageTrace:
         self._local.rec = rec.parent
         rec.t1 = rec.last if rec.marks else time.perf_counter()
         with self._lock:
-            for n, a, b, _ in rec.marks:
+            for n, a, b, *_ in rec.marks:
                 self.totals[n] = self.totals.get(n, 0.0) + (b - a)
                 self.counts[n] = self.counts.get(n, 0) + 1
             self._ring.append(rec)
@@ -245,6 +256,13 @@ def retry(mark):
     StageTrace."""
     if isinstance(mark, StageTrace):
         mark.retry()
+
+
+def bank(mark, i: int):
+    """Start shape bank ``i``'s stages on ``mark`` when it is a
+    StageTrace."""
+    if isinstance(mark, StageTrace):
+        mark.bank(i)
 
 
 # the process's recorder: the default ``mark`` of the sessions
