@@ -31,6 +31,8 @@ coefficients from the device's cost sums, and adds the slice headers
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -232,26 +234,27 @@ def layout_plan(row_local, diff, rows_per_slice: int, slots_cap: int,
                 n_slots=n_bucket_tiles * 128 + n_nonempty_norm)
 
 
-def build_s0_blocks(plan, canonical, tiles_cap: int):
+def build_s0_blocks(plan, canonical, tiles_cap: int, slot_at_row):
     """(TILES_CAP, 33, 128) int32 start-state blocks from the canonical
     per-chain state table ((rows, 32) uint8): slot rows in SLOT_AT_ROW
-    order, row 32 = continuation flag."""
+    order (``slot_at_row``: that index, int64 on the table's device), row
+    32 = continuation flag."""
     rows = plan["lane_rows"].reshape(tiles_cap, 128).long()
     cont = plan["lane_cont"].reshape(tiles_cap, 128)
-    perm = torch.as_tensor(host.SLOT_AT_ROW, device=canonical.device).long()
-    s0 = canonical.to(I32)[:, perm][rows]                     # (T,128,32)
+    s0 = canonical.to(I32)[:, slot_at_row][rows]              # (T,128,32)
     return torch.cat([s0.permute(0, 2, 1), cont[:, None, :]],
                      dim=1).contiguous()
 
 
-def writeback_canonical(plan, canonical, end_states, tiles_cap: int):
+def writeback_canonical(plan, canonical, end_states, tiles_cap: int,
+                        row_of_slot):
     """Store group-end states back into the canonical table for the next
     (inter) frame; only lanes holding their group's last sub-block
-    write.  end_states rows are in SLOT_AT_ROW order."""
+    write.  end_states rows are in SLOT_AT_ROW order (``row_of_slot``:
+    ROW_OF_SLOT, int64 on the table's device)."""
     rows = plan["lane_rows"].reshape(-1).long()
     last = plan["lane_last"].reshape(-1) > 0
-    perm = torch.as_tensor(host.ROW_OF_SLOT, device=canonical.device).long()
-    ends = end_states[:, perm, :].permute(0, 2, 1).reshape(-1, 32)
+    ends = end_states[:, row_of_slot, :].permute(0, 2, 1).reshape(-1, 32)
     n = canonical.shape[0]
     ext = torch.cat([canonical, canonical.new_zeros((1, 32))])
     # lanes that do not write land on the spare row past the table
@@ -292,6 +295,27 @@ def unsort_codes(code_cells, ch2c, S: int, npix: int):
     out.scatter_(0, torch.where(keys < n, keys, n).long(),
                  code_cells.reshape(-1))
     return out[:n].reshape(S, npix)
+
+
+class _Launched(NamedTuple):
+    """A range session's frame up to K4's launch (``_launch_range``)."""
+    opw: torch.Tensor           # K3's op words
+    steps: int                  # K4's step bucket
+    by: torch.Tensor            # K4's bytes, on the device
+    ln: torch.Tensor            # K4's lengths, on the device
+    attempt: int                # the cap-retry attempt whose sizes fit
+
+
+def _read(tensors) -> list:
+    """Device tensors -> their host arrays, in one read: one tensor is
+    copied down as it is; several are joined into one buffer on the
+    device first."""
+    if len(tensors) == 1:
+        return [tensors[0].cpu().numpy()]
+    flat = torch.cat([t.reshape(-1) for t in tensors]).cpu().numpy()
+    ends = np.cumsum([t.numel() for t in tensors])
+    return [a.reshape(t.shape) for a, t in zip(np.split(flat, ends[:-1]),
+                                                tensors)]
 
 
 def layout_caps(npix: int, n_slices: int, rows_per_slice: int) -> dict:
@@ -497,6 +521,11 @@ class DeviceFFV1Encoder:
         p = self.p
         self.table = torch.as_tensor(host.packed_transition_table(p),
                                      device=self.device)
+        # the state rows' order in the walk's slots, on the device once:
+        # no frame copies them up (a copy up syncs the stream)
+        self.slot_at_row, self.row_of_slot = (
+            torch.as_tensor(t, device=self.device).long()
+            for t in (host.SLOT_AT_ROW, host.ROW_OF_SLOT))
         # keyframe canonical: 128 everywhere, or the 2-pass per-context
         # initial states (ff_ffv1_clear_slice_state, ffv1.c:70-84): one
         # slice's (rows_per_slice, 32) key (canonical_key1) tiled over the
@@ -726,10 +755,11 @@ class DeviceFFV1Encoder:
         if keyframe:
             canonical = (self.canonical_key if ctx.shape[0] == self.S
                          else self.key_canonical(ctx.shape[0]))
-        s0 = build_s0_blocks(plan, canonical, tiles_cap)
+        s0 = build_s0_blocks(plan, canonical, tiles_cap, self.slot_at_row)
         mark("s0")
         ev, ends = self.adapt(ch1c, plan, s0, ev_words, mark)
-        canonical = writeback_canonical(plan, canonical, ends, tiles_cap)
+        canonical = writeback_canonical(plan, canonical, ends, tiles_cap,
+                                        self.row_of_slot)
         mark("writeback")
         psizes = torch.stack([plan["n_rows"], plan["n_tiles"],
                               plan["n_slots"]])
@@ -778,22 +808,36 @@ class DeviceFFV1Encoder:
             self.unsort_words = min(host.n_ev_words(self.code_bits),
                                     (maxc + 3) // 4)
 
+    def _render(self, opw, steps: int, mark=no_mark):
+        """K4 at the session's render cap, launched and not read: (bytes,
+        lengths) on the device.  ``mark`` is called after K4 with its
+        inputs."""
+        k4 = (opw, steps, self.render_cap)
+        by, ln = rac_render(*k4)
+        mark("K4 rac_render", k4)
+        return by, ln
+
+    def _render_fits(self, ln_h) -> bool:
+        """Whether K4's host lengths fit the render cap; grows the cap to
+        them where they do not."""
+        if int(ln_h.max()) <= self.render_cap:
+            return True
+        self.render_cap = host.quantize_cap(
+            max(int(ln_h.max()) + 4096, self.render_cap + 1),
+            self.render_cap_max, 4096)
+        return False
+
     def _render_retry(self, opw, steps: int, mark=no_mark):
         """K4 with render-buffer growth; returns (bytes on the device,
         host lengths).  ``mark`` is called after K4 with its inputs and
         after the lengths' read."""
         for _ in range(6):
-            k4 = (opw, steps, self.render_cap)
-            by, ln = rac_render(*k4)
-            mark("K4 rac_render", k4)
+            by, ln = self._render(opw, steps, mark)
             ln_h = ln.cpu().numpy()
             mark("lengths to host")
-            if int(ln_h.max()) <= self.render_cap:
+            if self._render_fits(ln_h):
                 return by, ln_h
             metrics.retry(mark)
-            self.render_cap = host.quantize_cap(
-                max(int(ln_h.max()) + 4096, self.render_cap + 1),
-                self.render_cap_max, 4096)
         raise RuntimeError("render buffer exceeded worst-case cap")
 
     # -- Golomb-Rice stages --------------------------------------------------
@@ -856,11 +900,10 @@ class DeviceFFV1Encoder:
         return [hdrs[si] + by_h[si, :(nbits[si] + 7) // 8].tobytes()
                 for si in range(self.S)]
 
-    def _encode_rice(self, planes, keyframe: bool, mark=no_mark) -> list:
-        """One Golomb-Rice frame -> list of raw slice payloads
-        (encoder.py:_encode_slice); ``mark`` is called after each stage."""
-        dev = self.upload(planes)
-        mark("upload")
+    def _encode_rice(self, dev, keyframe: bool, mark=no_mark) -> list:
+        """One Golomb-Rice frame, its planes on the device (``upload``) ->
+        list of raw slice payloads (encoder.py:_encode_slice); ``mark`` is
+        called after each stage."""
         ctx, streams = self.phase_a_rice(dev)
         mark("phase_a")
         for _ in range(8):
@@ -906,17 +949,10 @@ class DeviceFFV1Encoder:
             keyframe = gop == 0 or self.picture_number % gop == 0
             if force_keyframe is not None:
                 keyframe = bool(force_keyframe)
-            chunks = [None] * self.p.slice_count
-            for i, bank in enumerate(self.banks or (self,)):
-                # a non-uniform geometry: one pipeline per slice shape,
-                # the packet assembled in global slice order
-                if self.banks:
-                    metrics.bank(mark, i)
-                for si, data in zip(bank.slice_ids, bank._encode_frame_data(
-                        planes, keyframe, mark)):
-                    chunks[si] = data
-            if self.banks:
-                metrics.bank(mark, 0)   # the packet is the call's own
+            if self.banks is None:
+                chunks = self._encode_frame_data(planes, keyframe, mark)
+            else:
+                chunks = self._encode_banks(planes, keyframe, mark)
             self.picture_number += 1
             pkt = self._finish_packet(chunks)
             mark("slice trailers + CRC")
@@ -1055,13 +1091,77 @@ class DeviceFFV1Encoder:
                            mark=no_mark) -> list:
         """This session's slices of one frame -> list of raw slice
         payloads (no trailers); ``mark`` is called after each stage."""
-        if self.golomb:
-            return self._encode_rice(planes, keyframe, mark)
         dev = self.upload(planes)
         mark("upload")
+        if self.golomb:
+            return self._encode_rice(dev, keyframe, mark)
+        return self._code_range((self,), dev, keyframe, mark)[0]
+
+    def _encode_banks(self, planes, keyframe: bool, mark=no_mark) -> list:
+        """A non-uniform geometry's frame -> its raw slice payloads in
+        global slice order: the planes uploaded once for every shape
+        bank, then the range banks as one pipeline (``_code_range``), the
+        Golomb-Rice banks one after the other.  A bank's stages are
+        marked with its index; the upload and the joint reads are the
+        call's own (bank 0)."""
+        dev = self.upload(planes)
+        mark("upload")
+        if self.golomb:
+            parts = []
+            for i, bank in enumerate(self.banks):
+                metrics.bank(mark, i)
+                parts.append(bank._encode_rice(dev, keyframe, mark))
+            metrics.bank(mark, 0)
+        else:
+            parts = self._code_range(self.banks, dev, keyframe, mark)
+        chunks = [None] * self.p.slice_count
+        for bank, data in zip(self.banks, parts):
+            for si, d in zip(bank.slice_ids, data):
+                chunks[si] = d
+        return chunks
+
+    def _code_range(self, units, dev, keyframe: bool, mark=no_mark) -> list:
+        """The range sessions ``units`` (the shape banks, or this session
+        alone) on one frame's uploaded planes -> each unit's raw slice
+        payloads.  Each unit in turn enqueues phase A through K3, reads
+        its sizes and launches K4 unread, so the host enqueues a bank
+        while the previous bank's K4 runs; then one read of every unit's
+        lengths (a unit over its render cap codes again, ``_render_retry``)
+        and one of their bytes."""
+        banked = self.banks is not None
+        jobs = []
+        for i, u in enumerate(units):
+            if banked:
+                metrics.bank(mark, i)
+            jobs.append(u._launch_range(dev, keyframe, mark))
+        if banked:
+            metrics.bank(mark, 0)
+        lens = _read([j.ln for j in jobs])
+        mark("lengths to host")
+        bys = []
+        for i, (u, j) in enumerate(zip(units, jobs)):
+            by = j.by
+            if not u._render_fits(lens[i]):
+                # K4 again, under the unit's own bank and next attempt
+                metrics.bank(mark, i, j.attempt + 1)
+                by, lens[i] = u._render_retry(j.opw, j.steps, mark)
+                if banked:
+                    metrics.bank(mark, 0)
+            bys.append(by)
+        bys = _read(bys)
+        mark("bytes to host")
+        out = [[by_h[li, :int(ln_h[li])].tobytes() for li in range(u.S)]
+               for u, by_h, ln_h in zip(units, bys, lens)]
+        mark("slice bytes")
+        return out
+
+    def _launch_range(self, dev, keyframe: bool, mark=no_mark) -> _Launched:
+        """Phase A through K3 on the uploaded planes, grown and redone
+        until the sizes fit (a read of the sizes an attempt), then K4
+        launched and not read."""
         ctx, diff, (svp, btp, hlen) = self.range_streams(dev, keyframe, mark)
         mark("phase_a")
-        for _ in range(8):
+        for attempt in range(8):
             opw, n_ops, canon, sizes = self.ops_from_streams(
                 ctx, diff, self.canonical, svp, btp, hlen, keyframe,
                 (self.tiles_cap, self.cellrows_cap, self.op_cap),
@@ -1077,21 +1177,15 @@ class DeviceFFV1Encoder:
                 if self._shrinks > 0 and tight_op < self.op_cap:
                     self._shrinks -= 1
                     self.op_cap = tight_op
+                self.canonical = canon
                 # code at the power-of-two step bucket
                 steps = max(512, min(1 << opmax.bit_length(),
                                      int(opw.shape[1])))
-                by, ln_h = self._render_retry(opw, steps, mark)
-                break
+                return _Launched(opw, steps, *self._render(opw, steps, mark),
+                                 attempt)
             metrics.retry(mark)
             # grow the adaptive working sizes to the measured need (+slack)
             if not fits:
                 self._grow_layout(rows, tiles)
             self._grow_ops(opmax, maxc)
-        else:
-            raise RuntimeError("device layout exceeded worst-case caps")
-        self.canonical = canon
-        by_h = by.cpu().numpy()
-        mark("bytes to host")
-        chunks = [by_h[li, :int(ln_h[li])].tobytes() for li in range(self.S)]
-        mark("slice bytes")
-        return chunks
+        raise RuntimeError("device layout exceeded worst-case caps")

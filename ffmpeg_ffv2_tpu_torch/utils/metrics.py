@@ -200,12 +200,12 @@ class StageTrace:
         if rec is not None:
             rec.attempt += 1
 
-    def bank(self, i: int):
-        """The open call's next stages belong to shape bank ``i``, whose
-        cap-retry attempts count from 0."""
+    def bank(self, i: int, attempt: int = 0):
+        """The open call's next stages belong to shape bank ``i``, at its
+        cap-retry attempt ``attempt`` (a bank's attempts count from 0)."""
         rec = self._local.rec
         if rec is not None:
-            rec.bank, rec.attempt = i, 0
+            rec.bank, rec.attempt = i, attempt
 
     def _open(self, rec: CallRecord):
         rec.parent = self._local.rec
@@ -258,11 +258,11 @@ def retry(mark):
         mark.retry()
 
 
-def bank(mark, i: int):
-    """Start shape bank ``i``'s stages on ``mark`` when it is a
-    StageTrace."""
+def bank(mark, i: int, attempt: int = 0):
+    """Start shape bank ``i``'s stages, at its cap-retry attempt
+    ``attempt``, on ``mark`` when it is a StageTrace."""
     if isinstance(mark, StageTrace):
-        mark.bank(i)
+        mark.bank(i, attempt)
 
 
 # the process's recorder: the default ``mark`` of the sessions

@@ -1,11 +1,12 @@
 """The shape banks in the stage recorder (``utils/metrics.py``), on the
 CPU (every kernel wrapper runs its plain PyTorch version): a 32x33
 yuv422p10 session at 4 slices has slice rows of 16 and 17 lines, so it
-splits into two shape banks, and its ``encode()`` call record holds bank
-0's stages, then bank 1's, each bank's cap-retry attempts counted from
-0, the stages still tiling the call; a uniform geometry marks nothing
-new; and the benchmark's two readers of the bank spans
-(``portbench/metrics/bank_*``)."""
+splits into two shape banks, and its ``encode()`` call record holds one
+upload, bank 0's stages up to its K4 launch, then bank 1's, each bank's
+cap-retry attempts counted from 0, then the call's own joint reads (a
+render retry under the bank that retried), the stages still tiling the
+call; a uniform geometry marks nothing new and keeps its stages; and the
+benchmark's two readers of the bank spans (``portbench/metrics/bank_*``)."""
 
 import sys
 from types import SimpleNamespace
@@ -62,10 +63,12 @@ def _banks(call):
 
 
 def test_torch_bank_spans_two_banks_in_order(torch_one_thread):  # noqa: F811
-    """Bank 0's pipeline, then bank 1's, each from its upload to its
-    slice bytes with its cap-retry attempts counted from 0 (a session's
-    first frames grow its caps); the packet's trailers close the call
-    outside the banks; the packets are the native codec's."""
+    """One upload a call, then bank 0's pipeline up to its K4 launch,
+    then bank 1's from its phase A, each with its cap-retry attempts
+    counted from 0 (a session's first frames grow its caps); both banks'
+    K4 launch before the call's one read of their lengths; that read, the
+    one read of their bytes, the slice bytes and the trailers are the
+    call's own (bank 0, attempt 0); the packets are the native codec's."""
     frames = _frames(2, 33)
     enc = _session(33)
     assert len(enc.banks) == 2
@@ -75,13 +78,21 @@ def test_torch_bank_spans_two_banks_in_order(torch_one_thread):  # noqa: F811
     for c in calls:
         runs = _banks(c)
         assert [b for b, _ in runs] == [0, 1, 0]
+        assert runs[0][1][0].name == "upload"
+        assert runs[1][1][0].name == "phase_a"
         for _, st in runs[:2]:
-            assert st[0].name == "upload" and st[-1].name == "slice bytes"
+            assert st[-1].name == "K4 rac_render"
             attempts = [s.attempt for s in st]
             assert attempts[0] == 0 and attempts == sorted(attempts)
-        assert [s.name for s in runs[2][1]] == ["slice trailers + CRC"]
-        names = [s.name for _, st in runs[:2] for s in st]
-        assert names.count("upload") == names.count("bytes to host") == 2
+        assert [(s.name, s.attempt) for s in runs[2][1]] == [
+            ("lengths to host", 0), ("bytes to host", 0), ("slice bytes", 0),
+            ("slice trailers + CRC", 0)]
+        names = [s.name for s in c.stages]
+        assert names.count("upload") == names.count("bytes to host") == 1
+        assert names.count("lengths to host") == 1
+        read = names.index("lengths to host")
+        assert [s.bank for s in c.stages[:read]
+                if s.name == "K4 rac_render"] == [0, 1]
 
 
 @pytest.mark.parametrize("retried", [0, 1])
@@ -105,10 +116,39 @@ def test_torch_bank_spans_attempts_count_within_a_bank(
     assert set(by_bank[1 - retried]) == {0}
 
 
+@pytest.mark.parametrize("retried", [0, 1])
+def test_torch_bank_spans_render_retry_under_its_bank(
+        torch_one_thread, retried):  # noqa: F811
+    """A render cap too small in one bank of a settled session: after the
+    call's joint read of the lengths, that bank's K4 codes again and its
+    lengths are read, both under its own bank at its next attempt; then
+    the call's own bytes read; the packet is still the native codec's and
+    the call reads the card five times."""
+    frames = _frames(4, 33, seed=9)
+    enc = _session(33)
+    got = [enc.encode(f) for f in frames[:3]]     # the caps settle
+    enc.banks[retried].render_cap = 64
+    got.append(enc.encode(frames[3]))
+    assert got == _native(enc, frames)
+    st = enc.trace.calls()[-1].stages
+    names = [s.name for s in st]
+    read = names.index("lengths to host")
+    launched = [s for s in st[:read] if s.name == "K4 rac_render"]
+    assert [s.bank for s in launched] == [0, 1]
+    again = launched[retried].attempt + 1
+    assert [(s.name, s.bank, s.attempt) for s in st[read:]] == [
+        ("lengths to host", 0, 0), ("K4 rac_render", retried, again),
+        ("lengths to host", retried, again), ("bytes to host", 0, 0),
+        ("slice bytes", 0, 0), ("slice trailers + CRC", 0, 0)]
+    assert sum(n in metrics.SYNCS for n in names) == 5
+
+
 def test_torch_bank_spans_tile_the_call(torch_one_thread):  # noqa: F811
     """The stages of a two-bank call still tile it, so the benchmark's
     four host splits add up to the calls' time; the bank readers read
-    two pipelines a frame and the time of bank 1's stages."""
+    two pipelines a frame and the time of bank 1's stages; a call reads
+    the card four times (each bank's sizes, the lengths, the bytes) and
+    once more a cap retry."""
     frames = _frames(3, 33, seed=9)
     enc = _session(33)
     enc.encode(frames[0])
@@ -135,28 +175,41 @@ def test_torch_bank_spans_tile_the_call(torch_one_thread):  # noqa: F811
     assert got["bank_tail_ms_per_frame"] == pytest.approx(1e3 * sum(
         s.t1 - s.t0 for c in records for s in c.stages if s.bank) / 3)
     assert got["bank_tail_ms_per_frame"] > 0
-    assert syncs >= 6.0         # three reads a bank, more on a retry
+    reads = [4 + sum(max(s.attempt for s in c.stages if s.bank == b)
+                     for b in (0, 1)) for c in records]
+    assert syncs == pytest.approx(sum(reads) / 3)
+    assert 4 in reads           # a call with no retry
+
+
+ONE_BANK = ["upload", "phase_a", "layout", "K1 place", "s0", "K2 adapt",
+            "emission_pack", "writeback", "unsort", "K3 expand",
+            "sizes to host"]
+ONE_BANK_TAIL = ["K4 rac_render", "lengths to host", "bytes to host",
+                 "slice bytes", "slice trailers + CRC"]
 
 
 def test_torch_bank_spans_one_bank_marks_nothing_new(
         torch_one_thread):  # noqa: F811
     """A uniform geometry (rows of 17 and 17 lines): one pipeline, every
-    stage bank 0, the stages a range call always leaves, in order."""
-    frames = _frames(1, 34)
+    stage bank 0, the stages a range call always leaves, in order, its
+    K4 read before anything else: the first frame grows its layout caps
+    once (a second attempt from the layout on), the second fits."""
+    frames = _frames(2, 34)
     enc = _session(34)
     assert enc.banks is None
     assert [enc.encode(f) for f in frames] == _native(enc, frames)
-    (call,) = enc.trace.calls()
-    assert {s.bank for s in call.stages} == {0}
-    names = [s.name for s in call.stages]
-    assert names[0] == "upload" and names[-1] == "slice trailers + CRC"
-    assert names.count("upload") == 1
+    first, second = enc.trace.calls()
+    assert {s.bank for c in (first, second) for s in c.stages} == {0}
+    assert [s.name for s in first.stages] == (ONE_BANK + ONE_BANK[2:]
+                                              + ONE_BANK_TAIL)
+    assert [s.name for s in second.stages] == ONE_BANK + ONE_BANK_TAIL
+    assert [s.attempt for s in first.stages] == [0] * 11 + [1] * 14
 
 
 def test_torch_bank_spans_recorder_and_helper():
     """``bank(i)`` sets the open call's bank and starts its attempts at
-    0; outside a call, and on a hook that is not a StageTrace, it records
-    nothing."""
+    0, ``bank(i, a)`` at attempt a; outside a call, and on a hook that is
+    not a StageTrace, it records nothing."""
     tr = StageTrace()
     tr.bank(1)                      # no open call: nothing
     metrics.bank(metrics.no_mark, 1)
@@ -168,14 +221,17 @@ def test_torch_bank_spans_recorder_and_helper():
         tr("upload")
         tr.retry()
         tr("layout")
+        metrics.bank(tr, 0, 2)
+        tr("K4 rac_render")
         metrics.bank(tr, 0)
         tr("slice trailers + CRC")
     assert [(s.name, s.attempt, s.bank) for s in call.stages] == [
         ("upload", 0, 0), ("layout", 1, 0), ("upload", 0, 1),
-        ("layout", 1, 1), ("slice trailers + CRC", 0, 0)]
-    assert tr.counts == {"upload": 2, "layout": 2,
+        ("layout", 1, 1), ("K4 rac_render", 2, 0),
+        ("slice trailers + CRC", 0, 0)]
+    assert tr.counts == {"upload": 2, "layout": 2, "K4 rac_render": 1,
                          "slice trailers + CRC": 1}
-    assert call.stage_ms().keys() == {"upload", "layout",
+    assert call.stage_ms().keys() == {"upload", "layout", "K4 rac_render",
                                       "slice trailers + CRC"}
 
 

@@ -138,7 +138,7 @@ def test_torch_scatter_cells(stages):
 
 def test_torch_build_s0_blocks(stages):
     got = tdc.build_s0_blocks(_tplan(stages), t_(stages["canon"]),
-                              stages["tiles_cap"])
+                              stages["tiles_cap"], t_(host.SLOT_AT_ROW).long())
     assert np.array_equal(np_(got), np_(stages["s0"]))
 
 
@@ -163,7 +163,8 @@ def test_torch_repack_emission_order(stages, n_words):
 def test_torch_writeback_canonical(stages):
     got = tdc.writeback_canonical(_tplan(stages), t_(stages["canon"]),
                                   t_(stages["ends"]),
-                                  stages["tiles_cap"])
+                                  stages["tiles_cap"],
+                                  t_(host.ROW_OF_SLOT).long())
     assert got.dtype == torch.uint8
     assert np.array_equal(np_(got), np_(stages["canon2"]))
 

@@ -4,7 +4,8 @@ edges, once a frame, a bank or a batch frame, ``-k phase_a``), and the
 encoder's packets equal NativeFFV1Codec's (the
 port's own copy), for the range and the Golomb-Rice coder, deep and RGB
 formats, shape banks, the emission_pack kernel and the emission-order walk
-(K6), and for encode_batch; the row sort (K8, K9) and the tool kernels
+(K6), and for encode_batch; a two-bank frame synchronizes only in its
+upload and its four reads; the row sort (K8, K9) and the tool kernels
 (K10-K17) equal their plain versions, the device conversions equal
 their numpy models, FFV2's K18 and K19 equal their plain versions and
 a 1080p FFV2 packet and its decode equal the host path's, and the
@@ -24,6 +25,7 @@ conftest.py (which imports jax):
 import dataclasses
 import os
 import sys
+import warnings
 
 import numpy as np
 import pytest
@@ -51,6 +53,7 @@ from ffmpeg_ffv2_tpu_torch.ops import place as pl  # noqa: E402
 from ffmpeg_ffv2_tpu_torch.ops import sort  # noqa: E402
 from ffmpeg_ffv2_tpu_torch.tools import microbench_prims as mp  # noqa: E402
 from ffmpeg_ffv2_tpu_torch.tools import probes  # noqa: E402
+from ffmpeg_ffv2_tpu_torch.utils.metrics import StageTrace  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -134,7 +137,7 @@ def test_torch_gpu_kernels_match_plain(monkeypatch):
     rng = np.random.RandomState(2)
     canon = torch.as_tensor(rng.randint(1, 256, enc.canonical.shape)
                             .astype(np.uint8), device="cuda")
-    s0 = dc.build_s0_blocks(plan, canon, enc.tiles_cap)
+    s0 = dc.build_s0_blocks(plan, canon, enc.tiles_cap, enc.slot_at_row)
     k2 = (ch1c, plan["tile_caps"], plan["tile_bases"], plan["tile_pred"],
           s0, enc.table)
     for a, b in zip(ad.adapt(*k2, 8), ad.adapt_plain(*k2)):
@@ -653,6 +656,66 @@ def test_torch_gpu_deep_rgb_banks_match_native(pix, wh, level, coder,
         assert k.launches > 0 and k.plain_calls == 0, name
 
 
+class _SyncProbe(StageTrace):
+    """A stage recorder that also keeps, at each boundary, the warnings of
+    the synchronizing calls that ``seen`` gained in the stage it ends
+    (``torch.cuda.set_sync_debug_mode("warn")``), from its making on."""
+
+    def __init__(self, seen):
+        super().__init__()
+        self.seen, self.syncs, self._n = seen, [], len(seen)
+
+    def __call__(self, stage, inputs=None):
+        new, self._n = self.seen[self._n:], len(self.seen)
+        self.syncs.append([w for w in new
+                           if "synchronizing" in str(w.message)])
+        super().__call__(stage, inputs)
+
+
+def test_torch_gpu_banks_sync_only_at_their_reads():
+    """96x50 yuv422p10 at 24 slices (two shape banks), gop 3: a settled
+    frame under the sync debug mode synchronizes in the upload (a copy a
+    plane) and in the four reads alone: each bank's sizes, the lengths and
+    the bytes; none in ``s0`` or ``writeback``, none between bank 0's K4
+    launch and bank 1's sizes.  Every packet equals the CPU session's."""
+    w, h = 96, 50
+    rng = np.random.RandomState(12)
+    y = np.indices((h, w)).sum(0) * 7
+    frames = [[((y + 13 * t + rng.randint(0, 48, (h, w))) % 1024)
+               .astype(np.int32)]
+              + [rng.randint(0, 1024, (h, w // 2)).astype(np.int32)
+                 for _ in range(2)] for t in range(3)]
+    cfg = FFV1Config(level=3, coder=1, context=1, slices=24, slicecrc=1,
+                     gop_size=3)
+    enc, cpu = (dc.DeviceFFV1Encoder(w, h, "yuv422p10", cfg, device=d)
+                for d in ("cuda", "cpu"))
+    assert len(enc.banks) == 2
+    got = [enc.encode(f) for f in frames[:2]]     # the caps settle
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        probe = _SyncProbe(seen)    # (the mode's first setting may sync)
+        try:
+            got.append(enc.encode(frames[2], mark=probe))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert got == [cpu.encode(f) for f in frames]
+    (call,) = probe.calls()
+    st = call.stages
+    assert {s.attempt for s in st} == {0}                 # no retry
+    where = [(s.name, s.bank) for s, w in zip(st, probe.syncs) if w]
+    lines = [[(os.path.basename(x.filename), x.lineno) for x in w]
+             for w in probe.syncs]
+    assert where == [("upload", 0), ("sizes to host", 0),
+                     ("sizes to host", 1), ("lengths to host", 0),
+                     ("bytes to host", 0)], lines
+    # the upload's copies, a plane each, from one line of ``upload``
+    assert len(lines[0]) == 3 and len(set(lines[0])) == 1, lines
+    names = [s.name for s in st]
+    read = names.index("lengths to host")
+    assert [s.bank for s in st[:read] if s.name == "K4 rac_render"] == [0, 1]
+
+
 def _ragged_lanes(steps, lanes, seed, start=0):
     """Random ops; lane l ends (its two flush steps, then NOPs) at its own
     length; lane 0 carries a long run of pending bytes over steps // 2
@@ -759,7 +822,7 @@ def test_torch_gpu_adapt_repeat_substeps(monkeypatch, pix, code_bits):
                     >= 1 << 10).sum()) > 0
     canon = torch.as_tensor(rng.randint(1, 256, enc.canonical.shape)
                             .astype(np.uint8), device="cuda")
-    s0 = dc.build_s0_blocks(plan, canon, enc.tiles_cap)
+    s0 = dc.build_s0_blocks(plan, canon, enc.tiles_cap, enc.slot_at_row)
     k2 = (ch1c, plan["tile_caps"], plan["tile_bases"], plan["tile_pred"],
           s0, enc.table, code_bits)
     sv, ends = ad.adapt(*k2)
