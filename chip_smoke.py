@@ -424,36 +424,38 @@ class Marks:
 
 def capture_range(enc, planes):
     """Run range frame ``planes`` (a keyframe) through the encoder's own
-    stages (``range_streams``, ``ops_from_streams``; then K4 as
-    ``_render_retry`` calls it) with a CUDA event after each; returns
-    each kernel's inputs and the stage times."""
+    one bank's stages (``range_streams``, ``ops_from_streams``; then K4
+    as ``Bank.render_fit`` calls it) with a CUDA event after each;
+    returns each kernel's inputs and the stage times."""
     import torch
+    from ffmpeg_ffv2_tpu_torch.ffv1.device_coder import finish_packet
     from ffmpeg_ffv2_tpu_torch.ffv1.rac import rac_render
 
     mark = Marks()
+    bank, c = enc.banks[0], enc.banks[0].caps
     dev = [torch.as_tensor(pl, dtype=torch.int32, device=enc.device)
            for pl in planes]
     mark("upload")
-    ctx, diff, (svp, btp, hlen) = enc.range_streams(dev, True)
-    mark("RCT search + phase_a" if enc.v4rgb else "phase_a")
-    opw, n_ops, _, _ = enc.ops_from_streams(
-        ctx, diff, enc.canonical_key, svp, btp, hlen, True,
-        (enc.tiles_cap, enc.cellrows_cap, enc.op_cap), enc.unsort_words,
-        mark)
+    ctx, diff, (svp, btp, hlen) = bank.range_streams(dev, True)
+    mark("RCT search + phase_a" if bank.v4rgb else "phase_a")
+    opw, n_ops, _, _ = bank.ops_from_streams(
+        ctx, diff, bank.canonical_key, svp, btp, hlen, True,
+        (c.tiles_cap, c.cellrows_cap, c.op_cap), c.unsort_words, mark)
     opmax = int(n_ops.max())
     mark("sizes to host")
     steps = max(512, min(1 << opmax.bit_length(), opw.shape[1]))
-    k4 = (opw, steps, enc.render_cap)
+    k4 = (opw, steps, c.render_cap)
     by, ln = rac_render(*k4)
     mark("K4 rac_render")
     by_h, ln_h = by.cpu().numpy(), ln.cpu().numpy()
     mark("bytes to host")
     stages = mark.stages()
     t0 = time.perf_counter()
-    enc._finish_packet([by_h[s, :ln_h[s]].tobytes() for s in range(enc.S)])
+    finish_packet(enc.p, range(bank.S), [by_h[s, :ln_h[s]].tobytes()
+                                         for s in range(bank.S)])
     stages["slice trailers + CRC (host clock)"] = round(
         (time.perf_counter() - t0) * 1e3, 4)
-    walk = "K6 adapt_emission" if enc.emission_order else "K2 adapt"
+    walk = "K6 adapt_emission" if bank.emission_order else "K2 adapt"
     return dict(k1=mark.inputs["K1 place"], walk=mark.inputs[walk],
                 pack=mark.inputs.get("emission_pack"),
                 k3=mark.inputs["K3 expand"], k4=k4, n_ops=n_ops,
@@ -462,26 +464,27 @@ def capture_range(enc, planes):
 
 def capture_rice(enc, planes):
     """Run Golomb-Rice frame ``planes`` (a keyframe) through the encoder's
-    own stages (``rice_front``, ``rice_bits``) with a CUDA event after
-    each; returns each kernel's inputs and the stage times."""
+    one bank's stages (``rice_front``, ``rice_bits``) with a CUDA event
+    after each; returns each kernel's inputs and the stage times."""
     import torch
+    from ffmpeg_ffv2_tpu_torch.ffv1.device_coder import finish_packet
     mark = Marks()
+    bank, c = enc.banks[0], enc.banks[0].caps
     dev = [torch.as_tensor(pl, dtype=torch.int32, device=enc.device)
            for pl in planes]
     mark("upload")
-    ctx, streams = enc.phase_a_rice(dev)
+    ctx, streams = bank.phase_a_rice(dev)
     mark("phase_a + run planning")
-    codes, _, _ = enc.rice_front(ctx, streams["payload"], enc.vcanon, True,
-                                 enc.tiles_cap, enc.cellrows_cap, mark)
-    by, nbits, _ = enc.rice_bits(streams, codes, enc.ev_cap, enc.nwords,
-                                 mark)
+    codes, _, _ = bank.rice_front(ctx, streams["payload"], bank.vcanon, True,
+                                  c.tiles_cap, c.cellrows_cap, mark)
+    by, nbits, _ = bank.rice_bits(streams, codes, c.ev_cap, c.nwords, mark)
     nb = nbits.tolist()
     mark("sizes to host")
     by_h = by.cpu().numpy()
     mark("bytes to host")
     stages = mark.stages()
     t0 = time.perf_counter()
-    enc._finish_packet(enc.rice_slices(by_h, nb, True))
+    finish_packet(enc.p, range(bank.S), bank.rice_slices(by_h, nb, True))
     stages["slice headers + trailers + CRC (host clock)"] = round(
         (time.perf_counter() - t0) * 1e3, 4)
     return dict(k1=mark.inputs["K1 place"], k5=mark.inputs["K5 vlc"],
@@ -730,10 +733,11 @@ def phase_a_checks(out, frames):
                                                  slices=16, slicecrc=1))):
         enc = DeviceFFV1Encoder(W, H, "yuv420p", cfg, device="cuda")
         dev = enc.upload(frames[0])
-        plan = enc.pa_plan
+        bank = enc.banks[0]
+        plan = bank.pa_plan
 
         def call():
-            return enc.phase_a(dev)
+            return bank.phase_a(dev)
 
         err = max_abs_err(call(), plan.plain(dev))
         ms, dev_ms = cuda_ms(call, 20), device_ms(call, 20)
@@ -744,11 +748,11 @@ def phase_a_checks(out, frames):
         host_us = (time.perf_counter() - t0) / 200 * 1e6
         torch.cuda.synchronize()
         samples = sum(pl.numel() for pl in dev)
-        outs = 2 * enc.S * enc.npix
+        outs = 2 * bank.S * bank.npix
         entry(out, "phase_a", "range" if key == "phase_a" else "rice", err,
               ms, cuda_ms(lambda: plan.plain(dev), 3), None,
               bound(4 * (samples + outs), 0), key=key,
-              shape=f"S={enc.S} npix={enc.npix} jobs={len(plan.jobs)} "
+              shape=f"S={bank.S} npix={bank.npix} jobs={len(plan.jobs)} "
                     f"blocks={plan.n_blocks} five={plan.five}",
               device_ms=dev_ms, host_us_a_call=round(host_us, 2),
               compared="every sample against the plain version")
@@ -1113,8 +1117,9 @@ def deep_rice_checks(out, frames, cfg, clock_mhz, cycles, card) -> dict:
                               ac=CODER_GOLOMB)
     enc, inputs = probe("phase 15: rice 16-bit", "yuv420p16", w, h, cfg,
                         deep[0], params=p16)
-    if enc.rice_pb != 16:
-        raise AssertionError(f"yuv420p16 rice: payload {enc.rice_pb}")
+    if enc.banks[0].rice_pb != 16:
+        raise AssertionError(f"yuv420p16 rice: payload "
+                             f"{enc.banks[0].rice_pb}")
     place_checks(out, inputs["k1"], "rice16", key="place_pb16")
     rice_checks(out, inputs, clock_mhz, cycles, bits=16, suffix="_pb16",
                 path="rice16")
@@ -1130,7 +1135,7 @@ def probe(label, pix, w, h, cfg, frame, emission=False, params=None):
     enc = DeviceFFV1Encoder(w, h, pix, cfg, device="cuda",
                             emission_order=emission, params=params)
     enc.encode(frame, force_keyframe=True)
-    capture = capture_rice if enc.golomb else capture_range
+    capture = capture_rice if enc.banks[0].golomb else capture_range
     capture(enc, frame)
     inputs, stages = capture(enc, frame)
     log(f"{label} frame 0 stage times (ms, CUDA events): "
@@ -1158,8 +1163,7 @@ def drive(label, enc, frames, card, phase, not_launched=(), check=None,
     nat, dec = nat or NativeFFV1Codec(p), NativeFFV1Codec(p)
     if check is not None:
         check(enc)
-    kernels = (enc.banks[0] if getattr(enc, "banks", None) else
-               enc).kernels
+    kernels = enc.kernels
     _build.reset_counts()
     packets, ms = [], []
     for t, frame in enumerate(frames):
@@ -1238,12 +1242,15 @@ def batch_checks(out, frames, cfg, clock_mhz, cycles, card) -> tuple:
     bbs.gate(enc, frames, BATCH_SIZES)
     wall = time.perf_counter() - t0
     launches, plain = path_counts("batch", enc.kernels)
+    caps = {B: [c.tiles_cap, c.cellrows_cap]
+            for B, c in enc.banks[0].batch_caps.items()}
     log(f"phase 16: encode_batch at B = {list(BATCH_SIZES)} ({W}x{H} "
-        f"yuv420p, up to {max(BATCH_SIZES) * enc.S} slices a pass) "
+        f"yuv420p, up to {max(BATCH_SIZES) * enc.banks[0].S} slices a "
+        f"pass) "
         f"byte-identical to the native codec's key packets and decoded "
         f"losslessly ({wall:.1f} s with the first calls' cap retries); "
         f"launches {launches}, plain calls {plain}; batch caps "
-        f"{json.dumps(enc._batch_caps)}")
+        f"{json.dumps(caps)}")
     if not np.array_equal(enc.state(), state) or enc.picture_number != 1:
         raise AssertionError("encode_batch changed the session's state")
     if enc.encode(frames[1], force_keyframe=False) != sess.encode(frames[1],
@@ -2277,7 +2284,7 @@ def main() -> int:
                          "rgb48", False)
         k = inputs["walk"]
         from ffmpeg_ffv2_tpu_torch.ffv1 import host
-        ev_in = dict(walk=k + (host.n_ev_words(enc.code_bits),))
+        ev_in = dict(walk=k + (host.n_ev_words(enc.banks[0].code_bits),))
         walk_check(kernels, ev_in, clock_mhz, cycles,
                    "adapt_emission_rgb48", "rgb48", True)
         pack_check(kernels, inputs["pack"], "rgb48",
@@ -2313,10 +2320,10 @@ def main() -> int:
         hist = {}
         for fr in rgb:
             dev = [torch.as_tensor(x, device=enc.device) for x in fr]
-            for pair in enc.pick_rct(dev):
+            for pair in enc.banks[0].pick_rct(dev):
                 hist[str(pair)] = hist.get(str(pair), 0) + 1
         log(f"phase 7: bgr0 v4: chosen (by, ry) over {N_NEW} frames x "
-            f"{enc.S} slices: {json.dumps(hist, sort_keys=True)}")
+            f"{enc.banks[0].S} slices: {json.dumps(hist, sort_keys=True)}")
         del enc, inputs
         launches["bgr0 v4"] = drive(
             "bgr0 v4", device_encoder("bgr0", W, H, cfg, emission=True), rgb,
@@ -2326,7 +2333,8 @@ def main() -> int:
     with Phase(8):
         enc, inputs = probe("phase 8: bgr0 rice", "bgr0", W, H, rice_cfg,
                             rgb[0])
-        rice_checks(kernels, inputs, clock_mhz, cycles, bits=enc.code_bits,
+        rice_checks(kernels, inputs, clock_mhz, cycles,
+                    bits=enc.banks[0].code_bits,
                     suffix="_bgr0", path="bgr0 rice", ladder=False)
         del enc, inputs
         launches["bgr0 rice"] = drive(
@@ -2339,7 +2347,7 @@ def main() -> int:
 
         def two_banks(enc):
             shapes = sorted((b.crop_plan[0][0][2], b.crop_plan[0][0][3])
-                            for b in enc.banks or ())
+                            for b in enc.banks)
             log(f"phase 9: yuv422p10 {SD[0]}x{SD[1]}: {len(shapes)} shape "
                 f"banks, luma slice rects {shapes}")
             if len(shapes) != 2:

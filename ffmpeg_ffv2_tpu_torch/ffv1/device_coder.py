@@ -7,11 +7,12 @@ the Golomb-Rice coder (YUV, gray and RGB; a 12-bit cell payload up to
 coding depth 12, a 16-bit one for 13..16), on uniform
 and non-uniform slice geometries (shape banks).  The plain torch stages
 ``layout_plan``, ``build_s0_blocks``, ``writeback_canonical`` and the
-unsorts (``_s_unsort_impl``, ``_s_rice_unsort_impl``), and the session
-class ``DeviceFFV1Encoder`` (``__init__`` with ``slice_subset``,
-``ops_from_streams``, ``_s_front``, ``_adapt``, ``_pick_rct``,
-``_prefix_for_rct``, ``_code_render``, ``_render_retry``, ``_encode_rice``,
-``encode``, ``_finish_packet``, ``_encode_frame_data``).
+unsorts (``_s_unsort_impl``, ``_s_rice_unsort_impl``); the JAX session's
+work on one slice shape as the class ``Bank`` (its ``__init__`` on a set
+of slices, ``ops_from_streams``, ``_s_front``, ``_adapt``, ``_pick_rct``,
+``_prefix_for_rct``, ``_code_render``, ``_render_retry``,
+``_encode_rice``); and the session over its banks as
+``DeviceFFV1Encoder`` (``encode``, ``encode_batch``, ``_finish_packet``).
 
 A range-coded frame runs phase A (plain torch), the chain-grouping layout
 (plain torch), then five CUDA kernels: K1 ``ops/place.py`` places the
@@ -24,7 +25,7 @@ frame plans its runs in phase A (``rice.py``), takes the same layout and
 K1, then K5 ``vlc.py`` walks the VlcStates, the ladder kernel
 (``rice.run_index_scan``) carries each slice's run index, and plain torch
 assembles the bits.  The host reads the sizes once per frame to check the
-adaptive caps (and retries larger on a miss), picks the v4 RCT
+adaptive caps (``caps.py``: it retries larger on a miss), picks the v4 RCT
 coefficients from the device's cost sums, and adds the slice headers
 (rice) and trailers.
 """
@@ -43,6 +44,7 @@ from . import headers as H
 from . import host
 from .adapt import (adapt, adapt_emission, pack_emission,
                     repack_emission_order)  # noqa: F401 (the tests' name)
+from .caps import Caps, fit
 from .expand import expand
 from .native import crc32_trailer
 from .params import FFV1Config, FFV1Params, params_from_config, CODER_GOLOMB
@@ -298,7 +300,7 @@ def unsort_codes(code_cells, ch2c, S: int, npix: int):
 
 
 class _Launched(NamedTuple):
-    """A range session's frame up to K4's launch (``_launch_range``)."""
+    """A range bank's frame up to K4's launch (``Bank.launch_range``)."""
     opw: torch.Tensor           # K3's op words
     steps: int                  # K4's step bucket
     by: torch.Tensor            # K4's bytes, on the device
@@ -318,40 +320,6 @@ def _read(tensors) -> list:
                                                 tensors)]
 
 
-def layout_caps(npix: int, n_slices: int, rows_per_slice: int) -> dict:
-    """Worst-case bounds (``tiles_max``, ``cellrows_max``) and
-    content-typical starting sizes (``tiles``, ``cellrows``) of the
-    adaptive layout domains of ``n_slices`` slices of ``npix`` pixels
-    (grown on overflow, on quantize_cap rungs): a session's S slices, or
-    a batch's B x S (device_coder._batch_state)."""
-    gcap = host.GCAP
-    n = n_slices * npix
-    chains = n_slices * rows_per_slice
-    n_buckets = npix // gcap + 2
-    tiles_max = n // gcap + 2 * n_buckets + chains // 128 + 8
-    cellrows_max = n // 128 + (n_buckets + 2) * gcap + tiles_max + 128
-    return dict(tiles=host.quantize_cap(n // gcap + chains // 128 + 72,
-                                        tiles_max),
-                cellrows=host.quantize_cap(n // 128 * 5 // 4 + 2 * gcap + 256,
-                                           cellrows_max),
-                tiles_max=tiles_max, cellrows_max=cellrows_max)
-
-
-def layout_fits(rows: int, tiles: int, slots: int, tiles_cap: int,
-                cellrows_cap: int) -> bool:
-    return (rows + 1024 <= cellrows_cap and tiles <= tiles_cap
-            and slots <= tiles_cap * 128)
-
-
-def grow_layout(rows: int, tiles: int, caps: dict) -> None:
-    """Grow a ``layout_caps`` dict's tile and cell-row caps to the
-    measured need (+slack)."""
-    caps["tiles"] = host.quantize_cap(max(tiles + 64, caps["tiles"] + 1),
-                                      caps["tiles_max"])
-    caps["cellrows"] = host.quantize_cap(
-        max(rows + 2048, caps["cellrows"] + 1), caps["cellrows_max"])
-
-
 def shape_banks(crop_plan) -> list:
     """The slice ids of each shape bank of a frame's crop plan
     (``host.build_crop_plan``), banks in order of their first slice: the
@@ -364,6 +332,15 @@ def shape_banks(crop_plan) -> list:
     return list(groups.values())
 
 
+def upload(planes, device) -> list:
+    """Planes -> int32 tensors on ``device``: numpy arrays are copied up;
+    a tensor already there (a device conversion's output,
+    ``convert/device.py``) is used as it is, cast on the device."""
+    return [torch.as_tensor(pl if torch.is_tensor(pl) else np.asarray(pl),
+                            dtype=I32, device=device)
+            for pl in planes]
+
+
 # the kernels each path's frame launches (chip_smoke.py and the card tests
 # check that a path went through all of its kernels)
 RANGE_KERNELS = ("phase_a", "place", "adapt", "emission_pack", "expand",
@@ -373,55 +350,16 @@ EMISSION_KERNELS = ("phase_a", "place", "adapt_emission", "expand",
 RICE_KERNELS = ("phase_a", "place", "vlc", "ladder")
 
 
-class DeviceFFV1Encoder:
-    """FFV1 encode with phase A and the entropy coder on a CUDA device.
+class Bank:
+    """The slices ``slice_ids`` of a frame (``crop_plan``: the frame's),
+    whose rects have one shape in every plane, as one batched stream: its
+    plans, chain rows, carried state table, slice prefixes or headers and
+    ``caps``, and the stages of a frame.  Raises NotImplementedError where
+    ``DeviceFFV1Encoder`` does."""
 
-    Covers versions 0/1/3/4 with the range coder (custom table, coder=1,
-    and the default table, coder=-2) on YUV, gray and RGB formats at every
-    depth up to 16 bits per sample (RGB codes at bits + 1: rgb48 at 17,
-    with int32 samples), the v4 per-slice RCT search, and the Golomb-Rice
-    coder (coder=0, YUV/gray/RGB up to version 3, coding depths up to
-    16); one keyframe
-    followed by inter frames carries the context states from frame to
-    frame.  Non-uniform slice geometries split into shape banks, one
-    sub-encoder per slice shape, assembled in global slice order.
-    ``emission_order`` runs K6 (the walk that packs the emission order
-    itself) instead of K2 and emission_pack, as the JAX encoder does under
-    FFV1_ADAPT_EMISSION=1.  device="cpu" runs every kernel's plain
-    PyTorch version (tests).  ``params`` overrides the config's
-    FFV1Params, such as the 2-pass parameters of
-    ``twopass.apply_pass2`` (custom transition table and per-context
-    initial states, on every bank).  Raises NotImplementedError for v4
-    RGB with Golomb-Rice, initial states with Golomb-Rice and coding
-    depths above 17."""
-
-    def __init__(self, width: int, height: int, pix_fmt: str,
-                 config: FFV1Config | None = None, device="cuda",
-                 emission_order: bool = False,
-                 params: FFV1Params | None = None, slice_subset=None):
-        """slice_subset (internal): restrict this session to the given
-        global slice indices, one bank of a non-uniform geometry.  The
-        set-up is a call record ``session init`` on ``metrics.TRACE``,
-        which is the session's ``trace``: the recorder that ``encode``
-        and ``encode_batch`` mark by default (an operator may set their
-        own ``StageTrace``)."""
-        self.trace = metrics.TRACE
-        with self.trace.call("session init", 0):
-            self._init(width, height, pix_fmt, config, device,
-                       emission_order, params, slice_subset)
-            self.trace("session tables")
-
-    def _init(self, width, height, pix_fmt, config, device, emission_order,
-              params, slice_subset):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("DeviceFFV1Encoder: device='cuda' but torch "
-                               "sees no CUDA device")
-        if self.device.type not in ("cuda", "cpu"):
-            raise ValueError(f"unsupported device {self.device}")
-        self.cfg = config or FFV1Config()
-        p = self.p = (params if params is not None else
-                      params_from_config(self.cfg, pix_fmt, width, height))
+    def __init__(self, p: FFV1Params, slice_ids, crop_plan, device,
+                 emission_order: bool = False):
+        self.p, self.device = p, device
         if p.version == 2:
             raise NotImplementedError(
                 "device coder: versions 0/1/3/4 (v2's in-band slice table "
@@ -451,27 +389,10 @@ class DeviceFFV1Encoder:
         self.kernels = (RICE_KERNELS if self.golomb else
                         EMISSION_KERNELS if self.emission_order else
                         RANGE_KERNELS)
-        self.picture_number = 0
-        self.banks = None
-        full_plan = host.build_crop_plan(p)
-        if slice_subset is None:
-            # the batched stream layout needs one slice shape: a
-            # non-uniform geometry splits into banks of equal shapes
-            groups = shape_banks(full_plan)
-            if len(groups) > 1:
-                self.banks = [
-                    DeviceFFV1Encoder(width, height, pix_fmt, self.cfg,
-                                      device=device,
-                                      emission_order=emission_order,
-                                      params=p, slice_subset=g)
-                    for g in groups]
-                self.extradata = self.banks[0].extradata
-                return
-            slice_subset = range(p.slice_count)
-        self.slice_ids = list(slice_subset)
+        self.slice_ids = list(slice_ids)
         self.S = len(self.slice_ids)
         self.crop_plan = [[prects[si] for si in self.slice_ids]
-                          for prects in full_plan]
+                          for prects in crop_plan]
         self.qt = lut_for(p, p.context_model)
         self.five = bool(p.quant_tables[p.context_model][3][127]
                          or p.quant_tables[p.context_model][4][127])
@@ -492,7 +413,6 @@ class DeviceFFV1Encoder:
                        for prects in self.crop_plan]
         self.npix = int(np.sum(plane_sizes))
         if p.colorspace == 1:
-            sw, sh = self.crop_plan[0][0][2], self.crop_plan[0][0][3]
             pclass = np.tile(np.repeat(np.array(
                 [(li + 1) // 2 for li in range(len(self.crop_plan))],
                 np.int32), sw), sh)
@@ -505,13 +425,9 @@ class DeviceFFV1Encoder:
         self.rows_per_slice = int(np.sum(class_counts))
         self.class_off_stream = torch.as_tensor(class_off[pclass],
                                                 device=self.device)
-
         self.n_chain_rows = self.S * self.rows_per_slice
-        c = layout_caps(self.npix, self.S, self.rows_per_slice)
-        self.tiles_cap, self.cellrows_cap = c["tiles"], c["cellrows"]
-        self.tiles_max, self.cellrows_max = c["tiles_max"], c["cellrows_max"]
-        self._batch_caps = {}        # encode_batch's layout caps, per B
-        self.extradata = H.write_extradata(p) if p.version > 1 else b""
+        self.state_shape = (self.n_chain_rows + 1, 4 if self.golomb else 32)
+        self.batch_caps = {}         # encode_batch's layout caps, per B
         if self.golomb:
             self._init_rice()
         else:
@@ -548,23 +464,12 @@ class DeviceFFV1Encoder:
         self.prefix = {key: self._plan_prefix(key, None)
                        for key in (True, False)}
         self._rct_prefix_cache = {}
-
         hmax = max(int(self.prefix[k][0].shape[1]) for k in (True, False))
-        k_max = host.k_max_for_bits(self.code_bits)
-        self.op_cap_max = -(-(self.npix * k_max + hmax + 8)
-                            // host.OP_GRAN) * host.OP_GRAN
-        self.op_cap = host.quantize_cap(self.npix * 4 + hmax + 1024,
-                                        self.op_cap_max, host.OP_GRAN)
-        self.render_cap_max = self.op_cap_max + 16
-        self.render_cap = host.quantize_cap(self.npix + 4096,
-                                            self.render_cap_max, 4096)
-        # emission-order words carried through the unsort: 2 words = 8
-        # ops covers |diff| <= 7; grows to the content's ceil(maxops/4)
-        self.unsort_words = min(2, host.n_ev_words(self.code_bits))
-        self._shrinks = 2            # op_cap tightening budget
+        self.caps = Caps.range(self.npix, self.S, self.rows_per_slice, hmax,
+                               self.code_bits)
 
     def _plan_prefix(self, keyframe: bool, rct_list, pad_to: int = 1):
-        """(svp, btp, hlen) tensors of this session's slices' prefix ops;
+        """(svp, btp, hlen) tensors of this bank's slices' prefix ops;
         rct_list gives each slice's (by, ry) for its v4 slice header."""
         p = self.p
         rects = p.rects()
@@ -586,9 +491,9 @@ class DeviceFFV1Encoder:
                      for a in (svp, btp, hlen))
 
     def _init_rice(self):
-        """Rice session state: the canonical VlcState table (one row of
-        drift, error_sum, bias, count per chain row, plus a spare row),
-        the slice headers and the adaptive event and bitstream sizes."""
+        """Rice state: the canonical VlcState table (one row of drift,
+        error_sum, bias, count per chain row, plus a spare row), the slice
+        headers and the caps."""
         p = self.p
         # the rice cell's payload width: 12 bits for coding depths up to
         # 12, 16 for 13..16 (silent flag at pb, layout valid flag at pb +
@@ -616,51 +521,30 @@ class DeviceFFV1Encoder:
                 hdrs.append(c.terminate(1 if p.version > 2 else 0))
             self.rice_headers[key] = hdrs
         nlines = sum(prects[0][3] for prects in self.crop_plan)
-        self.ev_cap_max = self.npix + nlines + 8
-        self.ev_cap = host.quantize_cap(self.npix // 4 + 1024,
-                                        self.ev_cap_max)
-        # worst element: the escape (11 ones + 1 + bits value bits) plus
-        # the run and ladder elements
-        self.nwords_max = self.npix * 3 * max(25, p.bits + 13) // 32 + 8
-        self.nwords = host.quantize_cap(self.npix // 16 * 8 + 256,
-                                        self.nwords_max, 8)
+        self.caps = Caps.rice(self.npix, self.S, self.rows_per_slice, nlines,
+                              p.bits)
 
     # -- codec state ---------------------------------------------------------
-
-    def _unbanked(self, what: str):
-        if self.banks is not None:
-            raise ValueError(
-                f"{what}: this session splits a non-uniform slice geometry "
-                f"into {len(self.banks)} shape banks, each with its own "
-                "state table; there is no single table")
 
     def state(self) -> np.ndarray:
         """The per-chain state table that the next inter frame starts
         from: the range coder's context states (n_chain_rows + 1, 32)
         uint8, or the Golomb-Rice VlcStates (n_chain_rows + 1, 4) int32
-        (drift, error_sum, bias, count).  Raises ValueError on a session
-        with shape banks."""
-        self._unbanked("state")
+        (drift, error_sum, bias, count)."""
         return (self.vcanon if self.golomb else self.canonical).cpu().numpy()
 
-    def load_state(self, table: np.ndarray, picture_number: int):
-        """Continue a stream from another session's state (this package's
-        ``state()``, or the JAX DeviceFFV1Encoder's ``canonical``, or its
-        ``vcanon`` for Golomb-Rice).  Raises ValueError on a session with
-        shape banks."""
-        self._unbanked("load_state")
+    def load_state(self, table: np.ndarray):
+        """Continue from another session's state table (``state()``'s, or
+        the JAX DeviceFFV1Encoder's ``canonical``, or its ``vcanon`` for
+        Golomb-Rice)."""
         table = np.asarray(table)
-        shape, dtype = (((self.n_chain_rows + 1, 4), np.int32) if self.golomb
-                        else ((self.n_chain_rows + 1, 32), np.uint8))
-        if table.shape != shape or table.dtype != dtype:
+        dtype = np.int32 if self.golomb else np.uint8
+        if table.shape != self.state_shape or table.dtype != dtype:
             raise ValueError(f"load_state: expected {np.dtype(dtype)} "
-                             f"{shape}, got {table.dtype} {table.shape}")
-        t = torch.as_tensor(table.copy(), device=self.device)
-        if self.golomb:
-            self.vcanon = t
-        else:
-            self.canonical = t
-        self.picture_number = int(picture_number)
+                             f"{self.state_shape}, got {table.dtype} "
+                             f"{table.shape}")
+        setattr(self, "vcanon" if self.golomb else "canonical",
+                torch.as_tensor(table.copy(), device=self.device))
 
     # -- pipeline stages -----------------------------------------------------
 
@@ -679,7 +563,7 @@ class DeviceFFV1Encoder:
         """Planes on the device -> (ctx, diff, the slices' prefix ops): v4
         RGB first picks each slice's RCT coefficients (a read of the
         candidates' costs, ``RCT costs to host``) and plans the slice
-        headers that carry them (device_coder._encode_frame_data)."""
+        headers that carry them (as the JAX session's frame does)."""
         if not self.v4rgb:
             return (*self.phase_a(planes), self.prefix[keyframe])
         rct = self.pick_rct(planes)
@@ -767,10 +651,11 @@ class DeviceFFV1Encoder:
 
     def ops_from_streams(self, ctx, diff, canonical, svp, btp, hlen,
                          keyframe: bool, caps, ev_words: int, mark=no_mark):
-        """Streams of n slices (the session's S, or a batch's B x S) ->
-        (opw (n, op_cap) int32 op words, n_ops (n,), canonical after the
-        frame, sizes = [rows, tiles, slots, opmax, maxcount]).  A keyframe
-        starts from ``key_canonical(n)``, not from ``canonical``."""
+        """Streams of n slices (the bank's S, or a batch's B x S) -> (opw
+        (n, op_cap) int32 op words, n_ops (n,), canonical after the frame,
+        sizes = [rows, tiles, slots, opmax, maxcount]) at ``caps`` =
+        (tiles_cap, cellrows_cap, op_cap).  A keyframe starts from
+        ``key_canonical(n)``, not from ``canonical``."""
         tiles_cap, cellrows_cap, op_cap = caps
         ev, ch1c, ch2c, canonical, psizes = self.front(
             ctx, diff, canonical, keyframe, tiles_cap, cellrows_cap,
@@ -784,61 +669,54 @@ class DeviceFFV1Encoder:
         sizes = torch.cat([psizes, n_ops.max()[None], maxc[None]])
         return opw, n_ops, canonical, sizes
 
-    def _layout_fits(self, rows: int, tiles: int, slots: int) -> bool:
-        return layout_fits(rows, tiles, slots, self.tiles_cap,
-                           self.cellrows_cap)
-
-    def _grow_layout(self, rows: int, tiles: int):
-        """Grow the session's tile and cell-row caps to the measured need
-        (+slack)."""
-        caps = dict(tiles=self.tiles_cap, cellrows=self.cellrows_cap,
-                    tiles_max=self.tiles_max, cellrows_max=self.cellrows_max)
-        grow_layout(rows, tiles, caps)
-        self.tiles_cap, self.cellrows_cap = caps["tiles"], caps["cellrows"]
-
-    def _ops_fit(self, opmax: int, maxc: int) -> bool:
-        return opmax <= self.op_cap and maxc <= 4 * self.unsort_words
-
-    def _grow_ops(self, opmax: int, maxc: int):
-        """Grow the op domain and the unsort width to the measured need."""
-        if opmax > self.op_cap:
-            self.op_cap = host.quantize_cap(opmax + 512, self.op_cap_max,
-                                            host.OP_GRAN)
-        if maxc > 4 * self.unsort_words:
-            self.unsort_words = min(host.n_ev_words(self.code_bits),
-                                    (maxc + 3) // 4)
-
-    def _render(self, opw, steps: int, mark=no_mark):
-        """K4 at the session's render cap, launched and not read: (bytes,
+    def render(self, opw, steps: int, mark=no_mark):
+        """K4 at the bank's render cap, launched and not read: (bytes,
         lengths) on the device.  ``mark`` is called after K4 with its
         inputs."""
-        k4 = (opw, steps, self.render_cap)
+        k4 = (opw, steps, self.caps.render_cap)
         by, ln = rac_render(*k4)
         mark("K4 rac_render", k4)
         return by, ln
 
-    def _render_fits(self, ln_h) -> bool:
-        """Whether K4's host lengths fit the render cap; grows the cap to
-        them where they do not."""
-        if int(ln_h.max()) <= self.render_cap:
-            return True
-        self.render_cap = host.quantize_cap(
-            max(int(ln_h.max()) + 4096, self.render_cap + 1),
-            self.render_cap_max, 4096)
-        return False
+    def render_fit(self, opw, steps: int, mark=no_mark):
+        """K4, its render cap grown and K4 redone until the lengths fit
+        (a read of the lengths an attempt): (bytes on the device, host
+        lengths)."""
+        _, by, ln = fit(lambda: self.render(opw, steps, mark),
+                        self.caps.fits_render, mark, 6, "lengths to host",
+                        "render buffer exceeded worst-case cap")
+        return by, ln
 
-    def _render_retry(self, opw, steps: int, mark=no_mark):
-        """K4 with render-buffer growth; returns (bytes on the device,
-        host lengths).  ``mark`` is called after K4 with its inputs and
-        after the lengths' read."""
-        for _ in range(6):
-            by, ln = self._render(opw, steps, mark)
-            ln_h = ln.cpu().numpy()
-            mark("lengths to host")
-            if self._render_fits(ln_h):
-                return by, ln_h
-            metrics.retry(mark)
-        raise RuntimeError("render buffer exceeded worst-case cap")
+    def _fit_ops(self, ctx, diff, canonical, prefix, keyframe: bool,
+                 layout: Caps, mark=no_mark):
+        """``ops_from_streams`` at ``layout``'s tile and cell-row caps and
+        the bank's op caps, fitted (``caps.fit``): (the attempt that fit,
+        opw, n_ops, canonical after it, the largest op count, K4's step
+        count: its power-of-two bucket)."""
+        caps = self.caps
+
+        def run():
+            *out, sizes = self.ops_from_streams(
+                ctx, diff, canonical, *prefix, keyframe,
+                (layout.tiles_cap, layout.cellrows_cap, caps.op_cap),
+                caps.unsort_words, mark)
+            return out, sizes
+
+        attempt, (opw, n_ops, canon), sizes = fit(
+            run, lambda s: layout.fits_layout(*s[:3]) & caps.fits_ops(*s[3:]),
+            mark)
+        steps = max(512, min(1 << sizes[3].bit_length(), int(opw.shape[1])))
+        return attempt, opw, n_ops, canon, sizes[3], steps
+
+    def launch_range(self, dev, keyframe: bool, mark=no_mark) -> _Launched:
+        """Phase A through K3 on the uploaded planes (``_fit_ops``), then
+        K4 launched and not read."""
+        ctx, diff, prefix = self.range_streams(dev, keyframe, mark)
+        mark("phase_a")
+        attempt, opw, _, self.canonical, opmax, steps = self._fit_ops(
+            ctx, diff, self.canonical, prefix, keyframe, self.caps, mark)
+        self.caps.shrink_ops(opmax)
+        return _Launched(opw, steps, *self.render(opw, steps, mark), attempt)
 
     # -- Golomb-Rice stages --------------------------------------------------
 
@@ -900,72 +778,33 @@ class DeviceFFV1Encoder:
         return [hdrs[si] + by_h[si, :(nbits[si] + 7) // 8].tobytes()
                 for si in range(self.S)]
 
-    def _encode_rice(self, dev, keyframe: bool, mark=no_mark) -> list:
+    def encode_rice(self, dev, keyframe: bool, mark=no_mark) -> list:
         """One Golomb-Rice frame, its planes on the device (``upload``) ->
         list of raw slice payloads (encoder.py:_encode_slice); ``mark`` is
         called after each stage."""
         ctx, streams = self.phase_a_rice(dev)
         mark("phase_a")
-        for _ in range(8):
+        caps = self.caps
+
+        def run():
             codes, vcanon, psizes = self.rice_front(
                 ctx, streams["payload"], self.vcanon, keyframe,
-                self.tiles_cap, self.cellrows_cap, mark)
-            by, nbits, n_lad = self.rice_bits(streams, codes, self.ev_cap,
-                                              self.nwords, mark)
-            sizes = torch.cat([psizes, n_lad.max()[None], nbits]).tolist()
-            mark("sizes to host")
-            rows, tiles, slots, nl = sizes[:4]
-            nb = sizes[4:]
-            fits = self._layout_fits(rows, tiles, slots)
-            if fits and nl <= self.ev_cap and max(nb) <= self.nwords * 32:
-                break
-            metrics.retry(mark)
-            # grow the adaptive working sizes to the measured need (+slack)
-            if not fits:
-                self._grow_layout(rows, tiles)
-            if nl > self.ev_cap:
-                self.ev_cap = host.quantize_cap(nl + 512, self.ev_cap_max)
-            if max(nb) > self.nwords * 32:
-                self.nwords = host.quantize_cap(max(nb) // 32 + 256,
-                                                self.nwords_max, 8)
-        else:
-            raise RuntimeError("device rice exceeded worst-case caps")
-        self.vcanon = vcanon
+                caps.tiles_cap, caps.cellrows_cap, mark)
+            by, nbits, n_lad = self.rice_bits(streams, codes, caps.ev_cap,
+                                              caps.nwords, mark)
+            return (by, vcanon), torch.cat([psizes, n_lad.max()[None],
+                                            nbits])
+
+        _, (by, self.vcanon), sizes = fit(run, lambda s: (
+            caps.fits_layout(*s[:3]) & caps.fits_rice(s[3], s[4:])), mark,
+            error="device rice exceeded worst-case caps")
         by_h = by.cpu().numpy()
         mark("bytes to host")
-        chunks = self.rice_slices(by_h, nb, keyframe)
+        chunks = self.rice_slices(by_h, sizes[4:], keyframe)
         mark("slice bytes")
         return chunks
 
-    # -- public API ------------------------------------------------------------
-
-    def encode(self, planes, force_keyframe=None, mark=None) -> bytes:
-        """One frame -> its packet.  Every stage is marked on ``mark``
-        (the session's ``trace`` by default, in a call record ``encode``
-        of one frame)."""
-        mark = self.trace if mark is None else mark
-        with metrics.span(mark, "encode", 1):
-            gop = self.cfg.gop_size
-            keyframe = gop == 0 or self.picture_number % gop == 0
-            if force_keyframe is not None:
-                keyframe = bool(force_keyframe)
-            if self.banks is None:
-                chunks = self._encode_frame_data(planes, keyframe, mark)
-            else:
-                chunks = self._encode_banks(planes, keyframe, mark)
-            self.picture_number += 1
-            pkt = self._finish_packet(chunks)
-            mark("slice trailers + CRC")
-        return pkt
-
-    def upload(self, planes) -> list:
-        """Planes -> int32 tensors on the encoder's device: numpy arrays
-        are copied up; a tensor already there (a device conversion's
-        output, ``convert/device.py``) is used as it is, cast on the
-        device."""
-        return [torch.as_tensor(pl if torch.is_tensor(pl) else np.asarray(pl),
-                                dtype=I32, device=self.device)
-                for pl in planes]
+    # -- all-intra batches ---------------------------------------------------
 
     def key_canonical(self, n_slices: int):
         """The keyframe state table of ``n_slices`` slices: one slice's
@@ -983,62 +822,195 @@ class DeviceFFV1Encoder:
         ctx = torch.empty((B * S, self.npix), dtype=I32, device=self.device)
         diff = torch.empty_like(ctx)
         for b, f in enumerate(frames_list):
-            self.phase_a(self.upload(f), out=(ctx[b * S:(b + 1) * S],
-                                              diff[b * S:(b + 1) * S]))
+            self.phase_a(upload(f, self.device),
+                         out=(ctx[b * S:(b + 1) * S], diff[b * S:(b + 1) * S]))
         svp, btp, hlen = self.prefix[True]
         return ctx, diff, (svp.repeat(B, 1), btp.repeat(B, 1),
                            hlen.repeat(B))
-
-    def _check_batchable(self):
-        if self.banks is not None:
-            raise NotImplementedError(
-                "batch encode with a non-uniform slice geometry: use "
-                "encode() (per-shape banks) or a uniform frame size")
-        if self.v4rgb:
-            raise NotImplementedError(
-                "batch encode with v4 RGB: the per-slice RCT search "
-                "re-plans headers per frame; use encode()")
-        if self.golomb:
-            raise NotImplementedError(
-                "batch encode with Golomb-Rice: the batch is the range "
-                "pipeline; use encode()")
 
     def batch_ops(self, frames_list, mark=no_mark):
         """B >= 1 key frames -> (opw (B x S, op_cap) op words, n_ops
         (B x S,), K4's step count): phase A, the layout, K1, the walk and
         K3 on the batch's slices, retried on the batch's own layout caps
         (per B) until every size fits (device_coder.encode_batch)."""
-        self._check_batchable()
         B = len(frames_list)
-        staged = [self.upload(f) for f in frames_list]
+        staged = [upload(f, self.device) for f in frames_list]
         mark("upload")
-        ctx, diff, (svp, btp, hlen) = self.batch_streams(staged)
+        ctx, diff, prefix = self.batch_streams(staged)
         del staged          # phase A's streams replace the int32 planes
         mark("phase_a")
-        caps = self._batch_caps.get(B)
-        if caps is None:
-            caps = self._batch_caps[B] = layout_caps(self.npix, B * self.S,
-                                                     self.rows_per_slice)
-        for _ in range(8):
-            opw, n_ops, _, sizes = self.ops_from_streams(
-                ctx, diff, None, svp, btp, hlen, True,
-                (caps["tiles"], caps["cellrows"], self.op_cap),
-                self.unsort_words, mark)
-            rows, tiles, slots, opmax, maxc = sizes.tolist()
-            mark("sizes to host")
-            fits = layout_fits(rows, tiles, slots, caps["tiles"],
-                               caps["cellrows"])
-            if fits and self._ops_fit(opmax, maxc):
-                break
-            metrics.retry(mark)
-            if not fits:
-                grow_layout(rows, tiles, caps)
-            self._grow_ops(opmax, maxc)
-        else:
-            raise RuntimeError("device layout exceeded worst-case caps")
-        # code at the power-of-two step bucket
-        return opw, n_ops, max(512, min(1 << opmax.bit_length(),
-                                        int(opw.shape[1])))
+        layout = self.batch_caps.get(B)
+        if layout is None:
+            layout = self.batch_caps[B] = Caps.layout(
+                self.npix, B * self.S, self.rows_per_slice)
+        _, opw, n_ops, _, _, steps = self._fit_ops(ctx, diff, None, prefix,
+                                                   True, layout, mark)
+        return opw, n_ops, steps
+
+
+def code_banks(banks, dev, keyframe: bool, mark=no_mark) -> list:
+    """One frame's uploaded planes through every shape bank -> each bank's
+    raw slice payloads.  The range banks run as one pipeline: each in
+    turn enqueues phase A through K3, reads its sizes and launches K4
+    unread; then one read of every bank's lengths (a bank over its render
+    cap codes again) and one of their bytes.  The Golomb-Rice banks run
+    one after the other.  A bank's stages are marked with its index; once
+    the records left bank 0, the call's own stages are bank 0's at
+    attempt 0, else they run on at the one bank's attempt."""
+    jobs = []
+    for i, bank in enumerate(banks):
+        metrics.bank(mark, i)
+        jobs.append(bank.encode_rice(dev, keyframe, mark) if bank.golomb
+                    else bank.launch_range(dev, keyframe, mark))
+    left = i > 0
+    if left:
+        metrics.bank(mark, 0)
+    if banks[0].golomb:
+        return jobs
+    lens = _read([j.ln for j in jobs])
+    mark("lengths to host")
+    bys = []
+    for i, (bank, j) in enumerate(zip(banks, jobs)):
+        by = j.by
+        if not bank.caps.fits_render(lens[i]):
+            # K4 again, under the bank's own index and next attempt
+            metrics.bank(mark, i, j.attempt + 1)
+            by, lens[i] = bank.render_fit(j.opw, j.steps, mark)
+            if left:
+                metrics.bank(mark, 0)
+        bys.append(by)
+    bys = _read(bys)
+    mark("bytes to host")
+    out = [[by_h[li, :int(ln_h[li])].tobytes() for li in range(bank.S)]
+           for bank, by_h, ln_h in zip(banks, bys, lens)]
+    mark("slice bytes")
+    return out
+
+
+def finish_packet(p: FFV1Params, slice_ids, datas) -> bytes:
+    """A frame's raw slice payloads and each one's global slice index ->
+    its packet: the slices in global order, each with its 3-byte BE size
+    trailer and optional CRC (ffv1enc.c:1236-1262 layout)."""
+    chunks = [None] * len(datas)
+    for si, data in zip(slice_ids, datas):
+        chunks[si] = data
+    out = []
+    for si, data in enumerate(chunks):
+        if si > 0 or p.version > 2:
+            if len(data) >= 1 << 24:
+                raise RuntimeError("slice exceeds the 24-bit size field")
+            data += len(data).to_bytes(3, "big")
+            if p.ec:
+                data += b"\x00"
+                data += crc32_trailer(data)
+        out.append(data)
+    return b"".join(out)
+
+
+class DeviceFFV1Encoder:
+    """FFV1 encode with phase A and the entropy coder on a CUDA device.
+
+    Covers versions 0/1/3/4 with the range coder (custom table, coder=1,
+    and the default table, coder=-2) on YUV, gray and RGB formats at every
+    depth up to 16 bits per sample (RGB codes at bits + 1: rgb48 at 17,
+    with int32 samples), the v4 per-slice RCT search, and the Golomb-Rice
+    coder (coder=0, YUV/gray/RGB up to version 3, coding depths up to
+    16); one keyframe
+    followed by inter frames carries the context states from frame to
+    frame.  The session codes a frame through ``banks``, one ``Bank`` per
+    slice shape (one for a uniform geometry), and assembles the packet in
+    global slice order.
+    ``emission_order`` runs K6 (the walk that packs the emission order
+    itself) instead of K2 and emission_pack, as the JAX encoder does under
+    FFV1_ADAPT_EMISSION=1.  device="cpu" runs every kernel's plain
+    PyTorch version (tests).  ``params`` overrides the config's
+    FFV1Params, such as the 2-pass parameters of
+    ``twopass.apply_pass2`` (custom transition table and per-context
+    initial states, on every bank).  Raises NotImplementedError for v4
+    RGB with Golomb-Rice, initial states with Golomb-Rice and coding
+    depths above 17."""
+
+    def __init__(self, width: int, height: int, pix_fmt: str,
+                 config: FFV1Config | None = None, device="cuda",
+                 emission_order: bool = False,
+                 params: FFV1Params | None = None):
+        """The set-up is a call record ``session init`` on
+        ``metrics.TRACE``, which is the session's ``trace``: the recorder
+        that ``encode`` and ``encode_batch`` mark by default (an operator
+        may set their own ``StageTrace``)."""
+        self.trace = metrics.TRACE
+        with self.trace.call("session init", 0):
+            self.device = torch.device(device)
+            if self.device.type == "cuda" and not torch.cuda.is_available():
+                raise RuntimeError("DeviceFFV1Encoder: device='cuda' but "
+                                   "torch sees no CUDA device")
+            if self.device.type not in ("cuda", "cpu"):
+                raise ValueError(f"unsupported device {self.device}")
+            self.cfg = config or FFV1Config()
+            p = self.p = (params if params is not None else
+                          params_from_config(self.cfg, pix_fmt, width,
+                                             height))
+            # the batched stream layout needs one slice shape: a
+            # non-uniform geometry splits into banks of equal shapes
+            plan = host.build_crop_plan(p)
+            self.banks = [Bank(p, ids, plan, self.device, emission_order)
+                          for ids in shape_banks(plan)]
+            self.kernels = self.banks[0].kernels
+            self.picture_number = 0
+            self.extradata = H.write_extradata(p) if p.version > 1 else b""
+            self.trace("session tables")
+
+    # -- codec state ---------------------------------------------------------
+
+    def _one_bank(self, what: str) -> Bank:
+        if len(self.banks) > 1:
+            raise ValueError(
+                f"{what}: this session splits a non-uniform slice geometry "
+                f"into {len(self.banks)} shape banks, each with its own "
+                "state table; there is no single table")
+        return self.banks[0]
+
+    def state(self) -> np.ndarray:
+        """The one bank's ``Bank.state``: ValueError with several."""
+        return self._one_bank("state").state()
+
+    def load_state(self, table: np.ndarray, picture_number: int):
+        """The one bank's ``Bank.load_state``: ValueError with several."""
+        self._one_bank("load_state").load_state(table)
+        self.picture_number = int(picture_number)
+
+    def _table(name):  # the one bank's state table, to swap whole
+        return property(lambda s: getattr(s._one_bank(name), name),
+                        lambda s, t: setattr(s._one_bank(name), name, t))
+
+    canonical, vcanon = _table("canonical"), _table("vcanon")
+
+    # -- public API ------------------------------------------------------------
+
+    def upload(self, planes) -> list:
+        """Planes -> int32 tensors on the session's device (``upload``)."""
+        return upload(planes, self.device)
+
+    def encode(self, planes, force_keyframe=None, mark=None) -> bytes:
+        """One frame -> its packet: the planes uploaded once, then every
+        bank (``code_banks``).  Every stage is marked on ``mark`` (the
+        session's ``trace`` by default, in a call record ``encode`` of one
+        frame)."""
+        mark = self.trace if mark is None else mark
+        with metrics.span(mark, "encode", 1):
+            gop = self.cfg.gop_size
+            keyframe = gop == 0 or self.picture_number % gop == 0
+            if force_keyframe is not None:
+                keyframe = bool(force_keyframe)
+            dev = self.upload(planes)
+            mark("upload")
+            parts = code_banks(self.banks, dev, keyframe, mark)
+            self.picture_number += 1
+            pkt = finish_packet(self.p,
+                                [si for b in self.banks for si in b.slice_ids],
+                                [data for part in parts for data in part])
+            mark("slice trailers + CRC")
+        return pkt
 
     def encode_batch(self, frames_list, mark=None) -> list:
         """B intra (key) frames -> their packets, in one pass of B x S
@@ -1055,137 +1027,31 @@ class DeviceFFV1Encoder:
         is marked on ``mark`` (the session's ``trace`` by default, in a
         call record ``encode_batch`` of B frames), and each kernel stage
         with the kernel's inputs."""
-        self._check_batchable()
+        if len(self.banks) > 1:
+            raise NotImplementedError(
+                "batch encode with a non-uniform slice geometry: use "
+                "encode() (per-shape banks) or a uniform frame size")
+        bank = self.banks[0]
+        if bank.v4rgb:
+            raise NotImplementedError(
+                "batch encode with v4 RGB: the per-slice RCT search "
+                "re-plans headers per frame; use encode()")
+        if bank.golomb:
+            raise NotImplementedError(
+                "batch encode with Golomb-Rice: the batch is the range "
+                "pipeline; use encode()")
         if not frames_list:
             return []
         mark = self.trace if mark is None else mark
         with metrics.span(mark, "encode_batch", len(frames_list)):
-            opw, _, steps = self.batch_ops(frames_list, mark)
-            by, ln_h = self._render_retry(opw, steps, mark)
+            opw, _, steps = bank.batch_ops(frames_list, mark)
+            by, ln_h = bank.render_fit(opw, steps, mark)
             by_h = by.cpu().numpy()
             mark("bytes to host")
-            S = self.S
+            S = bank.S
             chunks = [[by_h[b * S + li, :int(ln_h[b * S + li])].tobytes()
                        for li in range(S)] for b in range(len(frames_list))]
             mark("slice bytes")
-            pkts = [self._finish_packet(c) for c in chunks]
+            pkts = [finish_packet(self.p, range(S), c) for c in chunks]
             mark("slice trailers + CRC")
         return pkts
-
-    def _finish_packet(self, chunks) -> bytes:
-        """Per-slice raw data -> packet: 3-byte BE size trailer + optional
-        CRC per slice (ffv1enc.c:1236-1262 layout)."""
-        out = []
-        for si, data in enumerate(chunks):
-            if si > 0 or self.p.version > 2:
-                if len(data) >= 1 << 24:
-                    raise RuntimeError("slice exceeds the 24-bit size field")
-                data += len(data).to_bytes(3, "big")
-                if self.p.ec:
-                    data += b"\x00"
-                    data += crc32_trailer(data)
-            out.append(data)
-        return b"".join(out)
-
-    def _encode_frame_data(self, planes, keyframe: bool,
-                           mark=no_mark) -> list:
-        """This session's slices of one frame -> list of raw slice
-        payloads (no trailers); ``mark`` is called after each stage."""
-        dev = self.upload(planes)
-        mark("upload")
-        if self.golomb:
-            return self._encode_rice(dev, keyframe, mark)
-        return self._code_range((self,), dev, keyframe, mark)[0]
-
-    def _encode_banks(self, planes, keyframe: bool, mark=no_mark) -> list:
-        """A non-uniform geometry's frame -> its raw slice payloads in
-        global slice order: the planes uploaded once for every shape
-        bank, then the range banks as one pipeline (``_code_range``), the
-        Golomb-Rice banks one after the other.  A bank's stages are
-        marked with its index; the upload and the joint reads are the
-        call's own (bank 0)."""
-        dev = self.upload(planes)
-        mark("upload")
-        if self.golomb:
-            parts = []
-            for i, bank in enumerate(self.banks):
-                metrics.bank(mark, i)
-                parts.append(bank._encode_rice(dev, keyframe, mark))
-            metrics.bank(mark, 0)
-        else:
-            parts = self._code_range(self.banks, dev, keyframe, mark)
-        chunks = [None] * self.p.slice_count
-        for bank, data in zip(self.banks, parts):
-            for si, d in zip(bank.slice_ids, data):
-                chunks[si] = d
-        return chunks
-
-    def _code_range(self, units, dev, keyframe: bool, mark=no_mark) -> list:
-        """The range sessions ``units`` (the shape banks, or this session
-        alone) on one frame's uploaded planes -> each unit's raw slice
-        payloads.  Each unit in turn enqueues phase A through K3, reads
-        its sizes and launches K4 unread, so the host enqueues a bank
-        while the previous bank's K4 runs; then one read of every unit's
-        lengths (a unit over its render cap codes again, ``_render_retry``)
-        and one of their bytes."""
-        banked = self.banks is not None
-        jobs = []
-        for i, u in enumerate(units):
-            if banked:
-                metrics.bank(mark, i)
-            jobs.append(u._launch_range(dev, keyframe, mark))
-        if banked:
-            metrics.bank(mark, 0)
-        lens = _read([j.ln for j in jobs])
-        mark("lengths to host")
-        bys = []
-        for i, (u, j) in enumerate(zip(units, jobs)):
-            by = j.by
-            if not u._render_fits(lens[i]):
-                # K4 again, under the unit's own bank and next attempt
-                metrics.bank(mark, i, j.attempt + 1)
-                by, lens[i] = u._render_retry(j.opw, j.steps, mark)
-                if banked:
-                    metrics.bank(mark, 0)
-            bys.append(by)
-        bys = _read(bys)
-        mark("bytes to host")
-        out = [[by_h[li, :int(ln_h[li])].tobytes() for li in range(u.S)]
-               for u, by_h, ln_h in zip(units, bys, lens)]
-        mark("slice bytes")
-        return out
-
-    def _launch_range(self, dev, keyframe: bool, mark=no_mark) -> _Launched:
-        """Phase A through K3 on the uploaded planes, grown and redone
-        until the sizes fit (a read of the sizes an attempt), then K4
-        launched and not read."""
-        ctx, diff, (svp, btp, hlen) = self.range_streams(dev, keyframe, mark)
-        mark("phase_a")
-        for attempt in range(8):
-            opw, n_ops, canon, sizes = self.ops_from_streams(
-                ctx, diff, self.canonical, svp, btp, hlen, keyframe,
-                (self.tiles_cap, self.cellrows_cap, self.op_cap),
-                self.unsort_words, mark)
-            rows, tiles, slots, opmax, maxc = sizes.tolist()
-            mark("sizes to host")
-            fits = self._layout_fits(rows, tiles, slots)
-            if fits and self._ops_fit(opmax, maxc):
-                # tighten a fat op domain to the content's measured scale
-                # (+25%), at most twice per session so the caps settle
-                tight_op = host.quantize_cap(opmax * 5 // 4 + 512,
-                                             self.op_cap_max, host.OP_GRAN)
-                if self._shrinks > 0 and tight_op < self.op_cap:
-                    self._shrinks -= 1
-                    self.op_cap = tight_op
-                self.canonical = canon
-                # code at the power-of-two step bucket
-                steps = max(512, min(1 << opmax.bit_length(),
-                                     int(opw.shape[1])))
-                return _Launched(opw, steps, *self._render(opw, steps, mark),
-                                 attempt)
-            metrics.retry(mark)
-            # grow the adaptive working sizes to the measured need (+slack)
-            if not fits:
-                self._grow_layout(rows, tiles)
-            self._grow_ops(opmax, maxc)
-        raise RuntimeError("device layout exceeded worst-case caps")

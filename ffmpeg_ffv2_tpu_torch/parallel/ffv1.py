@@ -5,19 +5,18 @@ The counterpart of ``ffmpeg_ffv2_tpu/parallel/ffv1.py``.
 of a ("data", "slice") mesh (``slices.make_mesh``):
 
 * the **slice axis** shards FFV1 slices, independent coding units by
-  format design: rank (d, s) encodes the s-th contiguous block of each
-  shape bank's slices with its own ``DeviceFFV1Encoder`` (``slice_subset``)
-  through the port's kernels (range: K1, K2 + emission_pack or K6, K3,
-  K4; Golomb-Rice: K1, K5, the ladder), with no communication; the raw
-  slice payloads then ride one gather over the slice group and one over
-  the data group (``gather_slice_bytes``), and the host lays out the
-  3-byte size and CRC trailers;
+  format design: rank (d, s) codes the s-th contiguous block of each
+  shape bank's slices as a ``Bank`` of its own, through the session's
+  ``device_coder.code_banks``, with no communication; the raw slice
+  payloads then ride one gather over the slice group and one over the
+  data group (``gather_slice_bytes``), and the host lays out the packet
+  (``device_coder.finish_packet``);
 * the **data axis** carries independent streams: lane d encodes its own
-  frame sequence, its coder state carried across frames by the
-  sub-encoders of the ranks (d, *).
+  frame sequence, its coder state carried across frames by the banks of
+  the ranks (d, *).
 
-Each sub-encoder grows its own caps: the bytes do not depend on them, so
-no collective runs inside the retry loop, and every rank calls the same
+Each bank grows its own caps: the bytes do not depend on them, so no
+collective runs inside the retry loop, and every rank calls the same
 collectives in the same order.  Every packet equals the single-device
 ``DeviceFFV1Encoder``'s for the lane's frames.
 """
@@ -27,7 +26,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ffv1.device_coder import DeviceFFV1Encoder, shape_banks
+from ..ffv1.device_coder import (Bank, code_banks, finish_packet,
+                                 shape_banks, upload)
+from ..ffv1 import headers as H
 from ..ffv1.host import build_crop_plan
 from ..ffv1.params import FFV1Config, params_from_config
 from ..utils.metrics import TRACE
@@ -51,29 +52,6 @@ def check_slices(cfg: FFV1Config, p, n_shards: int) -> list:
                 f"size {n_shards} (slice shapes "
                 f"{[pr[ids[0]][2:] for pr in plan]})")
     return plan
-
-
-class _BankUnit:
-    """One uniform-geometry slice bank on this rank: the sub-encoder of
-    its block of the bank's slices (slice_subset), with its own caps and
-    carried coder state.  A uniform frame has one unit of every slice."""
-
-    def __init__(self, bank_ids, width, height, pix_fmt, cfg, p, mesh,
-                 device, emission_order):
-        n_shards = mesh.shape["slice"]
-        n = len(bank_ids) // n_shards
-        # shard s's block: what P("slice") gives shard s of the bank's
-        # slice order
-        self.blocks = [list(bank_ids[s * n:(s + 1) * n])
-                       for s in range(n_shards)]
-        self.enc = DeviceFFV1Encoder(width, height, pix_fmt, cfg,
-                                     device=device,
-                                     emission_order=emission_order,
-                                     params=p,
-                                     slice_subset=self.blocks[mesh.s])
-        self.state_shape = (mesh.shape["data"], n_shards,
-                            self.enc.n_chain_rows + 1,
-                            4 if self.enc.golomb else 32)
 
 
 class ParallelFFV1Encoder:
@@ -105,49 +83,58 @@ class ParallelFFV1Encoder:
         self.data = int(mesh.shape["data"])
         self.n_shards = int(mesh.shape["slice"])
         self.cfg = cfg
+        self.device = torch.device(device)
         p = self.p = params_from_config(cfg, pix_fmt, width, height)
         plan = check_slices(cfg, p, self.n_shards)
-        self.units = [_BankUnit(ids, width, height, pix_fmt, cfg, p, mesh,
-                                device, emission_order)
-                      for ids in shape_banks(plan)]
-        enc0 = self.units[0].enc
-        self.kernels = enc0.kernels
-        self.extradata = enc0.extradata
+        # [bank][s]: shard s's block of each shape bank, what P("slice")
+        # gives shard s of the bank's slice order; this rank codes its
+        # blocks as banks of their own
+        self.blocks = []
+        for ids in shape_banks(plan):
+            n = len(ids) // self.n_shards
+            self.blocks.append([ids[s * n:(s + 1) * n]
+                                for s in range(self.n_shards)])
+        self.banks = [Bank(p, b[mesh.s], plan, self.device, emission_order)
+                      for b in self.blocks]
+        self.kernels = self.banks[0].kernels
+        self.extradata = H.write_extradata(p) if p.version > 1 else b""
         # the global slice id of each row of a gathered lane: shard s's
-        # blocks, unit by unit
+        # blocks, bank by bank
         self._slice_of = [si for s in range(self.n_shards)
-                          for u in self.units for si in u.blocks[s]]
+                          for b in self.blocks for si in b[s]]
         self.picture_number = 0
 
     # -- codec state ---------------------------------------------------------
 
     def state(self) -> list:
-        """The carried coder state, one numpy array per unit in the JAX
+        """The carried coder state, one numpy array per bank in the JAX
         ``_BankUnit._state`` layout: [data, n_shards, chain_rows + 1, 32]
         uint8 (range) or [..., 4] int32 (Golomb-Rice), chain_rows the rows
         of one shard's block.  Gathered from every rank of the mesh; every
         rank calls it."""
         out = []
-        for u in self.units:
-            t = torch.as_tensor(u.enc.state())
+        for bank in self.banks:
+            t = torch.as_tensor(bank.state())
             parts = all_gather_cat(t[None], self.mesh.group).cpu().numpy()
-            out.append(parts.reshape(u.state_shape))
+            out.append(parts.reshape((self.data, self.n_shards)
+                                     + bank.state_shape))
         return out
 
     def load_state(self, tables, picture_number: int):
         """Continue the lanes' streams from ``tables`` (``state()``'s
-        layout, one array per unit: this package's, or the JAX
+        layout, one array per bank: this package's, or the JAX
         ``_BankUnit._state``): rank (d, s) takes its slab [d, s]."""
-        if len(tables) != len(self.units):
-            raise ValueError(f"load_state: {len(self.units)} units, got "
+        if len(tables) != len(self.banks):
+            raise ValueError(f"load_state: {len(self.banks)} units, got "
                              f"{len(tables)} tables")
         d, s = self.mesh.d, self.mesh.s
-        for u, t in zip(self.units, tables):
+        for bank, t in zip(self.banks, tables):
             t = np.asarray(t)
-            if t.shape != u.state_shape:
-                raise ValueError(f"load_state: expected {u.state_shape}, "
+            shape = (self.data, self.n_shards) + bank.state_shape
+            if t.shape != shape:
+                raise ValueError(f"load_state: expected {shape}, "
                                  f"got {t.shape}")
-            u.enc.load_state(t[d, s], picture_number)
+            bank.load_state(t[d, s])
         self.picture_number = int(picture_number)
 
     # -- public API ----------------------------------------------------------
@@ -167,10 +154,9 @@ class ParallelFFV1Encoder:
         keyframe = gop == 0 or self.picture_number % gop == 0
         if force_keyframe is not None:
             keyframe = bool(force_keyframe)
-        enc0 = self.units[0].enc
-        planes = enc0.upload(frames[self.mesh.d])
-        local = [data for u in self.units
-                 for data in u.enc._encode_frame_data(planes, keyframe)]
+        planes = upload(frames[self.mesh.d], self.device)
+        local = [data for part in code_banks(self.banks, planes, keyframe)
+                 for data in part]
         mark("encode")
         cap = max(len(x) for x in local)
         by = np.zeros((len(local), cap), np.uint8)
@@ -183,13 +169,10 @@ class ParallelFFV1Encoder:
         by_h, ln_h = by.cpu().numpy(), ln.cpu().numpy()
         mark("gather")
         n = len(self._slice_of)
-        pkts = []
-        for d in range(self.data):
-            chunks = [None] * self.p.slice_count
-            for j, si in enumerate(self._slice_of):
-                k = d * n + j
-                chunks[si] = by_h[k, :ln_h[k]].tobytes()
-            pkts.append(enc0._finish_packet(chunks))
+        pkts = [finish_packet(self.p, self._slice_of,
+                              [by_h[k, :ln_h[k]].tobytes()
+                               for k in range(d * n, (d + 1) * n)])
+                for d in range(self.data)]
         self.picture_number += 1
         mark("assemble")
         return pkts

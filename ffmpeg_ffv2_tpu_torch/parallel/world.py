@@ -198,7 +198,7 @@ def _ffv1_case(case, mesh, device) -> dict:
     lanes = case["lanes"]
     keyframes = case.get("keyframes") or [None] * len(lanes[0])
     out = dict(packets=[], frame_ms=[], stage_ms=[], state=None,
-               kernels=list(enc.kernels), units=len(enc.units),
+               kernels=list(enc.kernels), units=len(enc.banks),
                transport=mesh.backend, extradata=enc.extradata,
                setup_ms=setup_ms)
     _build.reset_counts()

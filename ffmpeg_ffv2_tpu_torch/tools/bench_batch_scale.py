@@ -68,11 +68,12 @@ def time_batch(enc, staged, B: int, reps: int) -> tuple:
     dev = enc.device
     frames = staged[:B]
     ms = device_ms(lambda: enc.encode_batch(frames), reps, dev)
-    opw, n_ops, steps = enc.batch_ops(frames)
-    k4 = (opw, steps, enc.render_cap)
+    bank = enc.banks[0]
+    opw, n_ops, steps = bank.batch_ops(frames)
+    k4 = (opw, steps, bank.caps.render_cap)
     k4_ms = device_ms(lambda: rac_render(*k4), reps, dev)
     p = enc.p
-    return dict(B=B, slices=B * enc.S, ms=ms, ms_per_frame=ms / B,
+    return dict(B=B, slices=B * bank.S, ms=ms, ms_per_frame=ms / B,
                 mpixel_s=B * p.width * p.height / ms / 1e3,
                 k4_ms=k4_ms, k4_ms_per_frame=k4_ms / B, k4_steps=steps,
                 k4_live_steps=int(n_ops.max())), (k4, n_ops)

@@ -338,20 +338,21 @@ def main() -> int:
             raise _AtK1
 
     def layout_k1(enc, frame):
-        """The encoder's own front stage on frame 0, stopped by its mark
-        hook right after K1."""
+        """The encoder's own front stage on frame 0 (its one bank's),
+        stopped by its mark hook right after K1."""
+        bank, c = enc.banks[0], enc.banks[0].caps
         dev = [torch.as_tensor(x, dtype=torch.int32, device="cuda")
                for x in frame]
-        if enc.golomb:
-            ctx, streams = enc.phase_a_rice(dev)
-            args = (ctx, streams["payload"], enc.vcanon, True,
-                    enc.tiles_cap, enc.cellrows_cap, stop_at_k1)
-            front = enc.rice_front
+        if bank.golomb:
+            ctx, streams = bank.phase_a_rice(dev)
+            args = (ctx, streams["payload"], bank.vcanon, True,
+                    c.tiles_cap, c.cellrows_cap, stop_at_k1)
+            front = bank.rice_front
         else:
-            ctx, diff, _ = enc.range_streams(dev, True)
-            args = (ctx, diff, enc.canonical_key, True, enc.tiles_cap,
-                    enc.cellrows_cap, enc.unsort_words, stop_at_k1)
-            front = enc.front
+            ctx, diff, _ = bank.range_streams(dev, True)
+            args = (ctx, diff, bank.canonical_key, True, c.tiles_cap,
+                    c.cellrows_cap, c.unsort_words, stop_at_k1)
+            front = bank.front
 
         def run():
             try:
@@ -377,10 +378,10 @@ def main() -> int:
                     **layout_k1(enc, frame))
 
     def k5_fields(enc, inputs):
-        k5 = inputs["k5"]
-        ms = cs.cuda_ms(lambda: vlc.vlc_adapt(*k5, enc.code_bits), REPS)
+        k5, bits = inputs["k5"], enc.banks[0].code_bits
+        ms = cs.cuda_ms(lambda: vlc.vlc_adapt(*k5, bits), REPS)
         rows = cs.chain_rows(k5[1].tolist(), k5[3].tolist())
-        return dict(code_bits=enc.code_bits, k5_ms=ms, chain_rows=rows,
+        return dict(code_bits=bits, k5_ms=ms, chain_rows=rows,
                     k5_ns_a_row=ms * 1e6 / rows)
 
     def ladder_fields(inputs):
@@ -425,16 +426,16 @@ def main() -> int:
         caps, pred = k[1], k[3]
         rows = cs.chain_rows(caps.tolist(), pred.tolist())
         live = int(inputs["n_ops"].max())
-        ev = k + (host.n_ev_words(enc.code_bits),)
+        ev = k + (host.n_ev_words(enc.banks[0].code_bits),)
         k3 = inputs["k3"]
-        pack = pack_fields(k, enc.unsort_words, "sign")
+        pack = pack_fields(k, enc.banks[0].caps.unsort_words, "sign")
         t4 = cs.cuda_ms(lambda: rac.rac_render(*inputs["k4"]), REPS)
         t2 = cs.cuda_ms(lambda: ad.adapt(*k), REPS)
         t6 = cs.cuda_ms(lambda: ad.adapt_emission(*ev), REPS)
         t3 = cs.cuda_ms(lambda: ex.expand(*k3), REPS)
         print(json.dumps(dict(
             card=card, root=root, pix=pix, coder="range",
-            code_bits=enc.code_bits,
+            code_bits=enc.banks[0].code_bits,
             k4_ms=t4, k4_steps=inputs["k4"][1], k4_live_steps=live,
             k4_ns_a_step=t4 * 1e6 / live, k2_ms=t2, k6_ms=t6,
             chain_rows=rows, k2_ns_a_row=t2 * 1e6 / rows,
@@ -457,7 +458,8 @@ def main() -> int:
         t2 = cs.cuda_ms(lambda: ad.adapt(*k), REPS)
         print(json.dumps(dict(
             card=card, root=root, pix="bgr0 v4", coder="range",
-            code_bits=enc.code_bits, k6_ms=t6, k6_words=ev[7], k2_ms=t2,
+            code_bits=enc.banks[0].code_bits, k6_ms=t6, k6_words=ev[7],
+            k2_ms=t2,
             chain_rows=rows, k6_ns_a_row=t6 * 1e6 / rows,
             **pack_fields(k, ev[7], "zero"))), flush=True)
         del enc, inputs, ev, k

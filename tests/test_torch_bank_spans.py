@@ -104,7 +104,7 @@ def test_torch_bank_spans_attempts_count_within_a_bank(
     frames = _frames(4, 33, seed=8)
     enc = _session(33)
     got = [enc.encode(f) for f in frames[:3]]     # the caps settle
-    enc.banks[retried].tiles_cap = 1
+    enc.banks[retried].caps.tiles_cap = 1
     got.append(enc.encode(frames[3]))
     assert got == _native(enc, frames)
     call = enc.trace.calls()[-1]
@@ -127,7 +127,7 @@ def test_torch_bank_spans_render_retry_under_its_bank(
     frames = _frames(4, 33, seed=9)
     enc = _session(33)
     got = [enc.encode(f) for f in frames[:3]]     # the caps settle
-    enc.banks[retried].render_cap = 64
+    enc.banks[retried].caps.render_cap = 64
     got.append(enc.encode(frames[3]))
     assert got == _native(enc, frames)
     st = enc.trace.calls()[-1].stages
@@ -196,7 +196,7 @@ def test_torch_bank_spans_one_bank_marks_nothing_new(
     once (a second attempt from the layout on), the second fits."""
     frames = _frames(2, 34)
     enc = _session(34)
-    assert enc.banks is None
+    assert len(enc.banks) == 1
     assert [enc.encode(f) for f in frames] == _native(enc, frames)
     first, second = enc.trace.calls()
     assert {s.bank for c in (first, second) for s in c.stages} == {0}

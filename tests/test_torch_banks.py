@@ -23,7 +23,7 @@ def test_torch_encoder_shape_banks(pix, coder):
     shape, the packet assembled in global slice order; state() refuses a
     banked session."""
     enc = _run(pix, (35, 33), 3, coder, lossless=False)
-    assert enc.banks is not None and len(enc.banks) == 4
+    assert len(enc.banks) == 4
     assert sorted(si for b in enc.banks for si in b.slice_ids) == [0, 1, 2, 3]
     for fn in (enc.state, lambda: enc.load_state(None, 0)):
         with pytest.raises(ValueError, match="shape banks"):
@@ -79,9 +79,9 @@ def test_torch_encoder_banks_pipelined_retries(torch_one_thread,  # noqa: F811
     for t, f in enumerate(_tape_frames(2 if gop == 1 else 3)):
         if t == 1:
             if kind == "render":
-                enc.banks[bank].render_cap = 64
+                enc.banks[bank].caps.render_cap = 64
             else:
-                enc.banks[bank].tiles_cap = 1
+                enc.banks[bank].caps.tiles_cap = 1
         assert enc.encode(f) == nat.encode(f, t % gop == 0), t
     st = enc.trace.calls()[1].stages
     names = [s.name for s in st]

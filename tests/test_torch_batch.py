@@ -60,7 +60,8 @@ def check_batch(pix, frames, cfg=CFG, params=None, emission=False):
     assert enc.encode(before, force_keyframe=True) == sess.encode(before,
                                                                   True)
     state = enc.state()
-    caps = (enc.tiles_cap, enc.cellrows_cap, enc.picture_number)
+    caps = (enc.banks[0].caps.tiles_cap, enc.banks[0].caps.cellrows_cap,
+            enc.picture_number)
     _build.reset_counts()
     pkts = enc.encode_batch(frames)
     assert len(pkts) == len(frames)
@@ -76,7 +77,8 @@ def check_batch(pix, frames, cfg=CFG, params=None, emission=False):
                                  params=params)
     assert jenc.encode_batch(frames) == pkts
     assert np.array_equal(enc.state(), state)
-    assert (enc.tiles_cap, enc.cellrows_cap, enc.picture_number) == caps
+    assert (enc.banks[0].caps.tiles_cap, enc.banks[0].caps.cellrows_cap,
+            enc.picture_number) == caps
     assert enc.encode(after, force_keyframe=False) == sess.encode(after,
                                                                   False)
     return enc
@@ -89,7 +91,7 @@ def test_torch_encode_batch_yuv420p(B):
     p = params_from_config(CFG, "yuv420p", W, H)
     enc = check_batch("yuv420p", random_frames(p, B, flat=1 if B > 1
                                                else None))
-    assert list(enc._batch_caps) == [B]
+    assert list(enc.banks[0].batch_caps) == [B]
 
 
 def test_torch_encode_batch_twopass_initial_states():
@@ -103,9 +105,10 @@ def test_torch_encode_batch_twopass_initial_states():
         1, 256, (p.context_counts[p.context_model], 32)).astype(np.uint8)
     p = dataclasses.replace(p, initial_states=init)
     enc = check_batch("yuv420p", random_frames(p, 2, flat=1), params=p)
-    key = enc.key_canonical(2 * enc.S).numpy()
-    assert np.array_equal(key[:-1], np.tile(enc.canonical_key1.numpy(),
-                                            (2 * enc.S, 1)))
+    bank = enc.banks[0]
+    key = bank.key_canonical(2 * bank.S).numpy()
+    assert np.array_equal(key[:-1], np.tile(bank.canonical_key1.numpy(),
+                                            (2 * bank.S, 1)))
     assert np.any(key[:-1] != 128) and np.all(key[-1] == 128)
 
 

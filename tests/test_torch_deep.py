@@ -261,7 +261,7 @@ def test_torch_rgb_phase_a(pix):
     the swapped plane order, rgb48 the int32 samples."""
     w, h = 32, 24
     jenc = jdc.DeviceFFV1Encoder(w, h, pix, CFG4, use_pallas=False)
-    enc = tdc.DeviceFFV1Encoder(w, h, pix, CFG4, device="cpu")
+    enc = tdc.DeviceFFV1Encoder(w, h, pix, CFG4, device="cpu").banks[0]
     rng = np.random.RandomState(4)
     planes = [rng.randint(0, 1 << jenc.p.bits, (h, w)).astype(np.int32)
               for _ in range(3)]
@@ -286,7 +286,7 @@ def test_torch_rct_costs_and_pick(pix, seed):
     rct.choose_rct_params on each slice."""
     w, h = 48, 32
     jenc = jdc.DeviceFFV1Encoder(w, h, pix, CFG4, use_pallas=False)
-    enc = tdc.DeviceFFV1Encoder(w, h, pix, CFG4, device="cpu")
+    enc = tdc.DeviceFFV1Encoder(w, h, pix, CFG4, device="cpu").banks[0]
     planes = rgb_quadrants(jenc.p.bits, w, h, seed)
     tpl = [t_(x) for x in planes]
     jpl = [jnp.asarray(x) for x in planes]
@@ -308,7 +308,7 @@ def test_torch_rct_costs_and_pick(pix, seed):
 def test_torch_prefix_for_rct(keyframe):
     w, h = 48, 32
     jenc = jdc.DeviceFFV1Encoder(w, h, "bgr0", CFG4, use_pallas=False)
-    enc = tdc.DeviceFFV1Encoder(w, h, "bgr0", CFG4, device="cpu")
+    enc = tdc.DeviceFFV1Encoder(w, h, "bgr0", CFG4, device="cpu").banks[0]
     rct_list = [(1, 1), (0, 2), (3, 1), (0, 0)]
     got = enc.prefix_for_rct(keyframe, rct_list)
     ref = jenc._prefix_for_rct(keyframe, rct_list)

@@ -72,7 +72,7 @@ def _run(pix, wh, level, coder, emission=False, lossless=True):
                                     ("yuv444p16", (24, 16)),
                                     ("gray16", (32, 24))])
 def test_torch_encoder_deep_yuv(pix, wh):
-    enc = _run(pix, wh, 3, 1)
+    enc = _run(pix, wh, 3, 1).banks[0]
     assert enc.code_bits > 10 and enc.wide in (16, 17)
 
 
@@ -82,7 +82,7 @@ def test_torch_encoder_deep_yuv(pix, wh):
                                           ("rgb48", (24, 16), 3),
                                           ("rgb48", (24, 16), 4)])
 def test_torch_encoder_rgb(pix, wh, level):
-    enc = _run(pix, wh, level, 1)
+    enc = _run(pix, wh, level, 1).banks[0]
     assert enc.v4rgb == (level == 4)
     if pix == "rgb48":
         assert enc.p.use32bit and enc.code_bits == 17

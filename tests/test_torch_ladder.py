@@ -81,7 +81,8 @@ def _rice16_frame():
     cfg = FFV1Config(level=3, slices=4)
     p = dataclasses.replace(params_from_config(cfg, "yuv420p16", w, h),
                             ac=CODER_GOLOMB)
-    enc = DeviceFFV1Encoder(w, h, "yuv420p16", cfg, device="cpu", params=p)
+    enc = DeviceFFV1Encoder(w, h, "yuv420p16", cfg, device="cpu",
+                            params=p).banks[0]
     rng = np.random.RandomState(5)
     planes = []
     for sh in [(h, w), (h // 2, w // 2), (h // 2, w // 2)]:

@@ -67,7 +67,7 @@ def test_torch_phase_a_streams(pix, kind):
     """Per-slice (ctx, diff) streams == JAX DeviceFFV1Encoder._phase_a."""
     shapes = ((H, W),) if pix == "gray" else None
     planes = _planes(kind, seed=5, **({"shapes": shapes} if shapes else {}))
-    enc = DeviceFFV1Encoder(W, H, pix, CFG, device="cpu")
+    enc = DeviceFFV1Encoder(W, H, pix, CFG, device="cpu").banks[0]
     ctx, diff = enc.phase_a([torch.as_tensor(pl) for pl in planes])
     jenc = JaxEncoder(W, H, pix, CFG, use_pallas=False)
     jctx, jdiff = jenc._phase_a([jnp.asarray(pl) for pl in planes])
@@ -154,7 +154,7 @@ def _session_planes(pix, w, h, seed, kind="random"):
 
 
 def _units(enc):
-    return enc.banks or [enc]
+    return enc.banks
 
 
 def _by_ry(enc, seed):
@@ -348,7 +348,8 @@ def test_torch_phase_a_wrapper_plain_equals_streams(pix, level):
     streams, v4 RGB with per-slice RCT coefficients too."""
     w, h = 64, 48
     enc = DeviceFFV1Encoder(w, h, pix, TConfig(level=level, coder=1,
-                                                  slices=4), device="cpu")
+                                                  slices=4),
+                            device="cpu").banks[0]
     planes = [torch.as_tensor(x) for x in _session_planes(pix, w, h, 3)]
     k = _build.KERNELS["phase_a"]
     before = k.plain_calls
@@ -380,11 +381,12 @@ def test_torch_phase_a_batch_rows(pix, B):
     enc = DeviceFFV1Encoder(w, h, pix, TConfig(level=3, coder=1,
                                                   slices=4), device="cpu")
     frames = [_session_planes(pix, w, h, 20 + b) for b in range(B)]
-    ctx, diff, (svp, btp, hlen) = enc.batch_streams(frames)
-    S = enc.S
-    assert ctx.shape == diff.shape == (B * S, enc.npix)
+    bank = enc.banks[0]
+    ctx, diff, (svp, btp, hlen) = bank.batch_streams(frames)
+    S = bank.S
+    assert ctx.shape == diff.shape == (B * S, bank.npix)
     for b, f in enumerate(frames):
-        c, d = enc.phase_a(enc.upload(f))
+        c, d = bank.phase_a(enc.upload(f))
         assert torch.equal(ctx[b * S:(b + 1) * S], c)
         assert torch.equal(diff[b * S:(b + 1) * S], d)
     assert hlen.shape == (B * S,)

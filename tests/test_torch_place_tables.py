@@ -83,7 +83,7 @@ def layout(request, monkeypatch):
     w, h = (96, 64) if gcap == 64 else (48, 32)
     enc = DeviceFFV1Encoder(w, h, "yuv420p",
                             FFV1Config(level=3, coder=coder, slices=4),
-                            device="cpu")
+                            device="cpu").banks[0]
     planes = _frame(w, h, 11)
     if coder:
         (ctx, field), bits = enc.phase_a(planes), 0
@@ -92,7 +92,7 @@ def layout(request, monkeypatch):
         field, bits = streams["payload"], enc.rice_pb + 1
 
     def plan_at(cellrows_cap):
-        plan = enc.layout(ctx, field, enc.tiles_max, cellrows_cap, bits)
+        plan = enc.layout(ctx, field, enc.caps.tiles_max, cellrows_cap, bits)
         assert set(TABLE_KEYS) <= set(plan)
         assert (plan["tile_rank0"] > 0).any()      # split groups' tiles
         return plan
@@ -130,13 +130,13 @@ def _check_walk(plan, cellrows_cap):
 
 def test_torch_place_tables_reproduce_dest(layout):
     enc, plan_at = layout
-    _check_runs(plan_at(enc.cellrows_max))
+    _check_runs(plan_at(enc.caps.cellrows_max))
 
 
 def test_torch_place_lane_walk_equals_scatter(layout):
     enc, plan_at = layout
-    rows = int(plan_at(enc.cellrows_max)["n_rows"])
-    for cellrows_cap in (enc.cellrows_max, rows):
+    rows = int(plan_at(enc.caps.cellrows_max)["n_rows"])
+    for cellrows_cap in (enc.caps.cellrows_max, rows):
         _check_walk(plan_at(cellrows_cap), cellrows_cap)
 
 
@@ -145,7 +145,7 @@ def test_torch_place_overflowing_layout(layout):
     bases, the cells past the cap are dropped, and the slot runs and the
     lane walk still follow dest."""
     enc, plan_at = layout
-    cellrows_cap = int(plan_at(enc.cellrows_max)["n_rows"]) // 2
+    cellrows_cap = int(plan_at(enc.caps.cellrows_max)["n_rows"]) // 2
     plan = plan_at(cellrows_cap)
     assert not torch.equal(plan["tile_bases"], plan["cell_bases"])
     dest = plan["dest"]

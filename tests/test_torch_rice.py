@@ -215,13 +215,13 @@ def jax_tree_np(v):
 
 @pytest.fixture(scope="module")
 def port48(real48):
-    enc = DeviceFFV1Encoder(W48, H48, "yuv420p", CFG, device="cpu")
-    enc.tiles_cap, enc.cellrows_cap = (real48["tiles_cap"],
-                                       real48["cellrows_cap"])
+    enc = DeviceFFV1Encoder(W48, H48, "yuv420p", CFG, device="cpu").banks[0]
+    enc.caps.tiles_cap, enc.caps.cellrows_cap = (real48["tiles_cap"],
+                                                 real48["cellrows_cap"])
     ctx, streams = enc.phase_a_rice([_t(p) for p in real48["planes"]])
-    plan = enc.layout(ctx, streams["payload"], enc.tiles_cap,
-                      enc.cellrows_cap, rice.PAYLOAD_BITS + 1)
-    ch1c, ch2c = place(plan, enc.cellrows_cap)
+    plan = enc.layout(ctx, streams["payload"], enc.caps.tiles_cap,
+                      enc.caps.cellrows_cap, rice.PAYLOAD_BITS + 1)
+    ch1c, ch2c = place(plan, enc.caps.cellrows_cap)
     return dict(enc=enc, ctx=ctx, streams=streams, plan=plan, ch1c=ch1c,
                 ch2c=ch2c)
 
@@ -271,7 +271,7 @@ def test_torch_vlc_adapt_plain_zero_carry(monkeypatch, real48, port48):
     rows belong to no tile, so only the other tiles' rows compare."""
     monkeypatch.setattr(host, "GCAP", 16)
     monkeypatch.setattr(jdc, "GCAP", 16)
-    enc = DeviceFFV1Encoder(W48, H48, "yuv420p", CFG, device="cpu")
+    enc = DeviceFFV1Encoder(W48, H48, "yuv420p", CFG, device="cpu").banks[0]
     s = port48["streams"]
     tiles_cap, cellrows_cap = 256, 4096
     plan = enc.layout(port48["ctx"], s["payload"], tiles_cap, cellrows_cap,

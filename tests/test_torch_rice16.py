@@ -53,7 +53,7 @@ def test_torch_rice_deep_matches_native_and_jax(pix, pb):
     p = _params(pix)
     assert rice.rice_pb(p.bits) == pb
     enc = DeviceFFV1Encoder(W, H, pix, CFG, device="cpu", params=p)
-    assert enc.rice_pb == pb
+    assert enc.banks[0].rice_pb == pb
     jenc = jdc.DeviceFFV1Encoder(W, H, pix, CFG, use_pallas=False, params=p)
     nat = NativeFFV1Codec(p)
     _build.reset_counts()
@@ -150,5 +150,5 @@ def test_torch_rice_depth17_refused():
     with pytest.raises(NotImplementedError):
         rice.rice_pb(17)
     assert rice.rice_pb(16) == 16 and rice.rice_pb(12) == 12
-    enc = DeviceFFV1Encoder(W, H, "rgb48", CFG, device="cpu")
+    enc = DeviceFFV1Encoder(W, H, "rgb48", CFG, device="cpu").banks[0]
     assert not enc.golomb and enc.code_bits == 17

@@ -160,7 +160,7 @@ def test_torch_trace_retry_attempts():
     codec's."""
     frames = _frames(1, seed=7)
     enc, cfg = _session("range")
-    enc.tiles_cap = 1
+    enc.banks[0].caps.tiles_cap = 1
     assert _run(enc, "range", frames) == _native(cfg, frames, "range")
     (call,) = enc.trace.calls()
     attempts = [(s.name, s.attempt) for s in call.stages]

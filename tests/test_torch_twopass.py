@@ -103,9 +103,10 @@ def test_torch_twopass_device_encoder():
     enc = DeviceFFV1Encoder(W, H, "yuv420p", FFV1Config(**cfg_kw),
                             device="cpu", params=p2)
     nat = NativeFFV1Codec(mk())
-    key = enc.canonical_key.numpy()
-    assert np.array_equal(key[:enc.rows_per_slice],
-                          key[enc.rows_per_slice:2 * enc.rows_per_slice])
+    bank = enc.banks[0]
+    key = bank.canonical_key.numpy()
+    assert np.array_equal(key[:bank.rows_per_slice],
+                          key[bank.rows_per_slice:2 * bank.rows_per_slice])
     assert np.any(key[:-1] != 128) and np.all(key[-1] == 128)
     pkts = []
     for t, f in enumerate(frames + frames[:1]):

@@ -235,7 +235,7 @@ def test_torch_vlc_chain_model_split_groups(monkeypatch, gcap):
         planes.append(torch.as_tensor(np.where(
             noise, rng.randint(0, 256, (hh, ww)),
             (xx // 8 * 8 + yy) % 256).astype(np.int32)))
-    enc = DeviceFFV1Encoder(W48, H48, "yuv420p", CFG, device="cpu")
+    enc = DeviceFFV1Encoder(W48, H48, "yuv420p", CFG, device="cpu").banks[0]
     ctx, streams = enc.phase_a_rice(planes)
     tiles_cap, cellrows_cap = 256, 4096
     plan = enc.layout(ctx, streams["payload"], tiles_cap, cellrows_cap,
